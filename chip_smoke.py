@@ -1,0 +1,208 @@
+"""Smoke run of the PyTorch port on one CUDA card.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from the sources in the checkout, holds each
+against its plain PyTorch version on the card, checks the KRR algebra
+against a dense solve, then runs RandomPatchCifarKernel at full width
+(CIFAR-10's 50000 / 10000 images, synthetic, from a seed) through the
+command-line entry point and checks that the kernels carried it. Each phase
+prints one JSON line; any failure raises and exits non-zero. The last line
+is ``{"ok": true, "device": {...}}``. Without a CUDA card it exits
+non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import torch
+
+# H100 SXM peaks (NVIDIA's data sheet): float32 outside the tensor cores,
+# and device memory bandwidth
+FP32_FLOPS = 67e12
+HBM_BYTES_PER_S = 3.35e12
+
+GAMMA = 2e-4  # the RandomPatchCifarKernel default
+CHECK_SHAPES = [(700, 128, 256), (37, 5, 3), (1, 800, 100), (513, 33, 129),
+                (50000, 800, 5000), (10000, 800, 5000)]  # (n, d, b)
+FIT_SHAPE = (50000, 800, 5000)
+APPLY_SHAPE = (10000, 800, 5000)
+SLICE_ARGS = ["RandomPatchCifarKernel", "--nTrain", "50000", "--nTest", "10000",
+              "--lambda", "5.0"]
+SLICE_LAUNCHES = 30  # 10 blocks × (fit, apply to train, apply to test)
+
+
+def emit(obj: dict) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int = 10) -> float:
+    """Mean milliseconds of one call, by CUDA events after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def gaussian_bound_ms(n: int, d: int, b: int):
+    """The least time for one Gaussian block on the card: each input read
+    once and the output written once, against the FP32 operations (the
+    2·n·b·d cross products, the 2·(n+b)·d norms and five per output)."""
+    bytes_ = 4.0 * (n * d + b * d + n * b)
+    ops = 2.0 * n * b * d + 2.0 * (n + b) * d + 5.0 * n * b
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, ops / FP32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    import keystone_tpu_torch
+    from keystone_tpu_torch import __main__ as cli
+    from keystone_tpu_torch.data.dataset import Dataset
+    from keystone_tpu_torch.nodes.learning.kernel import KernelRidgeRegression
+    from keystone_tpu_torch.ops import _build
+    from keystone_tpu_torch.ops import gaussian_kernel as gk
+    from keystone_tpu_torch.loaders.cifar import synthetic_cifar
+    from keystone_tpu_torch.pipelines import cifar_extras
+    from keystone_tpu_torch.workflow.pipeline import apply_stages
+
+    dev = keystone_tpu_torch.device()
+    card = card_line()
+    emit({"phase": "device", "name": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count(), "nvidia_smi": card,
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+
+    t0 = time.perf_counter()
+    _build.build("gaussian_kernel")
+    gk._lib()
+    emit({"phase": "build", "kernel": "gaussian_kernel",
+          "seconds": time.perf_counter() - t0,
+          "ptxas": [l.strip() for l in _build.BUILD_INFO["gaussian_kernel"]["log"].splitlines()
+                    if "registers" in l]})
+
+    # -- each kernel against its plain version, on the card --------------
+    gen = torch.Generator(device=dev).manual_seed(0)
+    max_err = 0.0
+    for n, d, b in CHECK_SHAPES:
+        X = torch.randn(n, d, device=dev, generator=gen)
+        Xb = torch.randn(b, d, device=dev, generator=gen)
+        got = gk.gaussian_kernel_block(X, Xb, GAMMA)
+        want = gk.gaussian_kernel_block_plain(X, Xb, GAMMA)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+        max_err = max(max_err, err)
+        emit({"phase": "kernel_check", "kernel": "gaussian_kernel_block",
+              "shape": [n, d, b], "max_abs_err": err, "atol": 1e-5, "rtol": 1e-4})
+        del X, Xb, got, want
+
+    # timed at the main path's shapes; the block is a row slice of the
+    # data, as the KRR fit passes it
+    timings = {}
+    for label, (n, d, b) in (("fit", FIT_SHAPE), ("apply", APPLY_SHAPE)):
+        X = torch.randn(max(n, FIT_SHAPE[0]), d, device=dev, generator=gen)
+        Xq, Xb = X[:n], X[2 * b:3 * b]
+        row = {}
+        for _ in range(2):  # plain, kernel, library, then again
+            row.setdefault("plain_ms", []).append(
+                time_ms(lambda: gk.gaussian_kernel_block_plain(Xq, Xb, GAMMA)))
+            row.setdefault("ms", []).append(
+                time_ms(lambda: gk.gaussian_kernel_block(Xq, Xb, GAMMA)))
+            row.setdefault("library_ms", []).append(
+                time_ms(lambda: torch.exp(-GAMMA * torch.cdist(Xq, Xb).square())))
+        bound, bound_by = gaussian_bound_ms(n, d, b)
+        timings[label] = dict({k: min(v) for k, v in row.items()},
+                              bound_ms=bound, bound_by=bound_by, shape=[n, d, b])
+        emit(dict({"phase": "kernel_time", "kernel": "gaussian_kernel_block",
+                   "main_path_role": label, "card": card}, **timings[label],
+                  all_runs=row))
+        del X, Xq, Xb
+
+    # -- exact algebra: one KRR block is a dense (K + λI) W = Y solve -----
+    n, d, k = 5000, 800, 10
+    rng = torch.Generator(device=dev).manual_seed(5)
+    protos = 0.6 * torch.randn(k, d, device=dev, generator=rng)
+    y = torch.randint(0, k, (n,), device=dev, generator=rng)
+    X = protos[y] + torch.randn(n, d, device=dev, generator=rng)
+    Y = -torch.ones(n, k, device=dev)
+    Y[torch.arange(n, device=dev), y] = 1.0
+    # bench.py's λ = 1e-4 per training row, here for the block's n rows
+    gamma, lam = 1.0 / (2.0 * d), 1e-4 * n
+    model = KernelRidgeRegression(gamma, lam, block_size=n, num_epochs=1,
+                                  cache_kernel=False).fit(Dataset.of(X), Dataset.of(Y))
+    K = gk.gaussian_kernel_block_plain(X, X, gamma)
+    W_direct = torch.linalg.solve(K + lam * torch.eye(n, device=dev), Y)
+    exact_dev = (model.W - W_direct).abs().max().item()
+    emit({"phase": "exact_algebra", "n": n, "d": d, "lambda": lam,
+          "max_abs_dev": exact_dev, "limit": 1e-2})
+    if not exact_dev <= 1e-2:
+        raise AssertionError(f"single-block KRR is {exact_dev} off the dense solve")
+    del X, Y, K, W_direct, model
+
+    # -- the slice on a small input: card (kernel) against CPU (plain) ---
+    conf = cifar_extras.KernelCifarConfig(
+        num_filters=16, lam=1.0, gamma=1e-3, block_size=64, whitener_size=2000,
+        pool_size=8, pool_stride=7)
+    train, test = synthetic_cifar(192, seed=7), synthetic_cifar(48, seed=8)
+    scores = {}
+    for name, where in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        pipe, _, _, _ = cifar_extras.run_random_patch_cifar_kernel(train, test, conf, where)
+        scores[name] = apply_stages(pipe.fit().stages[:-1],
+                                    test.data.to_array().to(where)).to_array().cpu()
+    small_dev = (scores["cuda"] - scores["cpu"]).abs().max().item()
+    emit({"phase": "small_slice_vs_cpu", "max_abs_dev": small_dev, "limit": 1e-3})
+    if not small_dev <= 1e-3:
+        raise AssertionError(f"the slice on the card is {small_dev} off the CPU run")
+
+    # -- the main path at full width, through the command line's code ----
+    gk.gaussian_kernel_block.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    out = cli.run(SLICE_ARGS)
+    launches = gk.gaussian_kernel_block.launches
+    emit({"phase": "slice", "app": "RandomPatchCifarKernel", "args": SLICE_ARGS,
+          "train_error": out["train_error"], "test_error": out["test_error"],
+          "seconds": out["seconds"], "phase_seconds": out["phases"],
+          "gaussian_kernel_block_launches": launches,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card})
+    if launches != SLICE_LAUNCHES:
+        raise AssertionError(f"K1 launched {launches} times, want {SLICE_LAUNCHES}")
+    if not out["test_error"] < 0.7:
+        raise AssertionError(f"test error {out['test_error']} is not below 0.7")
+
+    fit = timings["fit"]
+    emit({"kernels": [{
+        "name": "gaussian_kernel_block", "route": "cuda",
+        "source": "keystone_tpu_torch/ops/csrc/gaussian_kernel.cu",
+        "replaces": "keystone_tpu/ops/gaussian_kernel.py:64",
+        "launches": launches, "max_abs_err": max_err, "ms": fit["ms"],
+        "plain_ms": fit["plain_ms"], "bound_ms": fit["bound_ms"],
+        "bound_by": fit["bound_by"], "library_ms": fit["library_ms"],
+    }]})
+    print(card, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,39 @@
+"""Command line: ``python -m keystone_tpu_torch <App> [--device cpu] ...``.
+
+The port runs one application so far, RandomPatchCifarKernel, with the
+flags of the JAX package's CLI. It runs on CUDA unless ``--device cpu``
+is given.
+"""
+
+from __future__ import annotations
+
+import sys
+
+from .pipelines import cifar_extras
+
+#: application name → (runner returning a result dict, CLI main)
+PIPELINES = {
+    "RandomPatchCifarKernel": (cifar_extras.run_app, cifar_extras.main),
+}
+
+
+def _app(argv):
+    if not argv or argv[0] not in PIPELINES:
+        raise SystemExit(
+            f"usage: python -m keystone_tpu_torch {{{','.join(PIPELINES)}}} [flags]"
+        )
+    return PIPELINES[argv[0]]
+
+
+def run(argv) -> dict:
+    """Run an application and return its result dict."""
+    return _app(argv)[0](argv)
+
+
+def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    return _app(argv)[1](argv)
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

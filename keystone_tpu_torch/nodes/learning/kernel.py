@@ -1,0 +1,156 @@
+"""Gaussian kernel blocks and Gauss-Seidel kernel ridge regression (port of
+``keystone_tpu/nodes/learning/kernel.py``).
+
+The n×n kernel matrix is never materialized: one n×b column block at a
+time comes from the K1 kernel (``ops/gaussian_kernel.py``), is optionally
+cached on the device, and feeds one block step of the solve.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from ...data.dataset import Dataset
+from ...linalg.row_matrix import solve_spd
+from ...ops.gaussian_kernel import (
+    gaussian_kernel_block,
+    gaussian_kernel_block_plain as _gaussian_block_plain,
+)
+from ...workflow.transformer import LabelEstimator, Transformer
+
+
+def _gaussian_block(X: torch.Tensor, Xb: torch.Tensor, gamma: float) -> torch.Tensor:
+    """Kernel-block front door: the CUDA kernel for CUDA tensors (which
+    launches or raises), the plain version for CPU tensors."""
+    if X.is_cuda:
+        return gaussian_kernel_block(X, Xb, gamma)
+    return _gaussian_block_plain(X, Xb, gamma)
+
+
+class KernelBlockLinearMapper(Transformer):
+    """Apply a kernel model: out = Σ_B K(X, train_B) · W_B, one K1 launch
+    per block of ``block_size`` training rows (the last may be short)."""
+
+    def __init__(self, train_X: torch.Tensor, model_W: torch.Tensor,
+                 gamma: float, block_size: int):
+        self.train_X = train_X.float()
+        self.W = model_W.float()  # (n_train, k)
+        self.gamma = gamma
+        self.block_size = block_size
+
+    def forward(self, X: torch.Tensor) -> torch.Tensor:
+        X = X.float()
+        n_train = self.train_X.shape[0]
+        out = torch.zeros((X.shape[0], self.W.shape[1]),
+                          dtype=torch.float32, device=X.device)
+        for start in range(0, n_train, self.block_size):
+            end = min(start + self.block_size, n_train)
+            Kb = _gaussian_block(X, self.train_X[start:end], self.gamma)
+            out.addmm_(Kb, self.W[start:end])
+        return out
+
+
+def _block_update(Kb, Y, W, start: int, lam: float, bs: int) -> None:
+    """One Gauss-Seidel block step given the kernel block Kb = K(X, X_B)
+    (the cached-kernel mode calls it directly):
+        (K_BB + λI) W_B ← Y_B − (K_Bᵀ W − K_BBᵀ W_B_old)
+    W is updated in place (the JAX package's dynamic_update_slice)."""
+    Kbb = Kb[start:start + bs]
+    W_old = W[start:start + bs]
+    residual = Kb.T @ W - Kbb.T @ W_old
+    W[start:start + bs] = solve_spd(Kbb, Y[start:start + bs] - residual, lam)
+
+
+def _krr_block_step(X, Y, W, start: int, gamma: float, lam: float, bs: int) -> None:
+    """One Gauss-Seidel block step with the kernel block generated anew
+    (streaming mode). The block rows are a row slice of X: no copy."""
+    Kb = _gaussian_block(X, X[start:start + bs], gamma)
+    _block_update(Kb, Y, W, start, lam, bs)
+
+
+def _kernel_block_slice(X: torch.Tensor, start: int, gamma: float, bs: int) -> torch.Tensor:
+    """K(X, X[start:start+bs]): the generation path of cached-kernel mode."""
+    return _gaussian_block(X, X[start:start + bs], gamma)
+
+
+class KernelRidgeRegression(LabelEstimator):
+    """Gauss-Seidel block-coordinate kernel ridge regression. Blocks are
+    visited in order, or in an order drawn per epoch from
+    ``default_rng(block_permuter)``. With ``checkpoint_dir`` the state
+    (W, epoch, step) is saved every ``checkpoint_interval`` blocks, a fit
+    resumes from it, and a completed fit deletes it."""
+
+    def __init__(self, gamma: float, lam: float, block_size: int,
+                 num_epochs: int, block_permuter: Optional[int] = None,
+                 cache_kernel: bool = True,
+                 checkpoint_dir: Optional[str] = None,
+                 checkpoint_interval: int = 25):
+        self.gamma = gamma
+        self.lam = lam
+        self.block_size = block_size
+        self.num_epochs = num_epochs
+        self.block_permuter = block_permuter
+        self.cache_kernel = cache_kernel
+        self.checkpoint_dir = checkpoint_dir
+        self.checkpoint_interval = checkpoint_interval
+
+    def _ckpt_path(self) -> Optional[str]:
+        if not self.checkpoint_dir:
+            return None
+        os.makedirs(self.checkpoint_dir, exist_ok=True)
+        return os.path.join(self.checkpoint_dir, "krr_state.npz")
+
+    def fit(self, data: Dataset, labels: Dataset) -> KernelBlockLinearMapper:
+        X = Dataset.of(data).to_array().float()
+        Y = Dataset.of(labels).to_array().to(X.device, torch.float32)
+        n, k = Y.shape
+        bs = self.block_size
+        kernel_cache: Dict[int, torch.Tensor] = {}
+        W = torch.zeros((n, k), dtype=torch.float32, device=X.device)
+
+        num_blocks = -(-n // bs)
+        rng = (
+            np.random.default_rng(self.block_permuter)
+            if self.block_permuter is not None
+            else None
+        )
+        start_epoch, start_step = 0, 0
+        ckpt = self._ckpt_path()
+        if ckpt and os.path.exists(ckpt):
+            saved = np.load(ckpt)
+            if saved["W"].shape == (n, k):
+                W = torch.as_tensor(saved["W"], device=X.device)
+                start_epoch = int(saved["epoch"])
+                start_step = int(saved["step"])
+        steps_done = 0
+        for epoch in range(self.num_epochs):
+            # the permutation stream must be identical across a resume, so
+            # draw it every epoch regardless of where the fit restarts
+            order = list(range(num_blocks))
+            if rng is not None:
+                rng.shuffle(order)
+            if epoch < start_epoch:
+                continue
+            for step, blk in enumerate(order):
+                if epoch == start_epoch and step < start_step:
+                    continue
+                start = blk * bs
+                size = min(bs, n - start)
+                if self.cache_kernel:
+                    Kb = kernel_cache.get(start)
+                    if Kb is None:
+                        Kb = _kernel_block_slice(X, start, self.gamma, size)
+                        kernel_cache[start] = Kb
+                    _block_update(Kb, Y, W, start, self.lam, size)
+                else:
+                    _krr_block_step(X, Y, W, start, self.gamma, self.lam, size)
+                steps_done += 1
+                if ckpt and steps_done % self.checkpoint_interval == 0:
+                    np.savez(ckpt, W=W.cpu().numpy(), epoch=epoch, step=step + 1)
+        if ckpt and os.path.exists(ckpt):
+            os.remove(ckpt)  # complete fit: drop the restart state
+        return KernelBlockLinearMapper(X, W, self.gamma, bs)
