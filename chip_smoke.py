@@ -6,10 +6,14 @@ Builds the port's CUDA kernels from the sources in the checkout, holds each
 against its plain PyTorch version on the card, checks the KRR algebra
 against a dense solve, then runs RandomPatchCifarKernel at full width
 (CIFAR-10's 50000 / 10000 images, synthetic, from a seed) through the
-command-line entry point and checks that the kernels carried it. Each phase
-prints one JSON line; any failure raises and exits non-zero. The last line
-is ``{"ok": true, "device": {...}}``. Without a CUDA card it exits
-non-zero and prints no result.
+command-line entry point and checks that the kernels carried it. Then
+MnistRandomFFT: a small run on the card against the CPU, BASELINE's
+configuration (4 FFTs) against the task's Bayes error, and the CLI's
+default width (200 FFTs, d = 102,400, 50 BCD block steps over a 24.6 GB
+feature matrix) with its peak memory. Each phase prints one JSON line; any
+failure raises and exits non-zero. The last line is ``{"ok": true,
+"device": {...}}``. Without a CUDA card it exits non-zero and prints no
+result.
 """
 
 from __future__ import annotations
@@ -34,6 +38,14 @@ APPLY_SHAPE = (10000, 800, 5000)
 SLICE_ARGS = ["RandomPatchCifarKernel", "--nTrain", "50000", "--nTest", "10000",
               "--lambda", "5.0"]
 SLICE_LAUNCHES = 30  # 10 blocks × (fit, apply to train, apply to test)
+
+# MnistRandomFFT: BASELINE's configuration (bench.py's), then the JAX CLI's
+# default width; 60000 / 10000 synthetic images of MNIST's shape
+MNIST_ROWS = ["--blockSize", "2048", "--lambda", "1000", "--nTrain", "60000",
+              "--nTest", "10000"]
+MNIST_CANONICAL = ["MnistRandomFFT", "--numFFTs", "4"] + MNIST_ROWS
+MNIST_FULL = ["MnistRandomFFT", "--numFFTs", "200"] + MNIST_ROWS
+MNIST_FULL_STEPS = 50  # 102400 features / 2048 per block, one pass
 
 
 def emit(obj: dict) -> None:
@@ -71,6 +83,21 @@ def gaussian_bound_ms(n: int, d: int, b: int):
     return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def mnist_run(cli, bcd, args) -> dict:
+    """Run MnistRandomFFT through the command line's code; its result with
+    the BCD block steps, the peak device memory and the wall seconds
+    (synthetic data drawn on the host included)."""
+    bcd._block_update_impl.steps = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = cli.run(args)
+    torch.cuda.synchronize()
+    return dict(out, wall_seconds=time.perf_counter() - t0,
+                block_steps=bcd._block_update_impl.steps,
+                peak_mem_bytes=torch.cuda.max_memory_allocated())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -78,11 +105,13 @@ def main() -> int:
     import keystone_tpu_torch
     from keystone_tpu_torch import __main__ as cli
     from keystone_tpu_torch.data.dataset import Dataset
+    from keystone_tpu_torch.linalg import bcd
     from keystone_tpu_torch.nodes.learning.kernel import KernelRidgeRegression
     from keystone_tpu_torch.ops import _build
     from keystone_tpu_torch.ops import gaussian_kernel as gk
     from keystone_tpu_torch.loaders.cifar import synthetic_cifar
     from keystone_tpu_torch.pipelines import cifar_extras
+    from keystone_tpu_torch.pipelines import mnist_random_fft as mnist
     from keystone_tpu_torch.workflow.pipeline import apply_stages
 
     dev = keystone_tpu_torch.device()
@@ -187,6 +216,53 @@ def main() -> int:
         raise AssertionError(f"K1 launched {launches} times, want {SLICE_LAUNCHES}")
     if not out["test_error"] < 0.7:
         raise AssertionError(f"test error {out['test_error']} is not below 0.7")
+
+    # -- MnistRandomFFT small: the card (cuFFT, cuBLAS) against the CPU ---
+    mconf = mnist.MnistRandomFFTConfig(num_ffts=2, block_size=512, lam=10.0)
+    mtrain, mtest = mnist.synthetic_mnist(4096, 512, seed=7)
+    scores, errs = {}, {}
+    for name, where in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        pipe, tr, te, _ = mnist.run(mtrain, mtest, mconf, where)
+        scores[name] = apply_stages(pipe.fit().stages[:-1],
+                                    mtest.data.to_array().to(where)).to_array().cpu()
+        errs[name] = [tr, te]
+    mnist_dev = (scores["cuda"] - scores["cpu"]).abs().max().item()
+    emit({"phase": "mnist_small_vs_cpu", "max_abs_dev": mnist_dev, "limit": 1e-3,
+          "errors_cuda": errs["cuda"], "errors_cpu": errs["cpu"]})
+    if not mnist_dev <= 1e-3:
+        raise AssertionError(f"MnistRandomFFT on the card is {mnist_dev} off the CPU run")
+
+    # -- MnistRandomFFT at BASELINE's configuration, against Bayes --------
+    bayes = mnist.bayes_error_mc(mnist.DATA_SEED)
+    out = mnist_run(cli, bcd, MNIST_CANONICAL)
+    gate = 1.5 * bayes + 0.005
+    emit({"phase": "mnist_canonical", "args": MNIST_CANONICAL,
+          "train_error": out["train_error"], "test_error": out["test_error"],
+          "bayes_error": bayes, "test_error_limit": gate, "seconds": out["seconds"],
+          "phase_seconds": out["phases"], "wall_seconds": out["wall_seconds"],
+          "block_steps": out["block_steps"], "peak_mem_gb": out["peak_mem_bytes"] / 1e9,
+          "card": card})
+    if not out["test_error"] <= gate:
+        raise AssertionError(f"test error {out['test_error']} is above 1.5 × Bayes "
+                             f"{bayes} + 0.005")
+
+    # -- MnistRandomFFT at the CLI's default width ------------------------
+    feature_bytes = 60000 * 200 * 512 * 4
+    out = mnist_run(cli, bcd, MNIST_FULL)
+    emit({"phase": "mnist_full_width", "args": MNIST_FULL,
+          "train_error": out["train_error"], "test_error": out["test_error"],
+          "bayes_error": bayes, "seconds": out["seconds"],
+          "phase_seconds": out["phases"], "wall_seconds": out["wall_seconds"],
+          "block_steps": out["block_steps"], "feature_bytes": feature_bytes,
+          "peak_mem_gb": out["peak_mem_bytes"] / 1e9,
+          "peak_over_features": out["peak_mem_bytes"] / feature_bytes, "card": card})
+    if out["block_steps"] != MNIST_FULL_STEPS:
+        raise AssertionError(f"{out['block_steps']} BCD block steps, want {MNIST_FULL_STEPS}")
+    if not out["test_error"] < 0.35:
+        raise AssertionError(f"test error {out['test_error']} is not below 0.35")
+    if not out["peak_mem_bytes"] < 1.5 * feature_bytes:
+        raise AssertionError(f"peak memory {out['peak_mem_bytes']} B is not below 1.5 × "
+                             f"the {feature_bytes} B feature matrix")
 
     fit = timings["fit"]
     emit({"kernels": [{

@@ -1,19 +1,20 @@
 """Command line: ``python -m keystone_tpu_torch <App> [--device cpu] ...``.
 
-The port runs one application so far, RandomPatchCifarKernel, with the
-flags of the JAX package's CLI. It runs on CUDA unless ``--device cpu``
-is given.
+The port runs two applications so far, RandomPatchCifarKernel and
+MnistRandomFFT, with the flags of the JAX package's CLI. It runs on CUDA
+unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
 
 import sys
 
-from .pipelines import cifar_extras
+from .pipelines import cifar_extras, mnist_random_fft
 
 #: application name → (runner returning a result dict, CLI main)
 PIPELINES = {
     "RandomPatchCifarKernel": (cifar_extras.run_app, cifar_extras.main),
+    "MnistRandomFFT": (mnist_random_fft.run_app, mnist_random_fft.main),
 }
 
 

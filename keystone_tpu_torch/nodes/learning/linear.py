@@ -1,0 +1,123 @@
+"""Linear solvers: exact normal equations and block coordinate descent
+(port of the in-memory paths of ``keystone_tpu/nodes/learning/linear.py``).
+
+Features and labels are mean-centered before solving; the label mean
+becomes the intercept, and the block estimator centers each feature block
+by its own column means. The fitted models apply as one GEMM,
+(X − μ)·W + b, which is row-local: a pipeline applies them in row chunks.
+
+Not ported: the snapshot, checkpoint and streaming fits, ``fit_lambda_grid``
+and the cost hooks.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional, Sequence
+
+import torch
+
+from ...data.dataset import Dataset
+from ...linalg.bcd import _block_means, solve_blockwise_l2
+from ...linalg.normal_equations import solve_centered
+from ...workflow.transformer import LabelEstimator, Transformer
+
+
+class LinearMapper(Transformer):
+    """out = (x − feature_mean) · W + b."""
+
+    row_local = True
+
+    def __init__(self, W: torch.Tensor, b: Optional[torch.Tensor] = None,
+                 feature_mean: Optional[torch.Tensor] = None):
+        self.W = W
+        self.b = b
+        self.feature_mean = feature_mean
+
+    def forward(self, X: torch.Tensor) -> torch.Tensor:
+        if self.feature_mean is not None:
+            X = X - self.feature_mean
+        out = X @ self.W
+        if self.b is not None:
+            out = out + self.b
+        return out
+
+
+class LinearMapEstimator(LabelEstimator):
+    """Exact ridge regression by normal equations on centered data."""
+
+    def __init__(self, lam: Optional[float] = None):
+        self.lam = lam
+
+    def fit(self, data: Dataset, labels: Dataset) -> LinearMapper:
+        A = Dataset.of(data).to_array()
+        b = Dataset.of(labels).to_array().to(A.device)
+        W, a_mean, b_mean = solve_centered(A, b, reg=self.lam or 0.0)
+        return LinearMapper(W, b=b_mean, feature_mean=a_mean)
+
+
+class BlockLinearMapper(Transformer):
+    """Apply a block-solved model: the block weights stacked vertically and
+    the block means joined, so the apply is one GEMM."""
+
+    row_local = True
+
+    def __init__(self, xs: Sequence[torch.Tensor], block_size: int,
+                 b: Optional[torch.Tensor] = None,
+                 feature_means: Optional[Sequence[torch.Tensor]] = None):
+        self.xs = list(xs)
+        self.block_size = block_size
+        self.b = b
+        self.feature_means = None if feature_means is None else list(feature_means)
+        self._W = torch.cat(self.xs, dim=0)
+        self._mean = None if self.feature_means is None else torch.cat(self.feature_means)
+
+    def forward(self, X: torch.Tensor) -> torch.Tensor:
+        if self._mean is not None:
+            X = X - self._mean
+        out = X @ self._W
+        if self.b is not None:
+            out = out + self.b
+        return out
+
+    def apply_blocks(self, blocks: Sequence[torch.Tensor]) -> torch.Tensor:
+        """Apply to pre-split feature blocks: Σ_j (A_j − m_j) W_j + b."""
+        out = None
+        for j, (Aj, Wj) in enumerate(zip(blocks, self.xs)):
+            if self.feature_means is not None:
+                Aj = Aj - self.feature_means[j]
+            term = Aj @ Wj
+            out = term if out is None else out + term
+        if self.b is not None:
+            out = out + self.b
+        return out
+
+
+class BlockLeastSquaresEstimator(LabelEstimator):
+    """Block-coordinate-descent least squares, ``num_iter`` passes over
+    column blocks of ``block_size`` with ridge ``lam``."""
+
+    def __init__(self, block_size: int, num_iter: int, lam: float = 0.0,
+                 num_features: Optional[int] = None):
+        self.block_size = block_size
+        self.num_iter = num_iter
+        self.lam = lam
+        self.num_features = num_features
+
+    def fit(self, data: Any, labels: Dataset) -> BlockLinearMapper:
+        """``data`` is a Dataset of (n, d) features, a Dataset whose payload
+        is a tuple of column blocks, or a list or tuple of blocks. A whole
+        matrix is read as column views of ``block_size`` (the last one may
+        be narrower), so the solve never copies it."""
+        payload = data if isinstance(data, (list, tuple)) else Dataset.of(data).payload
+        if isinstance(payload, (list, tuple)):
+            blocks = [Dataset.of(b).to_array().float() for b in payload]
+        else:
+            X = payload[..., :self.num_features or payload.shape[-1]].float()
+            d = X.shape[-1]
+            blocks = [X[..., i:min(i + self.block_size, d)]
+                      for i in range(0, d, self.block_size)]
+        y = Dataset.of(labels).to_array().to(blocks[0].device, torch.float32)
+        means, y_mean = _block_means(blocks, y)
+        ws = solve_blockwise_l2(blocks, y - y_mean, reg=self.lam,
+                                num_iter=self.num_iter, means=means)
+        return BlockLinearMapper(ws, self.block_size, b=y_mean, feature_means=means)

@@ -1,3 +1,11 @@
-from .core import Sampler, StandardScaler, StandardScalerModel
+from .core import (
+    LinearRectifier,
+    PaddedFFT,
+    RandomSignNode,
+    Sampler,
+    StandardScaler,
+    StandardScalerModel,
+)
 
-__all__ = ["Sampler", "StandardScaler", "StandardScalerModel"]
+__all__ = ["LinearRectifier", "PaddedFFT", "RandomSignNode", "Sampler",
+           "StandardScaler", "StandardScalerModel"]

@@ -1,4 +1,5 @@
-"""Stats nodes (port of the in-memory ``StandardScaler`` and ``Sampler`` of
+"""Stats nodes (port of ``PaddedFFT``, ``RandomSignNode``,
+``LinearRectifier`` and the in-memory ``StandardScaler`` and ``Sampler`` of
 ``keystone_tpu/nodes/stats/core.py``)."""
 
 from __future__ import annotations
@@ -8,8 +9,58 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ... import device as pick_device
 from ...data.dataset import Dataset
 from ...workflow.transformer import Estimator, Transformer
+
+
+class PaddedFFT(Transformer):
+    """Zero-pad each row to the next power of two and keep the real part of
+    the first half of its FFT: d → 2^ceil(log2 d) / 2 features."""
+
+    row_local = True
+
+    def forward(self, X: torch.Tensor) -> torch.Tensor:
+        d = X.shape[-1]
+        padded = 1 << max(0, d - 1).bit_length()
+        # rfft gives padded/2 + 1 bins, of which the first padded/2 are kept;
+        # ``.real`` of a complex tensor is a strided view, so copy it out
+        # once here rather than hand a strided operand to the next GEMM
+        return torch.fft.rfft(X, n=padded, dim=-1).real[..., : padded // 2].contiguous()
+
+
+class RandomSignNode(Transformer):
+    """Elementwise multiply by a fixed ±1 vector."""
+
+    row_local = True
+
+    def __init__(self, signs: torch.Tensor):
+        self.signs = signs
+
+    @staticmethod
+    def create(size: int, seed: int = 0, device=None) -> "RandomSignNode":
+        """Signs drawn with numpy ``default_rng(seed)``: another stream than
+        the JAX package's ``jax.random``, so the two packages' nodes of one
+        seed differ; parity tests copy the JAX node's signs instead."""
+        draw = np.random.default_rng(seed).integers(0, 2, size=size)
+        signs = torch.from_numpy((2.0 * draw - 1.0).astype(np.float32))
+        return RandomSignNode(signs.to(pick_device(device)))
+
+    def forward(self, X: torch.Tensor) -> torch.Tensor:
+        return X * self.signs
+
+
+class LinearRectifier(Transformer):
+    """max(max_val, x − alpha)."""
+
+    row_local = True
+
+    def __init__(self, max_val: float = 0.0, alpha: float = 0.0):
+        self.max_val = max_val
+        self.alpha = alpha
+
+    def forward(self, X: torch.Tensor) -> torch.Tensor:
+        return torch.clamp_min(X - self.alpha if self.alpha else X, self.max_val)
 
 
 class StandardScalerModel(Transformer):

@@ -1,3 +1,3 @@
-from .core import ClassLabelIndicators, MaxClassifier
+from .core import ClassLabelIndicators, MaxClassifier, VectorCombiner, VectorSplitter
 
-__all__ = ["ClassLabelIndicators", "MaxClassifier"]
+__all__ = ["ClassLabelIndicators", "MaxClassifier", "VectorCombiner", "VectorSplitter"]

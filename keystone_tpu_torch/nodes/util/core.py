@@ -1,7 +1,10 @@
-"""Glue nodes (port of ``ClassLabelIndicators`` and ``MaxClassifier`` from
+"""Glue nodes (port of ``ClassLabelIndicators``, ``MaxClassifier``,
+``VectorCombiner`` and ``VectorSplitter`` from
 ``keystone_tpu/nodes/util/core.py``)."""
 
 from __future__ import annotations
+
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -31,3 +34,34 @@ class MaxClassifier(Transformer):
 
     def forward(self, X: torch.Tensor) -> torch.Tensor:
         return torch.argmax(X, dim=-1)
+
+
+class VectorCombiner(Transformer):
+    """Concatenate the gathered branch outputs feature-wise; a single tensor
+    passes through."""
+
+    row_local = True
+
+    def forward(self, Xs: Union[torch.Tensor, Tuple[torch.Tensor, ...]]) -> torch.Tensor:
+        if isinstance(Xs, tuple):
+            return torch.cat(Xs, dim=-1)
+        return Xs
+
+
+class VectorSplitter(Transformer):
+    """Split (n, d) features into ceil(d / block_size) column blocks, as
+    views; the last block may be short."""
+
+    row_local = True
+
+    def __init__(self, block_size: int, num_features: Optional[int] = None):
+        self.block_size = block_size
+        self.num_features = num_features
+
+    def split_batch(self, X: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        d = self.num_features or X.shape[-1]
+        return tuple(X[..., i:min(i + self.block_size, d)]
+                     for i in range(0, d, self.block_size))
+
+    def forward(self, X: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        return self.split_batch(X)

@@ -1,0 +1,234 @@
+"""MnistRandomFFT (port of ``keystone_tpu/pipelines/mnist_random_fft.py``):
+gather(numFFTs × [RandomSignNode → PaddedFFT → LinearRectifier(0)]) →
+VectorCombiner → one-pass BlockLeastSquaresEstimator(blockSize, 1, λ) →
+MaxClassifier, scored with the multiclass evaluator.
+
+Data arrives on the host (numpy) and is moved to ``device`` once. The
+featurizer is row-local, so the pipeline runs it in row chunks: at the
+CLI's default width (200 branches, d = 102,400) only the training feature
+matrix the solver needs is ever whole, and the applied features never are.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from dataclasses import dataclass
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .. import device as pick_device
+from ..evaluation.multiclass import MulticlassClassifierEvaluator
+from ..loaders.csv_loader import LabeledData, load_labeled_csv
+from ..nodes.learning.linear import BlockLeastSquaresEstimator, BlockLinearMapper
+from ..nodes.stats import LinearRectifier, PaddedFFT, RandomSignNode
+from ..nodes.util import ClassLabelIndicators, MaxClassifier, VectorCombiner
+from ..workflow.pipeline import FittedPipeline, Pipeline, clock
+
+MNIST_IMAGE_SIZE = 784
+NUM_CLASSES = 10
+#: the seed of the synthetic task the CLI draws (the JAX CLI's default)
+DATA_SEED = 42
+
+#: The synthetic task of the JAX package: the class signal lives in an
+#: antipodal low-dimensional latent,
+#:     u = s·μ_c + σ_l·ε  (s = ±1 uniform),   x = U·u + σ_amb·η,
+#: with μ_c on a PROTO_RADIUS sphere in R^LATENT_DIM and U orthonormal.
+#: E[x|c] = 0, so no linear function of raw pixels separates the classes;
+#: the relu(FFT·D·x) features read the latent magnitudes. Its Bayes error
+#: is about 4 % (:func:`bayes_error_mc`).
+LATENT_DIM = 8
+PROTO_RADIUS = 5.0
+LATENT_SIGMA = 1.0
+AMBIENT_SIGMA = 0.05
+
+
+@dataclass
+class MnistRandomFFTConfig:
+    train_location: str = ""
+    test_location: str = ""
+    num_ffts: int = 200
+    block_size: int = 2048
+    lam: Optional[float] = None
+    seed: int = 0
+
+
+def _featurizer(signs: Sequence[torch.Tensor]) -> Pipeline:
+    return Pipeline.gather([
+        RandomSignNode(s).and_then(PaddedFFT()).and_then(LinearRectifier(0.0))
+        for s in signs
+    ]).and_then(VectorCombiner())
+
+
+def build_featurizer(conf: MnistRandomFFTConfig, device=None,
+                     signs: Optional[np.ndarray] = None) -> Pipeline:
+    """The gathered featurizer on ``device``. Branch i's signs are drawn
+    from seed ``conf.seed + i``, or taken from row i of ``signs``
+    ((num_ffts, 784), e.g. another fit's)."""
+    dev = pick_device(device)
+    if signs is None:
+        return _featurizer([
+            RandomSignNode.create(MNIST_IMAGE_SIZE, seed=conf.seed + i, device=dev).signs
+            for i in range(conf.num_ffts)
+        ])
+    return _featurizer(torch.tensor(np.asarray(signs, np.float32), device=dev).unbind(0))
+
+
+def run(train: LabeledData, test: LabeledData, conf: MnistRandomFFTConfig,
+        device: Optional[torch.device] = None,
+        timings: Optional[Dict[str, float]] = None,
+        signs: Optional[np.ndarray] = None):
+    """Fit on ``train`` and score both sets. Returns (pipeline, train_err,
+    test_err, seconds). ``timings``, when given, receives the seconds of
+    each phase: data (to the device), featurize (fit data), solve (the
+    BCD fit) and apply (train and test). ``signs`` as for
+    :func:`build_featurizer`."""
+    dev = device if device is not None else pick_device()
+    start = time.perf_counter()
+    X_train = train.data.to_array().to(dev, torch.float32)
+    X_test = test.data.to_array().to(dev, torch.float32)
+    labels = ClassLabelIndicators(NUM_CLASSES).forward(train.labels.to_array().to(dev))
+    t_data = clock(labels)
+    pipeline = build_featurizer(conf, dev, signs).and_then(
+        BlockLeastSquaresEstimator(conf.block_size, 1, conf.lam or 0.0),
+        X_train,
+        labels,
+    ).and_then(MaxClassifier())
+    fitted = pipeline.fit()
+    t_fit = clock(labels)
+    ev = MulticlassClassifierEvaluator(NUM_CLASSES)
+    train_err = ev.evaluate(fitted.apply(X_train).to_array(), train.labels).total_error
+    test_err = ev.evaluate(fitted.apply(X_test).to_array(), test.labels).total_error
+    t_apply = clock(labels)
+    if timings is not None:
+        timings.update(
+            data=t_data - start,
+            featurize=fitted.seconds.get("featurize", 0.0),
+            solve=fitted.seconds.get("BlockLeastSquaresEstimator", 0.0),
+            apply=t_apply - t_fit,
+        )
+    return pipeline, train_err, test_err, time.perf_counter() - start
+
+
+def fitted_from_arrays(params: Dict[str, np.ndarray],
+                       device: Optional[torch.device] = None) -> FittedPipeline:
+    """The fitted MnistRandomFFT pipeline from another fit's parameters, as
+    numpy arrays: ``signs`` (numFFTs, 784), ``W`` (d, 10), ``b`` (10,) and
+    ``feature_means`` (d,)."""
+    dev = device if device is not None else pick_device()
+
+    def t(name):
+        return torch.tensor(np.asarray(params[name], np.float32), device=dev)
+
+    W = t("W")
+    mapper = BlockLinearMapper([W], W.shape[0], b=t("b"), feature_means=[t("feature_means")])
+    stages = _featurizer(t("signs").unbind(0)).stages + (mapper, MaxClassifier())
+    return FittedPipeline(stages)
+
+
+# ---- the synthetic task ------------------------------------------------
+
+def _streams(seed: int) -> Tuple[np.random.SeedSequence, ...]:
+    """Independent streams of one task seed: (task, train, test, Monte
+    Carlo), as the JAX package splits its key."""
+    return tuple(np.random.SeedSequence(seed).spawn(4))
+
+
+def _latent_task_params(stream) -> Tuple[np.ndarray, np.ndarray]:
+    """(μ (C, LATENT_DIM) on the PROTO_RADIUS sphere, U (784, LATENT_DIM)
+    orthonormal by QR): the task instance, shared by the generator and the
+    Bayes estimate so the yardstick measures the data's own instance."""
+    rng = np.random.default_rng(stream)
+    mu = rng.standard_normal((NUM_CLASSES, LATENT_DIM))
+    mu = PROTO_RADIUS * mu / np.linalg.norm(mu, axis=1, keepdims=True)
+    U, _ = np.linalg.qr(rng.standard_normal((MNIST_IMAGE_SIZE, LATENT_DIM)))
+    return mu.astype(np.float32), U.astype(np.float32)
+
+
+def _draw(stream, mu: np.ndarray, U: np.ndarray, n: int) -> LabeledData:
+    rng = np.random.default_rng(stream)
+    y = rng.integers(0, NUM_CLASSES, size=n)
+    s = (2 * rng.integers(0, 2, size=n) - 1).astype(np.float32)
+    u = s[:, None] * mu[y] + LATENT_SIGMA * rng.standard_normal(
+        (n, LATENT_DIM), dtype=np.float32)
+    X = u @ U.T + AMBIENT_SIGMA * rng.standard_normal(
+        (n, MNIST_IMAGE_SIZE), dtype=np.float32)
+    return LabeledData(y.astype(np.int32), X)
+
+
+def synthetic_mnist(n_train: int = 8192, n_test: int = 2048,
+                    seed: int = DATA_SEED) -> Tuple[LabeledData, LabeledData]:
+    """(train, test) of the JAX package's synthetic task, drawn with numpy
+    from ``seed``: the same task, another instance than JAX's."""
+    task, tr, te, _ = _streams(seed)
+    mu, U = _latent_task_params(task)
+    return _draw(tr, mu, U, n_train), _draw(te, mu, U, n_test)
+
+
+def bayes_error_mc(seed: int = DATA_SEED, n: int = 262144) -> float:
+    """Monte-Carlo Bayes error of the task drawn with ``seed``: the sign
+    and class are decided together by the nearest of {±μ_c} on the latent
+    sufficient statistic Uᵀx (whose noise is isotropic, σ_eff² = σ_l² +
+    σ_amb²), and the class is that choice folded mod C."""
+    task, _, _, mc = _streams(seed)
+    mu, _ = _latent_task_params(task)
+    rng = np.random.default_rng(mc)
+    y = rng.integers(0, NUM_CLASSES, size=n)
+    s = 2 * rng.integers(0, 2, size=n) - 1
+    sig_eff = (LATENT_SIGMA ** 2 + AMBIENT_SIGMA ** 2) ** 0.5
+    u = s[:, None] * mu[y] + sig_eff * rng.standard_normal((n, LATENT_DIM))
+    P2 = np.concatenate([mu, -mu]).astype(np.float64)
+    scores = u @ P2.T - 0.5 * np.sum(P2 * P2, axis=1)
+    pred = np.argmax(scores, axis=1) % NUM_CLASSES
+    return float(np.mean(pred != y))
+
+
+# ---- CLI -----------------------------------------------------------------
+
+def parse_args(argv=None) -> argparse.Namespace:
+    p = argparse.ArgumentParser("MnistRandomFFT")
+    p.add_argument("app", choices=["MnistRandomFFT"])
+    p.add_argument("--device", default=None,
+                   help="torch device; CUDA unless 'cpu' is named")
+    p.add_argument("--trainLocation", default=None)
+    p.add_argument("--testLocation", default=None)
+    p.add_argument("--numFFTs", type=int, default=200)
+    p.add_argument("--blockSize", type=int, default=2048)
+    p.add_argument("--lambda", dest="lam", type=float, default=None)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--nTrain", type=int, default=8192)
+    p.add_argument("--nTest", type=int, default=2048)
+    return p.parse_args(argv)
+
+
+def run_app(argv=None) -> dict:
+    """Parse the command line and run the application. Returns the train
+    and test errors, the total seconds and the per-phase seconds."""
+    args = parse_args(argv)
+    dev = pick_device(args.device)
+    conf = MnistRandomFFTConfig(
+        train_location=args.trainLocation or "",
+        test_location=args.testLocation or "",
+        num_ffts=args.numFFTs, block_size=args.blockSize, lam=args.lam,
+        seed=args.seed,
+    )
+    if args.trainLocation:
+        # the reference's format: a 1-indexed label in column 0
+        train = load_labeled_csv(args.trainLocation, label_offset=1)
+        test = load_labeled_csv(args.testLocation, label_offset=1)
+    else:
+        train, test = synthetic_mnist(args.nTrain, args.nTest)
+    phases: Dict[str, float] = {}
+    _, tr, te, secs = run(train, test, conf, dev, phases)
+    return {"train_error": tr, "test_error": te, "seconds": secs,
+            "phases": phases}
+
+
+def main(argv=None) -> int:
+    out = run_app(argv)
+    print(f"TRAIN Error is {100 * out['train_error']}%")
+    print(f"TEST Error is {100 * out['test_error']}%")
+    print(f"Pipeline took {out['seconds']} s")
+    return 0

@@ -12,7 +12,12 @@ graph, optimizer and executor is done here in order, eagerly:
   estimators is featurized once and carried forward from stage to stage.
 * Runs of ``row_local`` transformers are applied in row chunks, so the
   large intermediates of an image featurizer (a conv output of 14.6 GB
-  for 50000 CIFAR images) never exist for the whole batch at once.
+  for 50000 CIFAR images) never exist for the whole batch at once. Each
+  chunk's output is copied into one output allocated up front, so the
+  peak is one copy of the output plus one chunk's intermediates.
+* ``Pipeline.gather(branches)`` fans the input through each branch and
+  gives the tuple of their outputs; it is row-local when every branch
+  stage is, so a gathered featurizer runs in row chunks too.
 
 The graph optimizer, executor, auto-caching and segment compilation of
 the JAX package are not ported.
@@ -25,24 +30,54 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from ..data.dataset import Dataset
+from ..data.dataset import Dataset, Payload
 
 #: rows per chunk when applying a run of row-local transformers
 ROW_CHUNK = 2500
 
 
-def clock(t: torch.Tensor) -> float:
+def _parts(X: Payload) -> Tuple[torch.Tensor, ...]:
+    return X if isinstance(X, tuple) else (X,)
+
+
+def clock(t: Payload) -> float:
     """Host time after the device has finished the work queued on ``t``'s
     device (a plain host clock measures only the enqueue on CUDA)."""
+    t = _parts(t)[0]
     if t.is_cuda:
         torch.cuda.synchronize(t.device)
     return time.perf_counter()
 
 
-def _apply_run(stages: Sequence[Any], X: torch.Tensor) -> torch.Tensor:
+def _apply_run(stages: Sequence[Any], X: Payload) -> Payload:
     for st in stages:
         X = st.forward(X)
     return X
+
+
+def _apply_chunked(stages: Sequence[Any], X: Payload) -> Payload:
+    """Apply row-local ``stages`` over row chunks of :data:`ROW_CHUNK`,
+    writing each chunk's output into one output allocated at the first
+    chunk (never a list of chunk outputs joined at the end, which would
+    hold the output twice)."""
+    n = len(Dataset(X))
+    out: Tuple[torch.Tensor, ...] = ()
+    tuple_out = False
+    for s in range(0, n, ROW_CHUNK):
+        chunk = _rows(X, s, s + ROW_CHUNK)
+        part = _apply_run(stages, chunk)
+        if not out:
+            tuple_out = isinstance(part, tuple)
+            out = tuple(torch.empty((n,) + p.shape[1:], dtype=p.dtype, device=p.device)
+                        for p in _parts(part))
+        for o, p in zip(out, _parts(part)):
+            o[s:s + p.shape[0]].copy_(p)
+        del chunk, part
+    return out if tuple_out else out[0]
+
+
+def _rows(X: Payload, start: int, end: int) -> Payload:
+    return tuple(p[start:end] for p in X) if isinstance(X, tuple) else X[start:end]
 
 
 def apply_stages(stages: Sequence[Any], data: Any) -> Dataset:
@@ -56,13 +91,10 @@ def apply_stages(stages: Sequence[Any], data: Any) -> Dataset:
             j += 1
         if j > i:
             run = stages[i:j]
-            if X.shape[0] <= ROW_CHUNK:
+            if len(Dataset(X)) <= ROW_CHUNK:
                 X = _apply_run(run, X)
             else:
-                X = torch.cat([
-                    _apply_run(run, X[s:s + ROW_CHUNK])
-                    for s in range(0, X.shape[0], ROW_CHUNK)
-                ])
+                X = _apply_chunked(run, X)
             i = j
         else:
             X = stages[i].forward(X)
@@ -84,6 +116,18 @@ class FitStage:
         if self.labels is None:
             return self.estimator.fit(features)
         return self.estimator.fit(features, Dataset.of(self.labels))
+
+
+class GatherStage:
+    """The stage ``Pipeline.gather`` makes: each branch's transformers
+    applied in order to the same input, giving one output per branch."""
+
+    def __init__(self, branches: Sequence[Tuple[Any, ...]]):
+        self.branches = tuple(tuple(b) for b in branches)
+        self.row_local = all(st.row_local for b in self.branches for st in b)
+
+    def forward(self, X: Payload) -> Tuple[torch.Tensor, ...]:
+        return tuple(_apply_run(b, X) for b in self.branches)
 
 
 class Chainable:
@@ -135,6 +179,18 @@ class Pipeline(Chainable):
 
     def to_pipeline(self) -> "Pipeline":
         return self
+
+    @staticmethod
+    def gather(branches: Sequence[Chainable]) -> "Pipeline":
+        """Fan one input through every branch and give the tuple of their
+        outputs (parity: ``Pipeline.gather``). Branches hold transformers
+        only: an estimator inside a branch is not supported here."""
+        if not branches:
+            raise ValueError("gather of zero branches")
+        stages = [b.to_pipeline().stages for b in branches]
+        if any(isinstance(st, FitStage) for b in stages for st in b):
+            raise ValueError("gather branches must hold transformers only")
+        return Pipeline((GatherStage(stages),))
 
     def fit(self) -> "FittedPipeline":
         """Fit every estimator not fitted yet, in order. The returned

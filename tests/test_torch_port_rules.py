@@ -63,3 +63,15 @@ def test_cli_without_device_cpu_does_not_run_on_the_cpu():
     assert proc.returncode != 0
     assert "CUDA is not available" in proc.stderr
     assert "Training error" not in proc.stdout
+
+
+def test_mnist_cli_without_device_cpu_does_not_run_on_the_cpu():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run(
+        [sys.executable, "-m", "keystone_tpu_torch", "MnistRandomFFT",
+         "--nTrain", "16", "--nTest", "8", "--numFFTs", "1", "--blockSize", "512"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode != 0
+    assert "CUDA is not available" in proc.stderr
+    assert "Error is" not in proc.stdout
