@@ -10,18 +10,23 @@ command-line entry point and checks that the kernels carried it. Then
 MnistRandomFFT: a small run on the card against the CPU, BASELINE's
 configuration (4 FFTs) against the task's Bayes error, and the CLI's
 default width (200 FFTs, d = 102,400, 50 BCD block steps over a 24.6 GB
-feature matrix) with its peak memory. Each phase prints one JSON line; any
-failure raises and exits non-zero. The last line is ``{"ok": true,
+feature matrix) with its peak memory. Both applications run through the
+workflow graph; the script checks the plans the optimizer made (fused
+groups, the fit data featurized once), that every estimator fitted once
+across a fit and the applies, and how long the optimizer took. Each phase
+prints one JSON line; any failure raises and exits non-zero. The last line is ``{"ok": true,
 "device": {...}}``. Without a CUDA card it exits non-zero and prints no
 result.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import torch
 
@@ -44,7 +49,8 @@ SLICE_LAUNCHES = 30  # 10 blocks × (fit, apply to train, apply to test)
 MNIST_ROWS = ["--blockSize", "2048", "--lambda", "1000", "--nTrain", "60000",
               "--nTest", "10000"]
 MNIST_CANONICAL = ["MnistRandomFFT", "--numFFTs", "4"] + MNIST_ROWS
-MNIST_FULL = ["MnistRandomFFT", "--numFFTs", "200"] + MNIST_ROWS
+MNIST_FULL_FFTS = 200
+MNIST_FULL = ["MnistRandomFFT", "--numFFTs", str(MNIST_FULL_FFTS)] + MNIST_ROWS
 MNIST_FULL_STEPS = 50  # 102400 features / 2048 per block, one pass
 
 
@@ -83,10 +89,107 @@ def gaussian_bound_ms(n: int, d: int, b: int):
     return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+class Probe:
+    """Counts the calls of chosen methods while the main path runs, split
+    by whether a ``Pipeline.fit`` is in progress ("fit") or not ("apply"):
+    calls, rows of the first argument, host seconds, and the last result.
+    The methods are restored on exit."""
+
+    def __init__(self):
+        self.calls, self.rows, self.seconds = Counter(), Counter(), Counter()
+        self.last = {}
+        self.in_fit = False
+        self._undo = []
+
+    def _phase(self) -> str:
+        return "fit" if self.in_fit else "apply"
+
+    def watch(self, cls, name: str) -> None:
+        orig = cls.__dict__[name]
+        probe = self
+
+        @functools.wraps(orig)
+        def wrapper(obj, *args, **kwargs):
+            key = f"{cls.__name__}.{name}:{probe._phase()}"
+            probe.calls[key] += 1
+            if args and hasattr(args[0], "shape"):
+                probe.rows[key] += int(args[0].shape[0])
+            t0 = time.perf_counter()
+            out = orig(obj, *args, **kwargs)
+            probe.seconds[key] += time.perf_counter() - t0
+            probe.last[key] = out
+            return out
+
+        self._set(cls, name, wrapper, orig)
+
+    def watch_fit(self, pipeline_cls) -> None:
+        orig = pipeline_cls.__dict__["fit"]
+        probe = self
+
+        @functools.wraps(orig)
+        def fit(pipe):
+            probe.in_fit = True
+            try:
+                return orig(pipe)
+            finally:
+                probe.in_fit = False
+
+        self._set(pipeline_cls, "fit", fit, orig)
+
+    def _set(self, cls, name, new, orig) -> None:
+        setattr(cls, name, new)
+        self._undo.append((cls, name, orig))
+
+    def __enter__(self) -> "Probe":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for cls, name, orig in reversed(self._undo):
+            setattr(cls, name, orig)
+
+
+def fused_steps(graph) -> list:
+    """The step labels of each fused node of ``graph``, largest first."""
+    from keystone_tpu_torch.workflow.fusion import FusedTransformerOperator
+
+    groups = [[op.label for op, _ in graph.get_operator(n).steps] for n in graph.nodes
+              if isinstance(graph.get_operator(n), FusedTransformerOperator)]
+    return sorted(groups, key=len, reverse=True)
+
+
+def chain(fitted) -> list:
+    """The operator class names of a fitted pipeline whose graph is one
+    chain, from the source to the sink; raises when it is not a chain."""
+    from keystone_tpu_torch.workflow.graph import NodeId
+
+    graph = fitted.graph
+    names, gid = [], graph.get_sink_dependency(next(iter(graph.sinks)))
+    while isinstance(gid, NodeId):
+        names.append(type(graph.get_operator(gid)).__name__)
+        (gid,) = graph.get_dependencies(gid)
+    if len(names) != len(graph.nodes):
+        raise AssertionError(f"the fitted graph is not one chain: {names}")
+    return names[::-1]
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+def fresh_env():
+    """Reset the port's fit-once state, so a phase holds no device memory
+    of the one before it."""
+    from keystone_tpu_torch.workflow.env import PipelineEnv
+
+    PipelineEnv.get_or_create().reset()
+
+
 def mnist_run(cli, bcd, args) -> dict:
     """Run MnistRandomFFT through the command line's code; its result with
     the BCD block steps, the peak device memory and the wall seconds
     (synthetic data drawn on the host included)."""
+    fresh_env()
     bcd._block_update_impl.steps = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -112,7 +215,13 @@ def main() -> int:
     from keystone_tpu_torch.loaders.cifar import synthetic_cifar
     from keystone_tpu_torch.pipelines import cifar_extras
     from keystone_tpu_torch.pipelines import mnist_random_fft as mnist
-    from keystone_tpu_torch.workflow.pipeline import apply_stages
+    from keystone_tpu_torch.nodes.images.core import Convolver
+    from keystone_tpu_torch.nodes.learning.linear import BlockLeastSquaresEstimator
+    from keystone_tpu_torch.nodes.stats import StandardScaler
+    from keystone_tpu_torch.nodes.util import MaxClassifier
+    from keystone_tpu_torch.workflow.env import PipelineEnv
+    from keystone_tpu_torch.workflow.pipeline import Pipeline
+    from keystone_tpu_torch.workflow.rules import RuleExecutor
 
     dev = keystone_tpu_torch.device()
     card = card_line()
@@ -194,43 +303,68 @@ def main() -> int:
     train, test = synthetic_cifar(192, seed=7), synthetic_cifar(48, seed=8)
     scores = {}
     for name, where in (("cuda", dev), ("cpu", torch.device("cpu"))):
-        pipe, _, _, _ = cifar_extras.run_random_patch_cifar_kernel(train, test, conf, where)
-        scores[name] = apply_stages(pipe.fit().stages[:-1],
-                                    test.data.to_array().to(where)).to_array().cpu()
+        fresh_env()
+        scorer, _, _, _ = cifar_extras.run_random_patch_cifar_kernel(train, test, conf, where)
+        scores[name] = scorer.fit().apply(test.data.to_array().to(where)).to_array().cpu()
     small_dev = (scores["cuda"] - scores["cpu"]).abs().max().item()
     emit({"phase": "small_slice_vs_cpu", "max_abs_dev": small_dev, "limit": 1e-3})
-    if not small_dev <= 1e-3:
-        raise AssertionError(f"the slice on the card is {small_dev} off the CPU run")
+    check(small_dev <= 1e-3, f"the slice on the card is {small_dev} off the CPU run")
 
     # -- the main path at full width, through the command line's code ----
+    fresh_env()
     gk.gaussian_kernel_block.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    out = cli.run(SLICE_ARGS)
-    launches = gk.gaussian_kernel_block.launches
+    with Probe() as probe:
+        probe.watch_fit(Pipeline)
+        for cls in (StandardScaler, KernelRidgeRegression):
+            probe.watch(cls, "fit")
+        probe.watch(Convolver, "forward")
+        probe.watch(RuleExecutor, "execute")
+        out = cli.run(SLICE_ARGS)
+        launches = gk.gaussian_kernel_block.launches
+        peak = torch.cuda.max_memory_allocated()
+        # fit-once: the classifier's fit after the run loads the saved fits
+        fitted = out["scorer"].and_then(MaxClassifier()).fit()
+    fits = {k: v for k, v in probe.calls.items() if k.split(":")[0].endswith(".fit")}
     emit({"phase": "slice", "app": "RandomPatchCifarKernel", "args": SLICE_ARGS,
           "train_error": out["train_error"], "test_error": out["test_error"],
           "seconds": out["seconds"], "phase_seconds": out["phases"],
-          "gaussian_kernel_block_launches": launches,
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card})
-    if launches != SLICE_LAUNCHES:
-        raise AssertionError(f"K1 launched {launches} times, want {SLICE_LAUNCHES}")
-    if not out["test_error"] < 0.7:
-        raise AssertionError(f"test error {out['test_error']} is not below 0.7")
+          "gaussian_kernel_block_launches": launches, "estimator_fits": fits,
+          "convolver_rows": dict(probe.rows), "fitted_chain": chain(fitted),
+          "fitted_fused_steps": fused_steps(fitted.graph),
+          "optimizer_seconds": {k: v for k, v in probe.seconds.items()
+                                if k.startswith("RuleExecutor")},
+          "peak_mem_gb": peak / 1e9, "card": card})
+    check(launches == SLICE_LAUNCHES, f"K1 launched {launches} times, want {SLICE_LAUNCHES}")
+    check(out["test_error"] < 0.7, f"test error {out['test_error']} is not below 0.7")
+    check(fits == {"StandardScaler.fit:fit": 1, "KernelRidgeRegression.fit:fit": 1},
+          f"each estimator must fit once, in fit(): {fits}")
+    check(probe.rows["Convolver.forward:fit"] == 50000,
+          f"the Convolver saw {probe.rows['Convolver.forward:fit']} rows in fit(), want 50000")
+    check(chain(fitted) == ["FusedTransformerOperator", "StandardScalerModel",
+                            "KernelBlockLinearMapper", "MaxClassifier"],
+          f"fitted chain {chain(fitted)}")
+    check(fused_steps(fitted.graph) == [["Convolver", "SymmetricRectifier", "Pooler",
+                                         "ImageVectorizer"]],
+          f"fused groups {fused_steps(fitted.graph)}")
+    # the scorer's graph holds the training images, the fitted model the
+    # training features and the probe the last results it saw: release
+    # them before MnistRandomFFT's peaks are read
+    del out, fitted, probe
 
     # -- MnistRandomFFT small: the card (cuFFT, cuBLAS) against the CPU ---
     mconf = mnist.MnistRandomFFTConfig(num_ffts=2, block_size=512, lam=10.0)
     mtrain, mtest = mnist.synthetic_mnist(4096, 512, seed=7)
     scores, errs = {}, {}
     for name, where in (("cuda", dev), ("cpu", torch.device("cpu"))):
-        pipe, tr, te, _ = mnist.run(mtrain, mtest, mconf, where)
-        scores[name] = apply_stages(pipe.fit().stages[:-1],
-                                    mtest.data.to_array().to(where)).to_array().cpu()
+        fresh_env()
+        scorer, tr, te, _ = mnist.run(mtrain, mtest, mconf, where)
+        scores[name] = scorer.fit().apply(mtest.data.to_array().to(where)).to_array().cpu()
         errs[name] = [tr, te]
     mnist_dev = (scores["cuda"] - scores["cpu"]).abs().max().item()
     emit({"phase": "mnist_small_vs_cpu", "max_abs_dev": mnist_dev, "limit": 1e-3,
           "errors_cuda": errs["cuda"], "errors_cpu": errs["cpu"]})
-    if not mnist_dev <= 1e-3:
-        raise AssertionError(f"MnistRandomFFT on the card is {mnist_dev} off the CPU run")
+    check(mnist_dev <= 1e-3, f"MnistRandomFFT on the card is {mnist_dev} off the CPU run")
 
     # -- MnistRandomFFT at BASELINE's configuration, against Bayes --------
     bayes = mnist.bayes_error_mc(mnist.DATA_SEED)
@@ -242,27 +376,67 @@ def main() -> int:
           "phase_seconds": out["phases"], "wall_seconds": out["wall_seconds"],
           "block_steps": out["block_steps"], "peak_mem_gb": out["peak_mem_bytes"] / 1e9,
           "card": card})
-    if not out["test_error"] <= gate:
-        raise AssertionError(f"test error {out['test_error']} is above 1.5 × Bayes "
-                             f"{bayes} + 0.005")
+    check(out["test_error"] <= gate,
+          f"test error {out['test_error']} is above 1.5 × Bayes {bayes} + 0.005")
 
     # -- MnistRandomFFT at the CLI's default width ------------------------
     feature_bytes = 60000 * 200 * 512 * 4
-    out = mnist_run(cli, bcd, MNIST_FULL)
+    full_steps = MNIST_FULL_FFTS * 3 + 2  # sign, FFT, rectify per branch; gather; combiner
+    with Probe() as probe:
+        probe.watch_fit(Pipeline)
+        probe.watch(BlockLeastSquaresEstimator, "fit")
+        probe.watch(RuleExecutor, "execute")
+        out = mnist_run(cli, bcd, MNIST_FULL)
+        fit_graph = probe.last["RuleExecutor.execute:fit"][0]
+        fitted = out["scorer"].and_then(MaxClassifier()).fit()
+    fits = {k: v for k, v in probe.calls.items() if k.startswith("BlockLeast")}
     emit({"phase": "mnist_full_width", "args": MNIST_FULL,
           "train_error": out["train_error"], "test_error": out["test_error"],
           "bayes_error": bayes, "seconds": out["seconds"],
           "phase_seconds": out["phases"], "wall_seconds": out["wall_seconds"],
           "block_steps": out["block_steps"], "feature_bytes": feature_bytes,
           "peak_mem_gb": out["peak_mem_bytes"] / 1e9,
-          "peak_over_features": out["peak_mem_bytes"] / feature_bytes, "card": card})
-    if out["block_steps"] != MNIST_FULL_STEPS:
-        raise AssertionError(f"{out['block_steps']} BCD block steps, want {MNIST_FULL_STEPS}")
-    if not out["test_error"] < 0.35:
-        raise AssertionError(f"test error {out['test_error']} is not below 0.35")
-    if not out["peak_mem_bytes"] < 1.5 * feature_bytes:
-        raise AssertionError(f"peak memory {out['peak_mem_bytes']} B is not below 1.5 × "
-                             f"the {feature_bytes} B feature matrix")
+          "peak_over_features": out["peak_mem_bytes"] / feature_bytes,
+          "estimator_fits": fits, "fitted_chain": chain(fitted),
+          "fitted_fused_steps": [len(g) for g in fused_steps(fitted.graph)],
+          "fit_graph_nodes": len(fit_graph.nodes),
+          "fit_graph_fused_steps": [len(g) for g in fused_steps(fit_graph)],
+          "optimize_seconds": out["phases"]["optimize"],
+          "executor_seconds": out["phases"]["executor"], "card": card})
+    check(out["block_steps"] == MNIST_FULL_STEPS,
+          f"{out['block_steps']} BCD block steps, want {MNIST_FULL_STEPS}")
+    check(out["test_error"] < 0.35, f"test error {out['test_error']} is not below 0.35")
+    check(out["peak_mem_bytes"] < 1.5 * feature_bytes,
+          f"peak memory {out['peak_mem_bytes']} B is not below 1.5 × the "
+          f"{feature_bytes} B feature matrix")
+    check(fits == {"BlockLeastSquaresEstimator.fit:fit": 1},
+          f"the BCD estimator must fit once, in fit(): {fits}")
+    check(chain(fitted) == ["FusedTransformerOperator", "BlockLinearMapper", "MaxClassifier"],
+          f"fitted chain {chain(fitted)}")
+    check([len(g) for g in fused_steps(fitted.graph)] == [full_steps],
+          f"fitted fused groups {[len(g) for g in fused_steps(fitted.graph)]}")
+    check([len(g) for g in fused_steps(fit_graph)] == [full_steps, full_steps],
+          f"fit-graph fused groups {[len(g) for g in fused_steps(fit_graph)]}")
+    del fitted, fit_graph, out
+
+    # -- the optimizer at 200 FFTs, cold: composing digests every sign ----
+    fresh_env()
+    X = torch.randn(2048, mnist.MNIST_IMAGE_SIZE, device=dev, generator=gen)
+    Y = torch.randn(2048, 10, device=dev, generator=gen)
+    t0 = time.perf_counter()
+    pipe = mnist.build_featurizer(mnist.MnistRandomFFTConfig(num_ffts=MNIST_FULL_FFTS, seed=9),
+                                  dev).and_then(
+        BlockLeastSquaresEstimator(2048, 1, 1000.0), X, Y).and_then(MaxClassifier())
+    t1 = time.perf_counter()
+    optimizer = PipelineEnv.get_or_create().optimizer
+    runs = []
+    for _ in range(2):
+        t2 = time.perf_counter()
+        optimizer.execute(pipe.graph)
+        runs.append(time.perf_counter() - t2)
+    emit({"phase": "optimizer", "num_ffts": MNIST_FULL_FFTS, "nodes": len(pipe.graph.nodes),
+          "compose_seconds": t1 - t0, "optimize_seconds": runs, "card": card})
+    del pipe, X, Y
 
     fit = timings["fit"]
     emit({"kernels": [{

@@ -35,6 +35,11 @@ class KernelBlockLinearMapper(Transformer):
     """Apply a kernel model: out = Σ_B K(X, train_B) · W_B, one K1 launch
     per block of ``block_size`` training rows (the last may be short)."""
 
+    # Never fused: each K1 launch takes the whole batch against one
+    # training block, so a fused group holding this node could not run in
+    # row chunks, and the featurizer fused before it would run whole.
+    no_fuse = True
+
     def __init__(self, train_X: torch.Tensor, model_W: torch.Tensor,
                  gamma: float, block_size: int):
         self.train_X = train_X.float()

@@ -6,7 +6,8 @@ Draws the synthetic training set, then runs each phase once to warm up,
 once on the host clock and once under ``torch.profiler``:
 
 * ``featurize``: the gathered RandomSignNode → PaddedFFT → LinearRectifier
-  branches and VectorCombiner over the training rows, in row chunks;
+  branches and VectorCombiner over the training rows, as the fit runs
+  them: one fused operator, in row chunks;
 * ``solve``: the one-pass BlockLeastSquaresEstimator on those features.
 
 Prints one JSON line per phase: the host seconds of the untraced run, the
@@ -35,7 +36,7 @@ from .nodes.util import ClassLabelIndicators
 from .pipelines.mnist_random_fft import (
     MNIST_IMAGE_SIZE, NUM_CLASSES, MnistRandomFFTConfig, build_featurizer, synthetic_mnist,
 )
-from .workflow.pipeline import ROW_CHUNK, apply_stages
+from .workflow.fusion import ROW_CHUNK
 
 
 def featurize_bytes(n: int, num_ffts: int, d: int = MNIST_IMAGE_SIZE) -> Dict[str, int]:
@@ -105,13 +106,14 @@ def main(argv=None) -> int:
     train, _ = synthetic_mnist(args.nTrain, 1)
     X = train.data.to_array().to(dev, torch.float32)
     labels = ClassLabelIndicators(NUM_CLASSES).forward(train.labels.to_array().to(dev))
-    stages = build_featurizer(MnistRandomFFTConfig(num_ffts=args.numFFTs), dev).stages
+    # the estimator-free fit fuses the branches into one chunked operator
+    featurizer = build_featurizer(MnistRandomFFTConfig(num_ffts=args.numFFTs), dev).fit()
     est = BlockLeastSquaresEstimator(args.blockSize, 1, args.lam)
 
     def featurize():
-        return apply_stages(stages, X).to_array()
+        return featurizer.apply(X).to_array()
 
-    apply_stages(stages, X[:ROW_CHUNK])  # cuFFT plans and the allocator
+    featurizer.apply(X[:ROW_CHUNK])  # cuFFT plans and the allocator
     lines = [dict(phase="featurize", num_ffts=args.numFFTs, rows=args.nTrain,
                   **trace(featurize),
                   bytes=featurize_bytes(args.nTrain, args.numFFTs))]

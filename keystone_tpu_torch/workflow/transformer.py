@@ -1,60 +1,193 @@
-"""Transformer / Estimator / LabelEstimator (port of
-``keystone_tpu/workflow/transformer.py``).
+"""Typed Transformer / Estimator / LabelEstimator (port of
+``keystone_tpu/workflow/transformer.py``; parity: ``workflow/Transformer.scala``,
+``Estimator.scala``, ``LabelEstimator.scala``).
 
-A transformer implements ``forward(X)``: a function of the stacked
-batch tensor (leading dimension = items). ``row_local`` marks those whose
-output row i depends on input row i alone; the pipeline may apply a run
-of them in row chunks.
+A Transformer is at once a chainable pipeline stage and the untyped
+operator that runs at its node, as in the reference. Numeric nodes
+implement ``forward(X)``: a function of the stacked batch tensor (leading
+dimension = items) or of a tuple payload. ``forward`` is what fusion runs;
+``apply(x)`` of one item is ``forward(x[None])[0]`` unless a node gives its
+own. ``row_local`` marks the nodes whose output row i depends on input row
+i alone; a fused group of them, or one of them alone, runs in row
+chunks.
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Callable, Optional, Sequence
 
-import torch
+from ..data.dataset import Dataset, map_leaves
+from . import fusion
+from .expressions import DatasetExpression, DatumExpression
+from .graph import Graph
+from .operators import DelegatingOperator, EstimatorOperator, TransformerOperator
+from .pipeline import Chainable, Pipeline, attach_data
 
-from ..data.dataset import Dataset
-from .pipeline import Chainable, Pipeline
+__all__ = [
+    "Transformer",
+    "Estimator",
+    "LabelEstimator",
+    "FunctionNode",
+    "Identity",
+]
 
 
-class Transformer(Chainable):
-    """A deterministic function of each item, applied to whole batches."""
+def _one_row(x: Any) -> Any:
+    """An item as a batch of one: a tensor gets a leading dimension, and a
+    gathered item (a list or tuple of parts) becomes a tuple payload."""
+    if isinstance(x, (list, tuple)):
+        return tuple(_one_row(p) for p in x)
+    return x[None]
+
+
+class Transformer(Chainable, TransformerOperator):
+    """A deterministic per-item function, applied to whole batches.
+
+    Implement at least one of:
+      * ``forward(X)`` — torch over the stacked batch (preferred), or
+      * ``apply(x)`` — per-item function.
+    """
+
+    #: override in subclasses: a function of the whole batch
+    forward: Optional[Callable] = None
 
     #: output row i depends on input row i alone
     row_local: bool = False
 
-    def forward(self, X: torch.Tensor) -> torch.Tensor:
-        raise NotImplementedError
+    def apply(self, x: Any) -> Any:
+        if self.forward is not None:
+            return map_leaves(lambda t: t[0], self.forward(_one_row(x)))
+        raise NotImplementedError(f"{type(self).__name__} implements neither apply nor forward")
 
     def apply_batch(self, data: Any) -> Dataset:
-        return Dataset.of(data).map_batch(self.forward)
+        data = Dataset.of(data)
+        if self.forward is not None and data.is_batched:
+            # A row-local node that no fused group took (one fit after
+            # fusion, such as the linear model after the featurizer) runs
+            # in row chunks as a fused group would: its whole-batch
+            # temporaries (X − μ of a 24.6 GB feature matrix) never exist.
+            if self.row_local and len(data) > fusion.ROW_CHUNK:
+                return Dataset(fusion.forward_in_row_chunks(
+                    self.forward, [data.payload], len(data)))
+            return data.map_batch(self.forward)
+        return data.map(self.apply)
+
+    # -- operator-level glue -------------------------------------------
+
+    def single_transform(self, inputs: Sequence[DatumExpression]) -> Any:
+        (x,) = [d.get() for d in inputs]
+        return self.apply(x)
+
+    def batch_transform(self, inputs: Sequence[DatasetExpression]) -> Dataset:
+        (ds,) = [d.get() for d in inputs]
+        return self.apply_batch(ds)
+
+    # -- chainable glue -------------------------------------------------
 
     def to_pipeline(self) -> Pipeline:
-        return Pipeline((self,))
+        graph = Graph()
+        graph, source = graph.add_source()
+        graph, node = graph.add_node(self, [source])
+        graph, sink = graph.add_sink(node)
+        return Pipeline(graph, source, sink)
+
+    def __call__(self, data: Any):
+        return self.to_pipeline().apply(data)
 
 
-class Estimator(Chainable):
-    """Fits on a dataset, producing a Transformer. Chain it with
-    ``pipeline.and_then(est, data)``."""
+class FunctionNode(Transformer):
+    """Wrap plain functions as a transformer: ``FunctionNode(item_fn=...)``
+    or ``FunctionNode(batch_fn=...)``."""
+
+    def __init__(self, item_fn: Callable = None, batch_fn: Callable = None, label: str = None):
+        if item_fn is None and batch_fn is None:
+            raise ValueError("need item_fn or batch_fn")
+        self._item_fn = item_fn
+        self._label = label
+        if batch_fn is not None:
+            self.forward = batch_fn
+
+    @property
+    def label(self) -> str:
+        return self._label or getattr(
+            self._item_fn or self.forward, "__name__", type(self).__name__
+        )
+
+    def apply(self, x: Any) -> Any:
+        if self._item_fn is not None:
+            return self._item_fn(x)
+        return super().apply(x)
+
+
+class Identity(Transformer):
+    """Pass-through (parity: ``workflow/Identity.scala``)."""
+
+    row_local = True
+
+    def forward(self, X):
+        return X
+
+    def apply(self, x: Any) -> Any:
+        return x
+
+
+class Estimator(Chainable, EstimatorOperator):
+    """Fits on a dataset, producing a Transformer.
+
+    Implement ``fit(data: Dataset) -> Transformer``. Use via
+    ``est.with_data(data)`` or ``pipeline.and_then(est, data)``.
+    """
 
     def fit(self, data: Dataset) -> Transformer:
         raise NotImplementedError
 
+    def with_data(self, data: Any) -> Pipeline:
+        """A pipeline that fits this estimator on ``data`` (lazily, once)
+        and applies the fitted transformer to the pipeline input
+        (parity: ``Estimator.scala:29-46``)."""
+        graph = Graph()
+        graph, source = graph.add_source()
+        graph, data_id = attach_data(graph, data)
+        graph, est_node = graph.add_node(self, [data_id])
+        graph, delegating = graph.add_node(DelegatingOperator(), [est_node, source])
+        graph, sink = graph.add_sink(delegating)
+        return Pipeline(graph, source, sink)
+
     def to_pipeline(self) -> Pipeline:
         raise TypeError(
-            "an Estimator is not directly chainable; use and_then(est, data)"
+            "an Estimator is not directly chainable; use with_data(data) or "
+            "and_then(est, data)"
         )
 
+    def __call__(self, data: Any) -> Pipeline:
+        return self.with_data(data)
 
-class LabelEstimator(Chainable):
-    """Fits on (data, labels), producing a Transformer. Chain it with
-    ``pipeline.and_then(est, data, labels)``."""
+
+class LabelEstimator(Chainable, EstimatorOperator):
+    """Fits on (data, labels), producing a Transformer.
+
+    Implement ``fit(data: Dataset, labels: Dataset) -> Transformer``.
+    """
 
     def fit(self, data: Dataset, labels: Dataset) -> Transformer:
         raise NotImplementedError
 
+    def with_data(self, data: Any, labels: Any = None) -> Pipeline:
+        if labels is None:
+            raise ValueError("LabelEstimator.with_data requires labels")
+        graph = Graph()
+        graph, source = graph.add_source()
+        graph, data_id = attach_data(graph, data)
+        graph, labels_id = attach_data(graph, labels)
+        graph, est_node = graph.add_node(self, [data_id, labels_id])
+        graph, delegating = graph.add_node(DelegatingOperator(), [est_node, source])
+        graph, sink = graph.add_sink(delegating)
+        return Pipeline(graph, source, sink)
+
     def to_pipeline(self) -> Pipeline:
         raise TypeError(
-            "a LabelEstimator is not directly chainable; "
-            "use and_then(est, data, labels)"
+            "a LabelEstimator is not directly chainable; use with_data(data, labels)"
         )
+
+    def __call__(self, data: Any, labels: Any = None) -> Pipeline:
+        return self.with_data(data, labels)

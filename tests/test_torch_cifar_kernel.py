@@ -22,12 +22,21 @@ from keystone_tpu_torch.loaders.cifar import load_cifar, synthetic_cifar
 from keystone_tpu_torch.nodes.util import ClassLabelIndicators, MaxClassifier
 from keystone_tpu_torch.pipelines import cifar_extras as tce
 from keystone_tpu_torch.pipelines.random_patch_cifar import learn_filters
-from keystone_tpu_torch.workflow.pipeline import apply_stages
+from keystone_tpu_torch.workflow.env import PipelineEnv
 
 CPU = torch.device("cpu")
 # the config of the JAX package's test_random_patch_cifar_kernel_streaming
 CONF = dict(num_filters=16, lam=1.0, gamma=1e-3, block_size=64, num_epochs=1,
             cache_kernel=False, whitener_size=2000, pool_size=8, pool_stride=7)
+
+
+@pytest.fixture(autouse=True)
+def port_env():
+    """The port's fit-once state, reset around each test."""
+    env = PipelineEnv.get_or_create()
+    env.reset()
+    yield env
+    env.reset()
 
 
 @pytest.mark.parametrize("n,seed", [(5, 0), (192, 7), (48, 8)])
@@ -85,9 +94,9 @@ def slice_runs():
         .and_then(jce.ImageVectorizer())(j_test.data).get().to_array()
     j_scores = np.asarray(mapper.trace_batch(scaler.trace_batch(jnp.asarray(feats))))
 
-    t_pipe, t_tr, t_te, _ = tce.run_random_patch_cifar_kernel(t_train, t_test, conf_t, CPU)
+    t_scorer, t_tr, t_te, _ = tce.run_random_patch_cifar_kernel(t_train, t_test, conf_t, CPU)
     t_filters, _ = learn_filters(t_train.data.to_array(), conf_t)
-    t_scores = apply_stages(t_pipe.fit().stages[:-1], t_test.data.to_array()).to_array()
+    t_scores = t_scorer.fit().apply(t_test.data.to_array()).to_array()
     params = dict(
         filters=np.asarray(j_filters), whitener=np.asarray(j_whitener.whitener),
         means=np.asarray(j_whitener.means), scaler_mean=np.asarray(scaler.mean),
@@ -119,7 +128,8 @@ def test_slice_scores_and_predictions_match_jax(slice_runs):
 def test_weights_carried_from_jax_give_jax_scores(slice_runs):
     fitted = tce.fitted_from_arrays(slice_runs["params"], slice_runs["conf"], CPU)
     X = slice_runs["test"].data.to_array()
-    scores = apply_stages(fitted.stages[:-1], X).to_array().numpy()
+    scores = tce.fitted_from_arrays(slice_runs["params"], slice_runs["conf"], CPU,
+                                    classify=False).apply(X).to_array().numpy()
     # atol 1e-4: the same weights; only float32 summation order differs
     np.testing.assert_allclose(scores, slice_runs["j_scores"], atol=1e-4)
     preds = fitted.apply(X).to_array().numpy()

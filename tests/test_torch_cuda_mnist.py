@@ -14,7 +14,16 @@ import pytest
 import torch
 
 from keystone_tpu_torch.pipelines import mnist_random_fft as tm
-from keystone_tpu_torch.workflow.pipeline import apply_stages
+from keystone_tpu_torch.workflow.env import PipelineEnv
+
+
+@pytest.fixture(autouse=True)
+def port_env():
+    """The port's fit-once state, reset around each test."""
+    env = PipelineEnv.get_or_create()
+    env.reset()
+    yield env
+    env.reset()
 
 
 @pytest.fixture
@@ -30,9 +39,9 @@ def test_small_mnist_on_the_card_matches_the_cpu(cuda):
     conf = tm.MnistRandomFFTConfig(num_ffts=2, block_size=512, lam=10.0)
     scores, errs = {}, {}
     for where in (cuda, torch.device("cpu")):
-        pipe, tr, te, _ = tm.run(train, test, conf, where)
+        scorer, tr, te, _ = tm.run(train, test, conf, where)
         X = test.data.to_array().to(where)
-        scores[where.type] = apply_stages(pipe.fit().stages[:-1], X).to_array().cpu()
+        scores[where.type] = scorer.fit().apply(X).to_array().cpu()
         errs[where.type] = (tr, te)
     assert (scores["cuda"] - scores["cpu"]).abs().max().item() <= 1e-3
     assert errs["cuda"][1] < 0.35

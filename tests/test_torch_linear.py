@@ -30,9 +30,20 @@ from keystone_tpu_torch.nodes.learning.linear import (
     LinearMapper,
 )
 from keystone_tpu_torch.nodes.util import VectorSplitter
-from keystone_tpu_torch.workflow import pipeline as tpipeline
+from keystone_tpu_torch.workflow import fusion
+from keystone_tpu_torch.workflow.env import PipelineEnv
+from keystone_tpu_torch.workflow.transformer import Identity
 
 W_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+@pytest.fixture(autouse=True)
+def port_env():
+    """The port's fit-once state, reset around each test."""
+    env = PipelineEnv.get_or_create()
+    env.reset()
+    yield env
+    env.reset()
 
 
 def _t(a):
@@ -276,13 +287,17 @@ def test_vector_splitter_matches_jax():
 
 
 def test_block_mapper_applies_in_row_chunks(monkeypatch):
-    """The fitted mapper is row-local: chunked, the pipeline's apply gives
-    the whole-batch scores (to 1e-6: a GEMM of fewer rows may block its
-    sums differently)."""
+    """The fitted mapper is row-local: in a fused group, chunked, the
+    pipeline's apply gives the whole-batch scores (to 1e-6: a GEMM of fewer
+    rows may block its sums differently)."""
     X, Y = _problem(n=100, seed=15)
     model = BlockLeastSquaresEstimator(8, 1, lam=0.3).fit(Dataset.of(X), Dataset.of(Y))
-    whole = tpipeline.apply_stages([model], _t(X)).to_array()
-    monkeypatch.setattr(tpipeline, "ROW_CHUNK", 7)
-    chunked = tpipeline.apply_stages([model], _t(X)).to_array()
+    fitted = Identity().and_then(model).fit()
+    (op,) = fitted.graph.operators.values()
+    assert isinstance(op, fusion.FusedTransformerOperator) and op.row_local
+    whole = fitted.apply(_t(X)).to_array()
+    monkeypatch.setattr(fusion, "ROW_CHUNK", 7)
+    chunked = fitted.apply(_t(X)).to_array()
     torch.testing.assert_close(chunked, whole, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(whole, model.forward(_t(X)), rtol=0, atol=0)
     assert isinstance(model, BlockLinearMapper) and model.row_local

@@ -26,14 +26,26 @@ from keystone_tpu_torch.nodes.learning.linear import (
     LinearMapEstimator,
 )
 from keystone_tpu_torch.nodes.stats import LinearRectifier, PaddedFFT, RandomSignNode
-from keystone_tpu_torch.nodes.util import VectorCombiner
+from keystone_tpu_torch.nodes.util import MaxClassifier, VectorCombiner
 from keystone_tpu_torch.pipelines import mnist_random_fft as tm
-from keystone_tpu_torch.workflow import pipeline as tpipeline
-from keystone_tpu_torch.workflow.pipeline import GatherStage, Pipeline, apply_stages
+from keystone_tpu_torch.workflow import fusion
+from keystone_tpu_torch.workflow.env import PipelineEnv
+from keystone_tpu_torch.workflow.operators import GatherTransformerOperator
+from keystone_tpu_torch.workflow.pipeline import Pipeline
+from keystone_tpu_torch.workflow.transformer import Identity
 
 CPU = torch.device("cpu")
 # the config of the JAX package's test_mnist_random_fft_end_to_end
 CONF = dict(num_ffts=2, block_size=512, lam=10.0)
+
+
+@pytest.fixture(autouse=True)
+def port_env():
+    """The port's fit-once state, reset around each test."""
+    env = PipelineEnv.get_or_create()
+    env.reset()
+    yield env
+    env.reset()
 
 
 def _x(n, d, seed=0):
@@ -93,7 +105,7 @@ def test_gather_and_combiner_match_jax():
     want = np.asarray(jm.build_featurizer(conf)(JDataset.of(X)).get().to_array())
     feat = tm.build_featurizer(tm.MnistRandomFFTConfig(num_ffts=3, seed=4), CPU,
                                signs=_jax_signs(3, seed=4))
-    got = apply_stages(feat.stages, torch.from_numpy(X)).to_array().numpy()
+    got = feat(torch.from_numpy(X)).get().to_array().numpy()
     assert got.shape == want.shape == (20, 3 * 512)
     _close_to_row_max(got, want)
     # the combiner alone, on a gather tuple
@@ -104,31 +116,37 @@ def test_gather_and_combiner_match_jax():
 
 
 def test_gather_is_row_local_and_runs_in_row_chunks(monkeypatch):
-    feat = tm.build_featurizer(tm.MnistRandomFFTConfig(num_ffts=2), CPU)
-    (gather,) = feat.stages[:1]
-    assert isinstance(gather, GatherStage) and gather.row_local
+    signs = RandomSignNode.create(784, seed=0, device="cpu").signs, \
+        RandomSignNode.create(784, seed=1, device="cpu").signs
+    gather = Pipeline.gather([RandomSignNode(s).and_then(PaddedFFT()).and_then(LinearRectifier(0.0))
+                              for s in signs])
+    assert GatherTransformerOperator.row_local
+    feat = tm.build_featurizer(tm.MnistRandomFFTConfig(num_ffts=2), CPU, signs=torch.stack(signs))
+    gather_fit, feat_fit = gather.fit(), feat.fit()
+    for fitted in (gather_fit, feat_fit):
+        (op,) = fitted.graph.operators.values()
+        assert isinstance(op, fusion.FusedTransformerOperator) and op.row_local
     X = torch.from_numpy(_x(50, 784, seed=2))
-    whole_tuple = apply_stages(feat.stages[:1], X).to_array()
-    whole = apply_stages(feat.stages, X).to_array()
-    monkeypatch.setattr(tpipeline, "ROW_CHUNK", 8)
-    chunked_tuple = apply_stages(feat.stages[:1], X).to_array()
+    whole_tuple = gather_fit.apply(X).to_array()
+    whole = feat_fit.apply(X).to_array()
+    monkeypatch.setattr(fusion, "ROW_CHUNK", 8)
+    chunked_tuple = gather_fit.apply(X).to_array()
     assert isinstance(chunked_tuple, tuple) and len(chunked_tuple) == 2
     for a, b in zip(chunked_tuple, whole_tuple):
         # 1e-6 · row max: an FFT of fewer rows may take another plan
         _close_to_row_max(a.numpy(), b.numpy(), tol=1e-6)
-    _close_to_row_max(apply_stages(feat.stages, X).to_array().numpy(), whole.numpy(), tol=1e-6)
+    _close_to_row_max(feat_fit.apply(X).to_array().numpy(), whole.numpy(), tol=1e-6)
     # a tuple payload goes through a chunked run too
-    combined = apply_stages((VectorCombiner(),), chunked_tuple).to_array()
+    combined = Identity().and_then(VectorCombiner()).fit().apply(chunked_tuple).to_array()
     torch.testing.assert_close(combined, torch.cat(chunked_tuple, dim=1), rtol=0, atol=0)
 
 
 def test_gather_refuses_what_it_cannot_run():
     with pytest.raises(ValueError, match="zero branches"):
         Pipeline.gather([])
-    est = PaddedFFT().and_then(BlockLeastSquaresEstimator(4, 1), torch.zeros(4, 8),
-                               torch.zeros(4, 2))
-    with pytest.raises(ValueError, match="transformers only"):
-        Pipeline.gather([est])
+    # an estimator is chained with its data, never gathered bare
+    with pytest.raises(TypeError, match="not directly chainable"):
+        Pipeline.gather([BlockLeastSquaresEstimator(4, 1)])
 
 
 def test_tuple_dataset():
@@ -217,17 +235,18 @@ def slice_runs():
         return np.asarray(mapper.trace_batch(jnp.asarray(feats)))
 
     signs = _jax_signs(CONF["num_ffts"])
-    t_pipe, t_tr, t_te, _ = tm.run(t_train, t_test, tm.MnistRandomFFTConfig(**CONF), CPU,
-                                   signs=signs)
-    fitted = t_pipe.fit()
+    t_scorer, t_tr, t_te, _ = tm.run(t_train, t_test, tm.MnistRandomFFTConfig(**CONF), CPU,
+                                     signs=signs)
+    scores = t_scorer.fit()
+    fitted = t_scorer.and_then(MaxClassifier()).fit()
     params = dict(signs=signs, W=np.concatenate([np.asarray(w) for w in mapper.xs]),
                   b=np.asarray(mapper.b),
                   feature_means=np.concatenate([np.asarray(m) for m in mapper.feature_means]))
     return dict(
         arrays=arrays, params=params, j_errs=(j_tr, j_te), t_errs=(t_tr, t_te),
         j_scores={k: j_scores(arrays[k][1]) for k in arrays},
-        t_scores={k: apply_stages(fitted.stages[:-1], torch.from_numpy(arrays[k][1]))
-                  .to_array().numpy() for k in arrays},
+        t_scores={k: scores.apply(torch.from_numpy(arrays[k][1])).to_array().numpy()
+                  for k in arrays},
         t_preds={k: fitted.apply(torch.from_numpy(arrays[k][1])).to_array().numpy()
                  for k in arrays},
     )
@@ -258,7 +277,8 @@ def test_weights_carried_from_jax_give_jax_predictions(slice_runs):
     fitted = tm.fitted_from_arrays(slice_runs["params"], CPU)
     X = torch.from_numpy(slice_runs["arrays"]["test"][1])
     want = slice_runs["j_scores"]["test"]
-    scores = apply_stages(fitted.stages[:-1], X).to_array().numpy()
+    scores = tm.fitted_from_arrays(slice_runs["params"], CPU, classify=False) \
+        .apply(X).to_array().numpy()
     # 1e-4: the same weights; only the FFT and GEMM sum orders differ
     np.testing.assert_allclose(scores, want, atol=1e-4)
     preds = fitted.apply(X).to_array().numpy()
