@@ -13,10 +13,17 @@ default width (200 FFTs, d = 102,400, 50 BCD block steps over a 24.6 GB
 feature matrix) with its peak memory. Both applications run through the
 workflow graph; the script checks the plans the optimizer made (fused
 groups, the fit data featurized once), that every estimator fitted once
-across a fit and the applies, and how long the optimizer took. Each phase
-prints one JSON line; any failure raises and exits non-zero. The last line is ``{"ok": true,
-"device": {...}}``. Without a CUDA card it exits non-zero and prints no
-result.
+across a fit and the applies, and how long the optimizer took. A fused
+group runs on the card as CUDA-graph replays. Three paths follow each
+application's run: one-program apply of the fitted CIFAR chain
+(``apply_compiled`` on the 10000 test rows and ``apply_chunked``, with
+K1's launches per replay), one-program apply at 200 FFTs (with the
+featurizer's host launches traced eager against captured), and the KRR
+family on 8000 CIFAR features (the cost-model chooser picks the exact
+solve, which builds its kernel from K1 blocks). Each phase prints one
+JSON line; any failure raises and exits non-zero. The last line is
+``{"ok": true, "device": {...}}``. Without a CUDA card it exits non-zero
+and prints no result.
 """
 
 from __future__ import annotations
@@ -37,12 +44,17 @@ HBM_BYTES_PER_S = 3.35e12
 
 GAMMA = 2e-4  # the RandomPatchCifarKernel default
 CHECK_SHAPES = [(700, 128, 256), (37, 5, 3), (1, 800, 100), (513, 33, 129),
-                (50000, 800, 5000), (10000, 800, 5000)]  # (n, d, b)
+                (50000, 800, 5000), (10000, 800, 5000), (8000, 800, 5000),
+                (8000, 800, 3000)]  # (n, d, b)
 FIT_SHAPE = (50000, 800, 5000)
 APPLY_SHAPE = (10000, 800, 5000)
+# the exact KRR solve of 8000 rows builds its kernel from two column blocks
+EXACT_SHAPES = ((8000, 800, 5000), (8000, 800, 3000))
 SLICE_ARGS = ["RandomPatchCifarKernel", "--nTrain", "50000", "--nTest", "10000",
               "--lambda", "5.0"]
 SLICE_LAUNCHES = 30  # 10 blocks × (fit, apply to train, apply to test)
+CHUNK = 2500  # apply_chunked's rows per chunk, the fused groups' own
+KRR_ROWS, KRR_LAMBDA = 8000, 5.0
 
 # MnistRandomFFT: BASELINE's configuration (bench.py's), then the JAX CLI's
 # default width; 60000 / 10000 synthetic images of MNIST's shape
@@ -178,11 +190,13 @@ def check(cond: bool, what: str) -> None:
 
 
 def fresh_env():
-    """Reset the port's fit-once state, so a phase holds no device memory
-    of the one before it."""
+    """Reset the port's fit-once state and drop the fused groups' shared
+    CUDA graphs, so a phase holds no device memory of the one before it."""
+    from keystone_tpu_torch.workflow import fusion
     from keystone_tpu_torch.workflow.env import PipelineEnv
 
     PipelineEnv.get_or_create().reset()
+    fusion.clear_graph_cache()
 
 
 def mnist_run(cli, bcd, args) -> dict:
@@ -219,8 +233,19 @@ def main() -> int:
     from keystone_tpu_torch.nodes.learning.linear import BlockLeastSquaresEstimator
     from keystone_tpu_torch.nodes.stats import StandardScaler
     from keystone_tpu_torch.nodes.util import MaxClassifier
+    from keystone_tpu_torch import cost, trace_mnist
+    from keystone_tpu_torch.evaluation.multiclass import MulticlassClassifierEvaluator
+    from keystone_tpu_torch.nodes.learning.kernel import (
+        ExactKernelRidge, KernelBlockLinearMapper, KernelRidgeEstimator,
+    )
     from keystone_tpu_torch.workflow.env import PipelineEnv
-    from keystone_tpu_torch.workflow.pipeline import Pipeline
+    from keystone_tpu_torch.workflow.expressions import DatasetExpression
+    from keystone_tpu_torch.workflow.fusion import (
+        FusedTransformerOperator, forward_in_row_chunks,
+    )
+    from keystone_tpu_torch.workflow.cuda_graph import GraphCache
+    from keystone_tpu_torch.workflow.operators import DatasetOperator
+    from keystone_tpu_torch.workflow.pipeline import Pipeline, clock
     from keystone_tpu_torch.workflow.rules import RuleExecutor
 
     dev = keystone_tpu_torch.device()
@@ -256,7 +281,9 @@ def main() -> int:
     # timed at the main path's shapes; the block is a row slice of the
     # data, as the KRR fit passes it
     timings = {}
-    for label, (n, d, b) in (("fit", FIT_SHAPE), ("apply", APPLY_SHAPE)):
+    for label, (n, d, b) in (("fit", FIT_SHAPE), ("apply", APPLY_SHAPE),
+                             ("exact_block", EXACT_SHAPES[0]),
+                             ("exact_tail", EXACT_SHAPES[1])):
         X = torch.randn(max(n, FIT_SHAPE[0]), d, device=dev, generator=gen)
         Xq, Xb = X[:n], X[2 * b:3 * b]
         row = {}
@@ -319,6 +346,7 @@ def main() -> int:
         for cls in (StandardScaler, KernelRidgeRegression):
             probe.watch(cls, "fit")
         probe.watch(Convolver, "forward")
+        probe.watch(GraphCache, "__call__")
         probe.watch(RuleExecutor, "execute")
         out = cli.run(SLICE_ARGS)
         launches = gk.gaussian_kernel_block.launches
@@ -330,7 +358,7 @@ def main() -> int:
           "train_error": out["train_error"], "test_error": out["test_error"],
           "seconds": out["seconds"], "phase_seconds": out["phases"],
           "gaussian_kernel_block_launches": launches, "estimator_fits": fits,
-          "convolver_rows": dict(probe.rows), "fitted_chain": chain(fitted),
+          "rows": dict(probe.rows), "fitted_chain": chain(fitted),
           "fitted_fused_steps": fused_steps(fitted.graph),
           "optimizer_seconds": {k: v for k, v in probe.seconds.items()
                                 if k.startswith("RuleExecutor")},
@@ -339,18 +367,99 @@ def main() -> int:
     check(out["test_error"] < 0.7, f"test error {out['test_error']} is not below 0.7")
     check(fits == {"StandardScaler.fit:fit": 1, "KernelRidgeRegression.fit:fit": 1},
           f"each estimator must fit once, in fit(): {fits}")
-    check(probe.rows["Convolver.forward:fit"] == 50000,
-          f"the Convolver saw {probe.rows['Convolver.forward:fit']} rows in fit(), want 50000")
+    # the fused featurizer's graph replays see the rows; the Convolver's
+    # Python code runs only at a warm-up and a capture
+    check(probe.rows["GraphCache.__call__:fit"] == 50000,
+          f"the featurizer's graphs saw {probe.rows['GraphCache.__call__:fit']} rows "
+          "in fit(), want 50000")
     check(chain(fitted) == ["FusedTransformerOperator", "StandardScalerModel",
                             "KernelBlockLinearMapper", "MaxClassifier"],
           f"fitted chain {chain(fitted)}")
     check(fused_steps(fitted.graph) == [["Convolver", "SymmetricRectifier", "Pooler",
                                          "ImageVectorizer"]],
           f"fused groups {fused_steps(fitted.graph)}")
-    # the scorer's graph holds the training images, the fitted model the
-    # training features and the probe the last results it saw: release
-    # them before MnistRandomFFT's peaks are read
-    del out, fitted, probe
+    del fitted, probe
+
+    # -- one-program apply of the fitted full-width CIFAR chain ----------
+    scores = out["scorer"].fit()  # fit-once: the run's fits, no new one
+    Xt_host = synthetic_cifar(10000, seed=2).data.to_array().numpy()  # the CLI's test set
+    Xt = torch.from_numpy(Xt_host).to(dev)
+    secs = {}
+    t0 = clock()
+    eager = scores.apply(Xt).to_array()
+    secs["eager_apply"] = clock() - t0
+    captures = []
+    scores.compile(on_trace=captures.append)
+    results, k1 = {}, {}
+    for name, call in (("whole", lambda: scores.apply_compiled(Xt)),
+                       ("chunked", lambda: scores.apply_chunked(Xt_host, chunk_size=CHUNK)
+                        .to_array())):
+        t0 = clock()
+        call()  # the warm-up, the capture and one replay
+        secs[f"{name}_first_call"] = clock() - t0
+        gk.gaussian_kernel_block.launches = 0
+        t0 = clock()
+        results[name] = call()
+        secs[f"{name}_replay"] = clock() - t0
+        k1[name] = gk.gaussian_kernel_block.launches
+    devs = {name: (r - eager).abs().max().item() for name, r in results.items()}
+    preds_equal = {name: bool(torch.equal(r.argmax(1), eager.argmax(1)))
+                   for name, r in results.items()}
+    emit({"phase": "compiled_cifar", "rows": Xt.shape[0], "chunk_size": CHUNK,
+          "seconds": secs, "max_abs_dev_from_apply": devs, "limit": 1e-5,
+          "predictions_equal": preds_equal, "k1_launches_per_call": k1,
+          "compiled_signatures": [[list(s), t] for s, t in scores.compiled_signatures],
+          "compile_count": scores.compile_count, "captures": len(captures), "card": card})
+    check(all(v <= 1e-5 for v in devs.values()), f"compiled outputs off apply: {devs}")
+    check(all(preds_equal.values()), f"compiled predictions differ: {preds_equal}")
+    check(k1 == {"whole": 10, "chunked": 40}, f"K1 launches per call {k1}, want 10 and 40")
+    check(scores.compile_count == len(set(scores.compiled_signatures)) == len(captures) == 2,
+          f"signatures {scores.compiled_signatures}")
+    compiled_launches = sum(k1.values())
+
+    # -- the KRR family on 8000 of the fit's features: the chooser picks
+    # the exact solve, whose kernel is two K1 column blocks ------------
+    mapper = next(op for op in scores.graph.operators.values()
+                  if isinstance(op, KernelBlockLinearMapper))
+    F = mapper.train_X[:KRR_ROWS]
+    Y = next(op.dataset.payload for op in out["scorer"].graph.operators.values()
+             if isinstance(op, DatasetOperator)
+             and tuple(op.dataset.payload.shape) == (50000, 10))[:KRR_ROWS]
+    del scores, results, eager, Xt, out
+    est = KernelRidgeEstimator(GAMMA, KRR_LAMBDA, 5000, 1)
+    fresh_env()
+    cost.reset_sampling()
+    gk.gaussian_kernel_block.launches = 0
+    with Probe() as probe:
+        probe.watch_fit(Pipeline)
+        for cls in (ExactKernelRidge, KernelRidgeRegression, KernelRidgeEstimator):
+            probe.watch(cls, "fit")
+        t0 = clock()
+        krr = est.with_data(F, Y).fit()
+        fit_seconds = clock() - t0
+    krr_launches = gk.gaussian_kernel_block.launches
+    fits = {k: v for k, v in probe.calls.items() if k.split(":")[0].endswith(".fit")}
+    W = next(op.W for op in krr.graph.operators.values()
+             if isinstance(op, KernelBlockLinearMapper))
+    K = gk.gaussian_kernel_block_plain(F.double(), F.double(), GAMMA)
+    residual = (torch.linalg.norm(K @ W.double() + KRR_LAMBDA * W.double() - Y.double())
+                / torch.linalg.norm(Y.double())).item()
+    choices = {n: est.choose_solver(cost.ShapeSignature(n, F.shape[1], Y.shape[1]))
+               for n in (KRR_ROWS, 50000)}
+    emit({"phase": "krr_family", "n": KRR_ROWS, "d": F.shape[1], "gamma": GAMMA,
+          "lambda": KRR_LAMBDA, "block_size": 5000, "estimator_fits": fits,
+          "fit_seconds": fit_seconds, "k1_launches": krr_launches,
+          "relative_residual": residual, "residual_limit": 1e-4,
+          "choices": {n: {"label": c.label, "units": {k: r["units"] for k, r in c.costs.items()}}
+                      for n, c in choices.items()},
+          "sampling_executions": cost.sampling_executions(), "card": card})
+    check(fits == {"ExactKernelRidge.fit:fit": 1}, f"the exact solve must fit once: {fits}")
+    check(krr_launches == 2, f"K1 launched {krr_launches} times in the exact fit, want 2")
+    check(residual < 1e-4, f"relative residual {residual} of the exact solve")
+    check(choices[KRR_ROWS].label == "ExactKernelRidge"
+          and choices[50000].label == "KernelRidgeRegression",
+          f"chooser picked {choices[KRR_ROWS].label} and {choices[50000].label}")
+    del krr, W, K, F, Y, probe
 
     # -- MnistRandomFFT small: the card (cuFFT, cuBLAS) against the CPU ---
     mconf = mnist.MnistRandomFFTConfig(num_ffts=2, block_size=512, lam=10.0)
@@ -417,7 +526,57 @@ def main() -> int:
           f"fitted fused groups {[len(g) for g in fused_steps(fitted.graph)]}")
     check([len(g) for g in fused_steps(fit_graph)] == [full_steps, full_steps],
           f"fit-graph fused groups {[len(g) for g in fused_steps(fit_graph)]}")
-    del fitted, fit_graph, out
+    del fit_graph
+
+    # -- one-program apply at 200 FFTs: the test rows through apply_chunked
+    mtrain, mtest = mnist.synthetic_mnist(60000, 10000)  # the command line's data
+    Xm_host = mtest.data.to_array().numpy()
+    Xm = torch.from_numpy(Xm_host).to(dev)
+    secs = {}
+    t0 = clock()
+    fitted.apply(Xm)
+    secs["eager_apply"] = clock() - t0
+    fitted.compile()
+    for name in ("chunked_first_call", "chunked_replay"):
+        t0 = clock()
+        preds = fitted.apply_chunked(Xm_host, chunk_size=CHUNK).to_array()
+        secs[name] = clock() - t0
+    compiled_err = MulticlassClassifierEvaluator(mnist.NUM_CLASSES).evaluate(
+        preds.cpu().numpy(), mtest.labels).total_error
+    peak = torch.cuda.max_memory_allocated()  # since the full-width run began
+    # a fused group's replays against its eager run of the same chunks
+    (fused,) = [op for op in fitted.graph.operators.values()
+                if isinstance(op, FusedTransformerOperator)]
+    eager_f = forward_in_row_chunks(fused.forward, [Xm], Xm.shape[0])
+    replay_f = fused.batch_transform([DatasetExpression.now(Dataset(Xm))]).to_array()
+    bit_equal = bool(torch.equal(eager_f, replay_f))
+    del eager_f, replay_f, preds
+    # the featurizer over the 60000 training rows, traced both ways
+    Xtr = mtrain.data.to_array().to(dev)
+    traces = {
+        "eager": trace_mnist.trace(lambda: forward_in_row_chunks(fused.forward, [Xtr], len(Xtr))),
+        "captured": trace_mnist.trace(
+            lambda: fused.batch_transform([DatasetExpression.now(Dataset(Xtr))]).to_array()),
+    }
+    emit({"phase": "compiled_mnist", "num_ffts": MNIST_FULL_FFTS, "rows": Xm.shape[0],
+          "chunk_size": CHUNK, "seconds": secs, "test_error": compiled_err,
+          "eager_test_error": out["test_error"], "peak_mem_gb": peak / 1e9,
+          "peak_over_features": peak / feature_bytes, "fused_bit_equal": bit_equal,
+          "compiled_signatures": [[list(s), t] for s, t in fitted.compiled_signatures],
+          "featurize_trace": {k: {f: v[f] for f in ("host_seconds", "device_seconds",
+                                                    "idle_share", "kernels", "host_launches",
+                                                    "graph_launches", "copies",
+                                                    "event_seconds")}
+                              for k, v in traces.items()},
+          "card": card})
+    check(compiled_err == out["test_error"],
+          f"apply_chunked test error {compiled_err}, eager {out['test_error']}")
+    check(peak < 1.5 * feature_bytes, f"peak memory {peak} B with the compiled apply")
+    check(bit_equal, "a fused group's replays differ from its eager chunks")
+    check(traces["captured"]["host_launches"] * 10 < traces["eager"]["host_launches"],
+          f"host launches {traces['captured']['host_launches']} captured, "
+          f"{traces['eager']['host_launches']} eager")
+    del fitted, out, Xm, Xtr, fused, mtrain, mtest
 
     # -- the optimizer at 200 FFTs, cold: composing digests every sign ----
     fresh_env()
@@ -446,6 +605,8 @@ def main() -> int:
         "launches": launches, "max_abs_err": max_err, "ms": fit["ms"],
         "plain_ms": fit["plain_ms"], "bound_ms": fit["bound_ms"],
         "bound_by": fit["bound_by"], "library_ms": fit["library_ms"],
+        "launches_by_path": {"slice": launches, "compiled_cifar": compiled_launches,
+                             "krr_family": krr_launches},
     }]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -6,7 +6,10 @@ Port of the Pallas TPU kernel ``gaussian_kernel_block_pallas``
 into its epilogue; its header gives the design and the bound on an H100).
 
 * :func:`gaussian_kernel_block` launches the kernel; it takes CUDA tensors
-  only and counts its launches in ``gaussian_kernel_block.launches``.
+  only and counts its launches in ``gaussian_kernel_block.launches``. A
+  call made while this thread captures a CUDA graph launches nothing: it
+  is counted in :func:`captured_launches`, and whoever replays the graph
+  adds that many to ``launches`` at each replay.
 * :func:`gaussian_kernel_block_plain` is the same function in plain
   PyTorch (port of ``_gaussian_block_xla``): what CPU tensors run, and
   the reference the kernel is held against on the card.
@@ -18,6 +21,7 @@ budget) is not ported: every shape goes through the kernel.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -91,8 +95,20 @@ def gaussian_kernel_block(X: torch.Tensor, Xb: torch.Tensor,
     if err != 0:
         msg = lib.keystone_cuda_error_string(err).decode()
         raise RuntimeError(f"gaussian_kernel_block launch failed: {msg} ({err})")
-    gaussian_kernel_block.launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        _captured.launches = captured_launches() + 1
+    else:
+        gaussian_kernel_block.launches += 1
     return out
 
 
 gaussian_kernel_block.launches = 0
+
+#: per thread: the launches recorded into CUDA graphs captured on it
+_captured = threading.local()
+
+
+def captured_launches() -> int:
+    """How many launches this thread has recorded into CUDA graphs so far
+    (a capture reads it before and after)."""
+    return getattr(_captured, "launches", 0)

@@ -5,16 +5,20 @@
 Draws the synthetic training set, then runs each phase once to warm up,
 once on the host clock and once under ``torch.profiler``:
 
-* ``featurize``: the gathered RandomSignNode → PaddedFFT → LinearRectifier
-  branches and VectorCombiner over the training rows, as the fit runs
-  them: one fused operator, in row chunks;
+* ``featurize``, twice: the gathered RandomSignNode → PaddedFFT →
+  LinearRectifier branches and VectorCombiner over the training rows as
+  one fused operator in row chunks, first run eagerly (``path: eager``,
+  one launch per operation) and then as the fit runs it on the card
+  (``path: captured``, one CUDA-graph replay per chunk);
 * ``solve``: the one-pass BlockLeastSquaresEstimator on those features.
 
 Prints one JSON line per phase: the host seconds of the untraced run, the
 device time the traced run's kernels cover (the union of their intervals),
 the idle share of the untraced run (1 − device time / host seconds), the
-kernel count, and the kernels that take the most device time. The
-featurizer's line also gives the bytes its operations must move, each
+kernel count, the host's kernel launches, graph launches and copies (the
+CUDA runtime calls the profiler saw), the seconds between two CUDA events
+around the untraced run, and the kernels that take the most device time.
+The featurizer's line also gives the bytes its operations must move, each
 operation's inputs read once and its outputs written once. Needs a CUDA
 card; ``--out`` also writes the lines to a file.
 """
@@ -24,8 +28,8 @@ from __future__ import annotations
 import argparse
 import json
 import time
-from collections import defaultdict
-from typing import Callable, Dict, List
+from collections import Counter, defaultdict
+from typing import Callable, Dict, Iterable, List
 
 import torch
 
@@ -36,7 +40,23 @@ from .nodes.util import ClassLabelIndicators
 from .pipelines.mnist_random_fft import (
     MNIST_IMAGE_SIZE, NUM_CLASSES, MnistRandomFFTConfig, build_featurizer, synthetic_mnist,
 )
-from .workflow.fusion import ROW_CHUNK
+from .workflow.fusion import ROW_CHUNK, FusedTransformerOperator, forward_in_row_chunks
+
+#: the CUDA runtime and driver calls that launch one kernel, launch a
+#: captured graph, or copy memory, as the profiler names them
+KERNEL_LAUNCH_CALLS = frozenset({"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                                 "cuLaunchKernelEx", "cudaLaunchCooperativeKernel"})
+GRAPH_LAUNCH_CALLS = frozenset({"cudaGraphLaunch", "cuGraphLaunch"})
+COPY_CALLS = frozenset({"cudaMemcpyAsync", "cudaMemcpy", "cuMemcpyAsync"})
+
+
+def launch_counts(host_call_names: Iterable[str]) -> Dict[str, int]:
+    """Kernel launches, graph launches and copies among the host-side calls
+    a profiler recorded."""
+    names = Counter(host_call_names)
+    return {key: sum(names[n] for n in calls) for key, calls in (
+        ("host_launches", KERNEL_LAUNCH_CALLS), ("graph_launches", GRAPH_LAUNCH_CALLS),
+        ("copies", COPY_CALLS))}
 
 
 def featurize_bytes(n: int, num_ffts: int, d: int = MNIST_IMAGE_SIZE) -> Dict[str, int]:
@@ -66,9 +86,13 @@ def _busy_seconds(intervals: List[tuple]) -> float:
 def trace(fn: Callable[[], object], top: int = 8) -> dict:
     """Host seconds of ``fn`` untraced, then its kernels under the
     profiler. ``fn`` has run once before, so nothing here compiles."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
+    start.record()
     out = fn()
+    end.record()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     del out
@@ -77,8 +101,10 @@ def trace(fn: Callable[[], object], top: int = 8) -> dict:
         out = fn()
         torch.cuda.synchronize()
     del out
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    calls = launch_counts(e.name for e in events
+                          if e.device_type == torch.autograd.DeviceType.CPU)
     by_name: Dict[str, List[float]] = defaultdict(lambda: [0, 0.0])
     for e in kernels:
         by_name[e.name][0] += 1
@@ -87,7 +113,8 @@ def trace(fn: Callable[[], object], top: int = 8) -> dict:
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
     return {"host_seconds": wall, "device_seconds": busy,
             "idle_share": 1.0 - busy / wall if wall > 0 else None,
-            "kernels": len(kernels),
+            "kernels": len(kernels), **calls,
+            "event_seconds": start.elapsed_time(end) * 1e-3,
             "top": [{"name": k[:120], "count": c, "seconds": us * 1e-6}
                     for k, (c, us) in ranked]}
 
@@ -110,13 +137,20 @@ def main(argv=None) -> int:
     featurizer = build_featurizer(MnistRandomFFTConfig(num_ffts=args.numFFTs), dev).fit()
     est = BlockLeastSquaresEstimator(args.blockSize, 1, args.lam)
 
+    (fused,) = [op for op in featurizer.graph.operators.values()
+                if isinstance(op, FusedTransformerOperator)]
+
+    def featurize_eager():
+        return forward_in_row_chunks(fused.forward, [X], len(X))
+
     def featurize():
         return featurizer.apply(X).to_array()
 
-    featurizer.apply(X[:ROW_CHUNK])  # cuFFT plans and the allocator
-    lines = [dict(phase="featurize", num_ffts=args.numFFTs, rows=args.nTrain,
-                  **trace(featurize),
-                  bytes=featurize_bytes(args.nTrain, args.numFFTs))]
+    # cuFFT plans, the allocator, and the capture of a chunk's graph
+    featurizer.apply(X[:ROW_CHUNK])
+    lines = [dict(phase="featurize", path=path, num_ffts=args.numFFTs, rows=args.nTrain,
+                  **trace(fn), bytes=featurize_bytes(args.nTrain, args.numFFTs))
+             for path, fn in (("eager", featurize_eager), ("captured", featurize))]
     F = featurize()
     est.fit(Dataset.of(F[:ROW_CHUNK]), Dataset.of(labels[:ROW_CHUNK]))
     lines.append(dict(phase="solve", d=F.shape[1], rows=F.shape[0],

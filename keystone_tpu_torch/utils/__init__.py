@@ -1,0 +1,36 @@
+"""Shared helpers: the readers of the ``KEYSTONE_*`` switches (the port's
+copy of ``keystone_tpu/utils/__init__.py::env_flag`` and ``env_int``)."""
+
+from __future__ import annotations
+
+import logging
+import os
+
+logger = logging.getLogger(__name__)
+
+#: (name, raw) pairs already warned about: a bad value is logged once
+_warned_env: set = set()
+
+
+def env_flag(name: str, default: bool = True) -> bool:
+    """A ``KEYSTONE_*`` on/off switch: unset gives ``default``;
+    0/false/no/off (any case) give False, anything else True."""
+    raw = os.environ.get(name)
+    if raw is None:
+        return default
+    return raw.strip().lower() not in ("0", "false", "no", "off")
+
+
+def env_int(name: str, default: int, minimum: int = 1) -> int:
+    """A ``KEYSTONE_*`` integer: unset or unparsable gives ``default`` (an
+    unparsable value is warned about once); a parsed value is clamped to
+    ``minimum``."""
+    raw = os.environ.get(name)
+    if raw is not None:
+        try:
+            return max(minimum, int(raw))
+        except ValueError:
+            if (name, raw) not in _warned_env:
+                _warned_env.add((name, raw))
+                logger.warning("%s=%r is not an integer; using %d", name, raw, default)
+    return default

@@ -27,6 +27,10 @@ class Expression:
         self._value: Any = _UNSET
         self._latch = threading.Lock()
 
+    @property
+    def computed(self) -> bool:
+        return self._value is not _UNSET
+
     def get(self) -> Any:
         if self._value is _UNSET:
             with self._latch:
@@ -34,6 +38,13 @@ class Expression:
                     self._value = self._thunk()
                     self._thunk = None  # release captured state
         return self._value
+
+    def map_thunk(self, wrap: Callable[[Callable[[], Any]], Callable[[], Any]]) -> None:
+        """Replace the pending thunk with ``wrap(thunk)``; nothing once
+        computed (how the concurrent scheduler arms a pull's root)."""
+        with self._latch:
+            if self._value is _UNSET:
+                self._thunk = wrap(self._thunk)
 
     @staticmethod
     def now(value: Any) -> "Expression":

@@ -3,13 +3,15 @@ operator (port of ``keystone_tpu/workflow/fusion.py``).
 
 The JAX package compiles each fused group to one XLA program, which keeps
 every intermediate on the device and frees it as the program goes. The
-counterpart here is one operator per group that runs its steps eagerly
-and, when every step is row-local, over row chunks of :data:`ROW_CHUNK`:
-the large intermediates of a featurizer (a conv output of 14.6 GB for
-50000 CIFAR images, 200 FFT branches of 24.6 GB for 60000 MNIST images)
-then never exist for the whole batch at once, and the chunk outputs are
-written into one output allocated at the first chunk. There is no
-compile cache; capturing a fused group as one CUDA graph is later work.
+counterpart here is one operator per group that runs its steps, when
+every step is row-local, over row chunks of :data:`ROW_CHUNK`: the large
+intermediates of a featurizer (a conv output of 14.6 GB for 50000 CIFAR
+images, 200 FFT branches of 24.6 GB for 60000 MNIST images) then never
+exist for the whole batch at once, and the chunk outputs are written into
+one output allocated at the first chunk. On CUDA each chunk (or the whole
+batch, for a group that is not row-local) is one replay of a CUDA graph
+captured per input signature (``cuda_graph.py``), as XLA compiles one
+program per shape; on the CPU the steps run eagerly.
 
 A node is traceable here when it is a ``TransformerOperator`` with a
 ``forward`` and no ``no_fuse`` mark, or a gather.
@@ -17,19 +19,36 @@ A node is traceable here when it is a ``TransformerOperator`` with a
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Any, List, Sequence, Tuple
 
 import torch
 
-from ..data.dataset import Dataset, Payload, map_leaves
+from ..data.dataset import Dataset, Payload, first_leaf, map_leaves
 from . import analysis
+from .cuda_graph import GraphCache
 from .expressions import DatasetExpression, DatumExpression
 from .graph import Graph, NodeId
-from .operators import GatherTransformerOperator, TransformerOperator
+from .operators import GatherTransformerOperator, TransformerOperator, structural_key
 from .rules import Annotations, Rule
 
 #: rows per chunk when a fused group of row-local steps runs over a batch
 ROW_CHUNK = 2500
+
+#: the CUDA graphs of fused groups, shared by every group of equal content
+#: on one device (the JAX package's ``_FUSED_JIT_CACHE``): each
+#: ``Pipeline.apply`` optimizes anew and builds new fused operators, which
+#: then replay the graphs an equal group captured before. LRU, so that a
+#: process fitting many pipelines does not keep every one's graphs and
+#: parameters; an entry holds its graphs' memory pool while it lives.
+_FUSED_GRAPHS: "OrderedDict[tuple, GraphCache]" = OrderedDict()
+_FUSED_GRAPHS_MAX = 64
+
+
+def clear_graph_cache() -> None:
+    """Drop the shared graphs of fused groups, and the device memory they
+    hold (each group's own reference goes when the group goes)."""
+    _FUSED_GRAPHS.clear()
 
 
 def _rows(X: Payload, start: int, end: int) -> Payload:
@@ -62,6 +81,23 @@ def forward_in_row_chunks(forward, arrays: Sequence[Payload], n: int) -> Payload
     return out
 
 
+def _run_steps(steps, last_use, xs: Sequence[Payload]) -> Payload:
+    """A fused group's steps on its inputs ``xs``, each value dropped after
+    the last step that reads it."""
+    values: List[Any] = list(xs)
+    for k, (op, deps) in enumerate(steps):
+        args = [values[i] for i in deps]
+        if isinstance(op, GatherTransformerOperator):
+            values.append(tuple(args))
+        else:
+            values.append(op.forward(*args))
+        del args
+        for i in deps:
+            if last_use[i] == k:
+                values[i] = None
+    return values[-1]
+
+
 class FusedTransformerOperator(TransformerOperator):
     """A linearized traceable sub-DAG run as one operator.
 
@@ -81,6 +117,9 @@ class FusedTransformerOperator(TransformerOperator):
             for i in deps:
                 last[i] = k
         self.last_use = tuple(last)
+        #: the CUDA graphs of this group, one per input signature; built at
+        #: the first CUDA call (the counterpart of the JAX package's ``_jit``)
+        self._graphs = None
 
     @property
     def label(self) -> str:
@@ -91,19 +130,42 @@ class FusedTransformerOperator(TransformerOperator):
     def row_local(self) -> bool:
         return all(getattr(op, "row_local", False) for op, _ in self.steps)
 
-    def forward(self, *xs: Payload) -> Payload:
-        values: List[Any] = list(xs)
-        for k, (op, deps) in enumerate(self.steps):
-            args = [values[i] for i in deps]
-            if isinstance(op, GatherTransformerOperator):
-                values.append(tuple(args))
+    @property
+    def batch_coupled(self) -> bool:
+        return any(getattr(op, "batch_coupled", False) for op, _ in self.steps)
+
+    def graphs(self, device: torch.device) -> GraphCache:
+        """This group's CUDA graphs on ``device``: those of an equal group
+        (equal steps, as CSE compares them) when one ran there before,
+        else new ones."""
+        if self._graphs is None:
+            # a step whose state has no content form keys by identity: the
+            # groups that each ``Pipeline.apply`` builds anew hold the same
+            # step objects, so they still share
+            key = (str(device), self.n_inputs,
+                   tuple((structural_key(op), deps) for op, deps in self.steps))
+            try:
+                cache = _FUSED_GRAPHS.get(key)
+            except TypeError:  # a step that cannot be hashed
+                key = cache = None
+            if cache is None:
+                # a function of the steps, not a bound method: the cache
+                # must not hold the operator, or a dropped operator would
+                # keep its graphs' memory until the garbage collector finds
+                # the cycle
+                steps, last_use = self.steps, self.last_use
+                cache = GraphCache(lambda *xs: _run_steps(steps, last_use, xs))
+                if key is not None:
+                    _FUSED_GRAPHS[key] = cache
+                    while len(_FUSED_GRAPHS) > _FUSED_GRAPHS_MAX:
+                        _FUSED_GRAPHS.popitem(last=False)
             else:
-                values.append(op.forward(*args))
-            del args
-            for i in deps:
-                if self.last_use[i] == k:
-                    values[i] = None
-        return values[-1]
+                _FUSED_GRAPHS.move_to_end(key)
+            self._graphs = cache
+        return self._graphs
+
+    def forward(self, *xs: Payload) -> Payload:
+        return _run_steps(self.steps, self.last_use, xs)
 
     # -- operator glue --------------------------------------------------
 
@@ -112,7 +174,18 @@ class FusedTransformerOperator(TransformerOperator):
         if all(ds.is_batched for ds in datasets):
             arrays = [ds.payload for ds in datasets]
             n = len(datasets[0])
-            if self.row_local and n > ROW_CHUNK and all(len(ds) == n for ds in datasets):
+            chunked = (self.row_local and n > ROW_CHUNK
+                       and all(len(ds) == n for ds in datasets))
+            lead = first_leaf(arrays[0])
+            if lead.is_cuda:
+                graphs = self.graphs(lead.device)
+                # the graphs' static output is overwritten by the next
+                # replay: it is copied out before another thread replays
+                with graphs.lock:
+                    if chunked:
+                        return Dataset(forward_in_row_chunks(graphs, arrays, n))
+                    return Dataset(map_leaves(torch.clone, graphs(*arrays)))
+            if chunked:
                 return Dataset(forward_in_row_chunks(self.forward, arrays, n))
             return Dataset(self.forward(*arrays))
         # item-list inputs: the per-op Dataset semantics the unfused graph
@@ -129,6 +202,11 @@ class FusedTransformerOperator(TransformerOperator):
             args = [DatumExpression.now(values[i]) for i in deps]
             values.append(op.single_transform(args))
         return values[-1]
+
+    def __getstate__(self):
+        state = dict(self.__dict__)
+        state["_graphs"] = None  # CUDA graphs do not pickle
+        return state
 
 
 class TraceFusionRule(Rule):

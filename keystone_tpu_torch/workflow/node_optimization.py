@@ -1,0 +1,130 @@
+"""Node-level implementation choice driven by data samples (port of
+``keystone_tpu/workflow/node_optimization.py`` on its path without a
+profile store; parity: ``workflow/NodeOptimizationRule.scala``,
+``OptimizableNodes.scala``).
+
+An ``Optimizable`` node (such as the auto-solver ``KernelRidgeEstimator``)
+looks at a small sample of its input and the full dataset size and
+returns the operator to run. The rule runs the graph on sampled leaf
+datasets to produce those samples, then swaps the operators in place.
+Nodes with the cost-model protocol (``shape_from_samples`` and
+``choose_solver``) are planned through the solver chooser.
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Sequence, Tuple
+
+from ..data.dataset import Dataset
+from . import analysis
+from .executor import GraphExecutor
+from .graph import Graph, NodeId
+from .operators import DatasetOperator, Operator
+from .rules import Annotations, Rule
+
+logger = logging.getLogger(__name__)
+
+#: how many items to sample from each leaf dataset
+DEFAULT_SAMPLE_SIZE = 24
+
+
+class Optimizable:
+    """Mixin: a node that can pick its implementation given a data sample.
+
+    ``sample_optimize(samples, num_items)`` receives one sampled ``Dataset``
+    per dependency and the full input size, and returns the replacement
+    operator. Nodes that also implement ``shape_from_samples(samples,
+    num_items, chunked=...)`` and ``choose_solver(shape)`` are
+    planned through the cost-model chooser."""
+
+    def sample_optimize(self, samples: Sequence[Dataset], num_items: int) -> Operator:
+        raise NotImplementedError
+
+
+def _sampled_graph(graph: Graph, sample_size: int) -> Graph:
+    """``graph`` with every leaf dataset cut to its first ``sample_size``
+    items."""
+    for node in graph.nodes:
+        op = graph.get_operator(node)
+        if isinstance(op, DatasetOperator):
+            ds = op.dataset
+            if len(ds) > sample_size:
+                graph = graph.set_operator(node, DatasetOperator(ds.take(sample_size)))
+    return graph
+
+
+def _total_items(graph: Graph, node: NodeId) -> int:
+    """The size of the largest leaf dataset upstream of ``node``."""
+    n = 0
+    for anc in analysis.get_ancestors(graph, node) | {node}:
+        if isinstance(anc, NodeId):
+            op = graph.get_operator(anc)
+            if isinstance(op, DatasetOperator):
+                n = max(n, len(op.dataset))
+    return n
+
+
+class _SamplingFailed(Exception):
+    """A sampled-scale dependency pull failed: the one condition that
+    skips a node instead of failing the optimize."""
+
+
+class NodeOptimizationRule(Rule):
+    name = "NodeOptimizationRule"
+
+    def __init__(self, sample_size: int = DEFAULT_SAMPLE_SIZE):
+        self.sample_size = sample_size
+
+    def apply(self, graph: Graph, annotations: Annotations) -> Tuple[Graph, Annotations]:
+        optimizable = [
+            n for n in analysis.linearize(graph)
+            if isinstance(n, NodeId) and n in graph.operators
+            and isinstance(graph.get_operator(n), Optimizable)
+        ]
+        if not optimizable:
+            return graph, annotations
+
+        from .. import cost as cost_mod
+
+        executor = None
+
+        def sampled_deps(node: NodeId):
+            nonlocal executor
+            if executor is None:
+                # sampled pulls stay serial: at 24 items a pool only adds noise
+                executor = GraphExecutor(_sampled_graph(graph, self.sample_size),
+                                         optimize=False, parallel=False)
+            deps = graph.get_dependencies(node)
+            try:
+                samples = [executor.execute(d).get() for d in deps]
+            except Exception as e:  # an estimator upstream of the sample path
+                raise _SamplingFailed(e) from e
+            cost_mod.count_sampling("node_optimization", len(deps))
+            return [s if isinstance(s, Dataset) else Dataset.of([s]) for s in samples]
+
+        for node in optimizable:
+            op = graph.get_operator(node)
+            num_items = _total_items(graph, node)
+            cost_protocol = hasattr(op, "shape_from_samples") and hasattr(op, "choose_solver")
+            # only a failed sampled pull skips the node; a fault in the
+            # choice itself propagates
+            try:
+                if cost_protocol:
+                    chosen = self._choose_with_cost_model(op, node, num_items, sampled_deps)
+                else:
+                    chosen = op.sample_optimize(sampled_deps(node), num_items)
+            except _SamplingFailed as e:
+                logger.warning("node optimization skipped for %s: %s", op.label, e.__cause__)
+                continue
+            if chosen is not op:
+                logger.info("node optimization: %s -> %s", op.label, chosen.label)
+                graph = graph.set_operator(node, chosen)
+        return graph, annotations
+
+    @staticmethod
+    def _choose_with_cost_model(op, node: NodeId, num_items: int, sampled_deps):
+        """Plan one cost-protocol node from its sampled shape. Its input is
+        never out-of-core chunks in the port yet, so ``chunked`` is False."""
+        shape = op.shape_from_samples(sampled_deps(node), num_items, chunked=False)
+        return op.choose_solver(shape).chosen

@@ -2,13 +2,11 @@
 parity: ``workflow/DefaultOptimizer.scala``).
 
 :class:`DefaultOptimizer` loads saved state, merges common subexpressions
-to a fixpoint, then fuses traceable chains. Left out of this port, each
+to a fixpoint, lets ``Optimizable`` nodes choose their implementation
+from data samples (``node_optimization.py``), then fuses traceable
+chains. Left out of this port, each
 with its own later item of work:
 
-* ``NodeOptimizationRule`` (node-level implementation choice from data
-  samples): no estimator of the ported applications is ``Optimizable``
-  (``KernelRidgeRegression`` is not; ``KernelRidgeEstimator`` is not
-  ported yet), and without such a node the JAX rule changes nothing.
 * the optimize memo, which caches rule-stack results keyed by
   ``cost.replan.graph_fingerprint``; every ``fit`` and ``apply`` here runs
   the stack, and the tensor digests of :func:`~.operators.structural_key`
@@ -21,6 +19,7 @@ from __future__ import annotations
 from typing import List
 
 from .fusion import TraceFusionRule
+from .node_optimization import NodeOptimizationRule
 from .rules import (
     Batch,
     EquivalentNodeMergeRule,
@@ -37,7 +36,8 @@ class Optimizer(RuleExecutor):
 
 
 class DefaultOptimizer(Optimizer):
-    """Load saved state, then CSE, then trace fusion."""
+    """Load saved state, then CSE, then node-level choice, then trace
+    fusion."""
 
     def batches(self) -> List[Batch]:
         return [
@@ -51,6 +51,7 @@ class DefaultOptimizer(Optimizer):
                 Strategy.FIXED_POINT,
                 [EquivalentNodeMergeRule()],
             ),
+            Batch("Node Level Optimization", Strategy.ONCE, [NodeOptimizationRule()]),
             # last: every structural rule has run, so estimators and
             # delegating nodes bound the fused groups
             Batch("Trace Fusion", Strategy.ONCE, [TraceFusionRule()]),

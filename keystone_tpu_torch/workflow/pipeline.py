@@ -15,23 +15,30 @@ of every pipeline that shares its prefix.
 
 Ported: ``attach_data``/``attach_datum``, ``Chainable``, ``Pipeline``
 (``apply``, ``apply_datum``, ``fit``, ``gather``, ``identity``),
-``FittedPipeline`` (``apply``, ``apply_datum``, ``save``/``load``).
+``FittedPipeline`` (``apply``, ``apply_datum``, ``save``/``load``, and the
+one-program apply: ``compile``, ``apply_compiled``, ``apply_chunked``,
+with the traceability verdicts of ``check/lattice.py``). On CUDA a
+compiled chain is one CUDA graph per input signature (``cuda_graph.py``),
+the counterpart of the JAX package's one XLA program per shape.
 Left out, each with its own later item of work: the static checker
 (``check``, ``_static_check``), ``fit_instrumentation`` (tracing and the
-cost-model loop), one-program apply (``compile``, ``apply_compiled``,
-``apply_chunked``) and the prefix absorption (``absorb``,
-``prefix_features``) of the out-of-core tier.
+cost-model loop), the AOT cache of ``compile`` and the prefix absorption
+(``absorb``, ``prefix_features``) of the out-of-core tier.
 """
 
 from __future__ import annotations
 
+import logging
 import time
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
-from ..data.dataset import Dataset
+from ..check import lattice
+from ..data.dataset import Dataset, map_leaves
 from . import analysis
+from .cuda_graph import GraphCache, dtype_name
 from .env import PipelineEnv
 from .executor import GraphExecutor
 from .expressions import Expression
@@ -46,6 +53,25 @@ from .operators import (
     TransformerOperator,
 )
 from .rules import EquivalentNodeMergeRule, UnusedBranchRemovalRule
+
+logger = logging.getLogger(__name__)
+
+
+class NotTraceableError(ValueError):
+    """A pipeline holds nodes that cannot run inside one captured program
+    (no ``forward``, or Python-side state); ``labels`` names them."""
+
+    def __init__(self, labels: Sequence[str]):
+        self.labels = list(labels)
+        super().__init__(
+            "pipeline not traceable: " + ", ".join(self.labels)
+            + " (no forward, or Python-side state)"
+        )
+
+    def __reduce__(self):
+        # the default reduction would call __init__ with the message and
+        # make .labels a list of characters
+        return (NotTraceableError, (self.labels,))
 
 
 def clock() -> float:
@@ -362,6 +388,8 @@ class FittedPipeline(Chainable):
         self._source = source
         self._sink = sink
         self.seconds = dict(seconds or {})
+        self._compiled: Optional[_Compiled] = None
+        self._compiled_signatures: List[tuple] = []
 
     @property
     def graph(self) -> Graph:
@@ -381,6 +409,180 @@ class FittedPipeline(Chainable):
     def __call__(self, data: Any) -> Any:
         return self.apply(data)
 
+    # -- one-program apply ----------------------------------------------
+
+    def batch_coupled_nodes(self) -> List[str]:
+        """Labels of the nodes whose ``forward`` couples rows (whole-batch
+        statistics): such a chain must not be served through a
+        pad-and-slice path (:meth:`apply_chunked`), where padded rows would
+        fold into every real row's answer."""
+        return [op.label for op in self._graph.operators.values()
+                if getattr(op, "batch_coupled", False)]
+
+    def untraceable_nodes(self) -> List[str]:
+        """Labels of the nodes that block whole-chain compilation (verdict
+        ``opaque`` or ``stateful``, ``check/lattice.py``), in topological
+        order. Empty: the pipeline compiles."""
+        graph = self._graph
+        return [
+            graph.get_operator(n).label
+            for n in analysis.linearize(graph)
+            if isinstance(n, NodeId) and n in graph.operators
+            and lattice.blocks_jit(lattice.classify(graph.get_operator(n)))
+        ]
+
+    @property
+    def is_traceable(self) -> bool:
+        return not self.untraceable_nodes()
+
+    def trace_fn(self) -> Optional[Callable]:
+        """One function (stacked batch in, stacked batch out) of the whole
+        chain, or None when a node blocks it (:meth:`untraceable_nodes`)."""
+        blockers = self.untraceable_nodes()
+        if blockers:
+            logger.debug("pipeline not traceable: %s", ", ".join(blockers))
+            return None
+        return self._build_trace_fn()
+
+    def _build_trace_fn(self) -> Callable:
+        """The chain of every node's ``forward``, ``no_fuse`` nodes
+        included, each value dropped after its last reader; callers have
+        cleared :meth:`untraceable_nodes` first."""
+        graph, source, sink = self._graph, self._source, self._sink
+        order = [n for n in analysis.linearize(graph) if isinstance(n, NodeId)]
+        steps = [(graph.get_operator(n), graph.get_dependencies(n)) for n in order]
+        out = graph.get_sink_dependency(sink)
+        last_use: Dict[Any, int] = {}
+        for k, (_, deps) in enumerate(steps):
+            for d in deps:
+                last_use[d] = k
+
+        def fn(x):
+            values: Dict[Any, Any] = {source: x}
+            for k, (node, (op, deps)) in enumerate(zip(order, steps)):
+                args = [values[d] for d in deps]
+                if isinstance(op, GatherTransformerOperator):
+                    values[node] = tuple(args)
+                else:
+                    values[node] = op.forward(*args)
+                del args
+                for d in deps:
+                    if last_use[d] == k and d != out:
+                        del values[d]
+            return values[out]
+
+        return fn
+
+    def compile(self, strict: bool = True,
+                on_trace: Optional[Callable[[tuple], None]] = None
+                ) -> Optional[Callable]:
+        """The whole chain as one program per input signature.
+
+        On CUDA input the returned callable captures one CUDA graph per new
+        ``(shape, dtype)`` and replays it after; on CPU input it runs the
+        chain eagerly. Either way each new signature is appended to
+        :attr:`compiled_signatures` as ``(shape, dtype name)`` (numpy's
+        spelling, ``'float32'``) and passed to ``on_trace``: the JAX
+        package's accounting of one trace per shape. ``strict=True`` raises
+        :class:`NotTraceableError` naming the blocking nodes;
+        ``strict=False`` returns None for them. The JAX package's ``cache``
+        argument (its AOT executable cache) is not ported."""
+        blockers = self.untraceable_nodes()
+        if blockers:
+            if strict:
+                raise NotTraceableError(blockers)
+            return None
+        # counts belong to the live program: a recompile starts them anew
+        self._compiled_signatures = []
+        signatures = self._compiled_signatures
+
+        def note(sig):
+            signatures.append(sig)
+            if on_trace is not None:
+                on_trace(sig)
+
+        self._compiled = _Compiled(self._build_trace_fn(), note)
+        return self._compiled
+
+    @property
+    def compiled_signatures(self) -> List[tuple]:
+        """``(shape, dtype)`` of every compile paid so far, in order."""
+        return list(self._compiled_signatures)
+
+    @property
+    def compile_count(self) -> int:
+        return len(self._compiled_signatures)
+
+    def apply_compiled(self, data: Any) -> Any:
+        """The compiled chain on ``data`` (compiled first if need be); the
+        result is the caller's own, not a buffer the next call writes."""
+        if self._compiled is None:
+            self.compile()
+        return self._compiled(self._as_input(data))
+
+    def apply_chunked(self, data: Any, chunk_size: int = 64) -> Dataset:
+        """Serve any batch size through one compiled program: the input is
+        cut into ``chunk_size`` row blocks, the tail padded by repeating its
+        first row and the padding sliced off after, and each chunk's output
+        is written into one preallocated output.
+
+        Valid only for row-wise chains; a chain with a ``batch_coupled``
+        node is refused. Numpy input is staged in pinned memory and copied
+        to the card on a side stream one chunk ahead, while the card runs
+        the chunk before (the JAX package's double buffering)."""
+        if chunk_size <= 0:
+            raise ValueError("chunk_size must be positive")
+        coupled = self.batch_coupled_nodes()
+        if coupled:
+            raise ValueError(
+                f"apply_chunked on a batch-coupled chain ({coupled[0]}): "
+                "the padded tail chunk would corrupt batch statistics — "
+                "use apply() instead"
+            )
+        if self._compiled is None:
+            self.compile()
+        arr = data if isinstance(data, (np.ndarray, torch.Tensor)) else Dataset.of(data).to_array()
+        n = int(arr.shape[0])
+        if n == 0:  # no chunk to run; apply() handles empty input
+            return self.apply(data)
+        if isinstance(arr, torch.Tensor):
+            chunks = _tensor_chunks(arr, chunk_size)
+        else:
+            device = _param_device(self._graph)
+            chunks = (_staged_chunks(arr, chunk_size, device) if device.type == "cuda"
+                      else _host_chunks(arr, chunk_size))
+        out = None
+        for start, chunk, rows in chunks:
+            def take(res, start=start, rows=rows):
+                nonlocal out
+                if not isinstance(res, torch.Tensor):
+                    raise TypeError(
+                        "apply_chunked needs a single-array output; use apply() "
+                        "for gathered/tuple sinks"
+                    )
+                if out is None:
+                    out = torch.empty((n,) + tuple(res.shape[1:]), dtype=res.dtype,
+                                      device=res.device)
+                out[start:start + rows].copy_(res[:rows])
+
+            self._compiled(chunk, take)
+        return Dataset(out)
+
+    def _as_input(self, data: Any) -> torch.Tensor:
+        """``data`` as one tensor; numpy arrays go where the parameters are."""
+        arr = data if isinstance(data, (np.ndarray, torch.Tensor)) else Dataset.of(data).to_array()
+        if isinstance(arr, np.ndarray):
+            return torch.as_tensor(arr, device=_param_device(self._graph))
+        return arr
+
+    def __getstate__(self):
+        state = dict(self.__dict__)
+        # a compiled program belongs to this process (its CUDA graphs do not
+        # pickle), and its signatures with it
+        state["_compiled"] = None
+        state["_compiled_signatures"] = []
+        return state
+
     # -- persistence ----------------------------------------------------
 
     def save(self, path: str) -> None:
@@ -396,3 +598,133 @@ class FittedPipeline(Chainable):
         if not isinstance(obj, FittedPipeline):
             raise TypeError(f"{path} does not contain a FittedPipeline")
         return obj
+
+
+# ---------------------------------------------------------------------------
+# One-program apply helpers
+# ---------------------------------------------------------------------------
+
+
+def _own(res: Any) -> Any:
+    return map_leaves(torch.clone, res)
+
+
+class _Compiled:
+    """A compiled chain: on CUDA input one CUDA graph per input signature,
+    on CPU input the chain run eagerly; ``note(signature)`` once per new
+    signature either way."""
+
+    def __init__(self, fn: Callable, note: Callable[[tuple], None]):
+        self._fn = fn
+        self._note = note
+        self._graphs = GraphCache(fn, on_capture=lambda sig: note(sig[0]))
+        self._seen: set = set()
+
+    def __call__(self, x: torch.Tensor, take: Callable[[Any], Any] = _own) -> Any:
+        """``take`` of the chain's output on ``x``. ``take`` reads the
+        output before the next call can overwrite it (on CUDA it is the
+        graph's static output); the default copies it out."""
+        if x.is_cuda:
+            with self._graphs.lock:
+                return take(self._graphs(x))
+        sig = (tuple(x.shape), dtype_name(x.dtype))
+        if sig not in self._seen:
+            self._seen.add(sig)
+            self._note(sig)
+        res = self._fn(x)
+        return res if take is _own else take(res)
+
+
+def _param_device(graph: Graph) -> torch.device:
+    """Where a graph's parameters live (the first tensor found in its
+    operators), the CPU when it holds none: where numpy input is sent."""
+    def find(v, depth):
+        if isinstance(v, torch.Tensor):
+            return v.device
+        if depth == 0:
+            return None
+        if isinstance(v, dict):
+            items = v.values()
+        elif isinstance(v, (list, tuple)):
+            items = v
+        elif hasattr(v, "__dict__") and not isinstance(v, type):
+            items = vars(v).values()
+        else:
+            return None
+        for item in items:
+            found = find(item, depth - 1)
+            if found is not None:
+                return found
+        return None
+
+    for op in graph.operators.values():
+        found = find(op, 4)
+        if found is not None:
+            return found
+    return torch.device("cpu")
+
+
+def _pad_rows(chunk, size: int):
+    """``chunk`` padded to ``size`` rows by repeating its first row."""
+    pad = size - int(chunk.shape[0])
+    if not pad:
+        return chunk
+    if isinstance(chunk, np.ndarray):
+        return np.concatenate([chunk, np.repeat(chunk[:1], pad, axis=0)], axis=0)
+    return torch.cat([chunk, chunk[:1].expand(pad, *chunk.shape[1:])], dim=0)
+
+
+def _tensor_chunks(arr: torch.Tensor, size: int) -> Iterator[Tuple[int, torch.Tensor, int]]:
+    """(start, padded chunk, real rows) of a tensor, padded where it lies."""
+    for start in range(0, int(arr.shape[0]), size):
+        chunk = arr[start:start + size]
+        yield start, _pad_rows(chunk, size), int(chunk.shape[0])
+
+
+def _host_chunks(arr: np.ndarray, size: int) -> Iterator[Tuple[int, torch.Tensor, int]]:
+    """(start, padded chunk, real rows) of a numpy array, on the CPU."""
+    for start in range(0, int(arr.shape[0]), size):
+        chunk = arr[start:start + size]
+        yield start, torch.from_numpy(_pad_rows(chunk, size)), int(chunk.shape[0])
+
+
+def _staged_chunks(arr: np.ndarray, size: int,
+                   device: torch.device) -> Iterator[Tuple[int, torch.Tensor, int]]:
+    """(start, padded chunk on the card, real rows) of a numpy array, double
+    buffered: chunk i+1 is written into pinned memory and copied to the card
+    with ``non_blocking`` on a side stream before chunk i is handed out, so
+    the copy runs while the card computes chunk i. Two pinned and two device
+    buffers take turns; a buffer is refilled only after the copy out of it
+    (host side) and the work that read it (device side) are done."""
+    n = int(arr.shape[0])
+    starts = list(range(0, n, size))
+    shape = (size,) + tuple(arr.shape[1:])
+    dtype = torch.from_numpy(arr[:0]).dtype
+    compute = torch.cuda.current_stream(device)
+    copy_stream = torch.cuda.Stream(device)
+    host = [torch.empty(shape, dtype=dtype, pin_memory=True) for _ in range(2)]
+    dev = [torch.empty(shape, dtype=dtype, device=device) for _ in range(2)]
+    copied = [torch.cuda.Event() for _ in range(2)]
+    used: List[Optional[torch.cuda.Event]] = [None, None]
+    rows: Dict[int, int] = {}
+
+    def stage(i: int) -> None:
+        b = i % 2
+        copied[b].synchronize()  # the last copy out of this pinned buffer
+        chunk = arr[starts[i]:starts[i] + size]
+        rows[i] = int(chunk.shape[0])
+        host[b].copy_(torch.from_numpy(_pad_rows(chunk, size)))
+        with torch.cuda.stream(copy_stream):
+            if used[b] is not None:
+                copy_stream.wait_event(used[b])
+            dev[b].copy_(host[b], non_blocking=True)
+            copied[b].record(copy_stream)
+
+    stage(0)
+    for i, start in enumerate(starts):
+        if i + 1 < len(starts):
+            stage(i + 1)
+        b = i % 2
+        compute.wait_event(copied[b])
+        yield start, dev[b], rows.pop(i)
+        used[b] = compute.record_event()
