@@ -20,8 +20,15 @@ application's run: one-program apply of the fitted CIFAR chain
 K1's launches per replay), one-program apply at 200 FFTs (with the
 featurizer's host launches traced eager against captured), and the KRR
 family on 8000 CIFAR features (the cost-model chooser picks the exact
-solve, which builds its kernel from K1 blocks). Each phase prints one
-JSON line; any failure raises and exits non-zero. The last line is
+solve, which builds its kernel from K1 blocks). Then TimitPipeline: a small
+run on the card against the CPU, and the JAX CLI's defaults (50 cosine
+branches of 4096, d = 204,800, five sweeps of 50 blocks over a 40.96 GB
+feature matrix of 50000 synthetic frames), which runs no hand-written
+kernel, with a traced sweep of its block solve; and the least-squares family on those frames, where the cost model
+picks the exact solve for the raw 440-wide frames and the block solver for
+one 4096-wide cosine branch, with TSQR and L-BFGS held against the exact
+solve and the CPU. Each phase prints one JSON line; any failure raises and
+exits non-zero. The last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card it exits non-zero
 and prints no result.
 """
@@ -64,6 +71,15 @@ MNIST_CANONICAL = ["MnistRandomFFT", "--numFFTs", "4"] + MNIST_ROWS
 MNIST_FULL_FFTS = 200
 MNIST_FULL = ["MnistRandomFFT", "--numFFTs", str(MNIST_FULL_FFTS)] + MNIST_ROWS
 MNIST_FULL_STEPS = 50  # 102400 features / 2048 per block, one pass
+
+# TimitPipeline at the JAX CLI's defaults (50 cosines of 4096, γ 0.05555,
+# Gaussian, λ 0, 5 epochs, 147 classes), TIMIT's frames cut to 50000 so
+# that the training features are held once on one card
+TIMIT_ROWS = 50000
+TIMIT_FULL = ["TimitPipeline", "--nTrain", str(TIMIT_ROWS), "--nTest", "10000"]
+TIMIT_FULL_STEPS = 250  # 50 blocks × 5 epochs
+TIMIT_FALLBACK_LAMBDA = 100.0  # bench.py's λ for the TIMIT block shape
+LS_ITERATIONS = 20  # the L-BFGS option of LeastSquaresEstimator
 
 
 def emit(obj: dict) -> None:
@@ -199,8 +215,8 @@ def fresh_env():
     fusion.clear_graph_cache()
 
 
-def mnist_run(cli, bcd, args) -> dict:
-    """Run MnistRandomFFT through the command line's code; its result with
+def cli_run(cli, bcd, args) -> dict:
+    """Run an application through the command line's code; its result with
     the BCD block steps, the peak device memory and the wall seconds
     (synthetic data drawn on the host included)."""
     fresh_env()
@@ -213,6 +229,220 @@ def mnist_run(cli, bcd, args) -> dict:
     return dict(out, wall_seconds=time.perf_counter() - t0,
                 block_steps=bcd._block_update_impl.steps,
                 peak_mem_bytes=torch.cuda.max_memory_allocated())
+
+
+def ls_objective(A, B, W, lam: float) -> float:
+    """The L-BFGS option's objective ½‖AW − B‖²/n + ½λ‖W‖², in float64."""
+    A, B, W = A.double(), B.double(), W.double()
+    return (0.5 * torch.sum((A @ W - B) ** 2) / A.shape[0] + 0.5 * lam * torch.sum(W * W)).item()
+
+
+def smallest_gram_eigenvalue(timit, X, block: int) -> float:
+    """The smallest eigenvalue of the centered Gram of TIMIT's block
+    ``block`` at the CLI's defaults (each 4096-column block of the solve is
+    one cosine branch), on ``X``'s device, in float64."""
+    F = timit._cosine_branch(timit.TimitConfig(), block, X.device).forward(X)
+    F -= F.mean(dim=0)
+    return torch.linalg.eigvalsh((F.T @ F).double()).min().item()
+
+
+def timit_phases(cli, dev, card) -> int:
+    """TimitPipeline: a small configuration on the card against the CPU, the
+    JAX CLI's defaults on 50000 frames, then one traced sweep of five block
+    steps at that shape. Returns the K1 launches of the full-width run,
+    which has no hand-written kernel on its path."""
+    from keystone_tpu_torch import trace_mnist
+    from keystone_tpu_torch.linalg import bcd
+    from keystone_tpu_torch.nodes.learning.linear import BlockLeastSquaresEstimator
+    from keystone_tpu_torch.nodes.util import MaxClassifier
+    from keystone_tpu_torch.ops import gaussian_kernel as gk
+    from keystone_tpu_torch.pipelines import timit
+    from keystone_tpu_torch.workflow.pipeline import Pipeline
+    from keystone_tpu_torch.workflow.rules import RuleExecutor
+
+    # -- TimitPipeline small: the card against the CPU, the same W, b, data
+    tconf = timit.TimitConfig(num_cosines=3, num_epochs=2, lam=10.0, num_classes=12,
+                              cosine_features=256, gamma=0.02)
+    ttrain, ttest = timit.synthetic_timit(768, 12, seed=1), timit.synthetic_timit(256, 12, seed=2)
+    params = [(node.W.numpy(), node.b.numpy()) for node in
+              (timit._cosine_branch(tconf, i, "cpu") for i in range(tconf.num_cosines))]
+    scores, errs = {}, {}
+    for name, where in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        fresh_env()
+        scorer, tr, te, _ = timit.run(ttrain, ttest, tconf, where, params=params)
+        scores[name] = scorer.fit().apply(ttest.data.to_array().to(where)).to_array().cpu()
+        errs[name] = [tr, te]
+    timit_dev = (scores["cuda"] - scores["cpu"]).abs().max().item()
+    preds_equal = bool(torch.equal(scores["cuda"].argmax(1), scores["cpu"].argmax(1)))
+    emit({"phase": "timit_small_vs_cpu", "max_abs_dev": timit_dev, "limit": 1e-3,
+          "predictions_equal": preds_equal, "errors_cuda": errs["cuda"],
+          "errors_cpu": errs["cpu"]})
+    check(timit_dev <= 1e-3, f"TimitPipeline on the card is {timit_dev} off the CPU run")
+    check(preds_equal, "TimitPipeline's predictions on the card differ from the CPU's")
+
+    # -- TimitPipeline at the JAX CLI's defaults, 50000 frames ------------
+    num_cosines = timit.TimitConfig().num_cosines
+    feature_bytes = TIMIT_ROWS * num_cosines * timit.NUM_COSINE_FEATURES * 4
+    full_steps = num_cosines + 2  # the branches, the gather, the combiner
+    args, refused = TIMIT_FULL, None
+    gk.gaussian_kernel_block.launches = 0
+    with Probe() as probe:
+        probe.watch_fit(Pipeline)
+        probe.watch(BlockLeastSquaresEstimator, "fit")
+        probe.watch(RuleExecutor, "execute")
+        try:
+            out = cli_run(cli, bcd, args)
+        except torch.linalg.LinAlgError as e:
+            # the Cholesky of a block refused λ = 0: report that block's
+            # smallest Gram eigenvalue and run at bench.py's λ instead
+            block = bcd._block_update_impl.steps % num_cosines
+            fresh_env()
+            Xtr = timit.synthetic_timit(TIMIT_ROWS, 147, seed=1).data.to_array().to(dev)
+            refused = {"error": str(e).splitlines()[0], "block": block,
+                       "smallest_gram_eigenvalue": smallest_gram_eigenvalue(timit, Xtr, block)}
+            del Xtr
+            for counter in (probe.calls, probe.rows, probe.seconds):
+                counter.clear()
+            args = TIMIT_FULL + ["--lambda", str(TIMIT_FALLBACK_LAMBDA)]
+            out = cli_run(cli, bcd, args)
+        fit_graph = probe.last["RuleExecutor.execute:fit"][0]
+        fitted = out["scorer"].and_then(MaxClassifier()).fit()
+    timit_k1 = gk.gaussian_kernel_block.launches
+    fits = {k: v for k, v in probe.calls.items() if k.startswith("BlockLeast")}
+    emit({"phase": "timit_full_width", "args": args, "cholesky_refused_at_lambda_0": refused,
+          "train_error": out["train_error"], "test_error": out["test_error"],
+          "seconds": out["seconds"], "phase_seconds": out["phases"],
+          "wall_seconds": out["wall_seconds"], "block_steps": out["block_steps"],
+          "feature_bytes": feature_bytes, "peak_mem_gb": out["peak_mem_bytes"] / 1e9,
+          "peak_over_features": out["peak_mem_bytes"] / feature_bytes,
+          "estimator_fits": fits, "fitted_chain": chain(fitted),
+          "fitted_fused_steps": [len(g) for g in fused_steps(fitted.graph)],
+          "fit_graph_fused_steps": [len(g) for g in fused_steps(fit_graph)],
+          "k1_launches": timit_k1, "card": card})
+    check(out["block_steps"] == TIMIT_FULL_STEPS,
+          f"{out['block_steps']} BCD block steps, want {TIMIT_FULL_STEPS}")
+    check(out["test_error"] < 0.2, f"test error {out['test_error']} is not below 0.2")
+    check(out["peak_mem_bytes"] < 1.5 * feature_bytes,
+          f"peak memory {out['peak_mem_bytes']} B is not below 1.5 × the "
+          f"{feature_bytes} B feature matrix")
+    check(fits == {"BlockLeastSquaresEstimator.fit:fit": 1},
+          f"the BCD estimator must fit once, in fit(): {fits}")
+    check(chain(fitted) == ["FusedTransformerOperator", "BlockLinearMapper", "MaxClassifier"],
+          f"fitted chain {chain(fitted)}")
+    check([len(g) for g in fused_steps(fitted.graph)] == [full_steps],
+          f"fitted fused groups {[len(g) for g in fused_steps(fitted.graph)]}")
+    check([len(g) for g in fused_steps(fit_graph)] == [full_steps, full_steps],
+          f"fit-graph fused groups {[len(g) for g in fused_steps(fit_graph)]}")
+    check(timit_k1 == 0, f"TimitPipeline launched K1 {timit_k1} times; its path has no kernel")
+    del fitted, out, fit_graph, probe
+
+    # -- where a sweep's time goes: 5 block steps at the full-width shape,
+    # traced (random data, so the Grams are well conditioned at λ 0) ---
+    fresh_env()
+    gen = torch.Generator(device=dev).manual_seed(11)
+    width = timit.NUM_COSINE_FEATURES
+    Xb = torch.randn(TIMIT_ROWS, 5 * width, device=dev, generator=gen)
+    yb = torch.randn(TIMIT_ROWS, 147, device=dev, generator=gen)
+    means = Xb.mean(dim=0)
+
+    def sweep():
+        return bcd.solve_blockwise_l2_scan(Xb, yb, 0.0, width, 1, means=means)
+
+    sweep()  # cuBLAS and cuSOLVER workspaces
+    emit(dict({"phase": "timit_solve_trace", "blocks": 5, "rows": TIMIT_ROWS,
+               "block_width": width, "gram_tflop_per_block": 2 * TIMIT_ROWS * width ** 2 / 1e12,
+               "card": card}, **trace_mnist.trace(sweep)))
+    del Xb, yb, means
+    return timit_k1
+
+
+def ls_family_phase(dev, card) -> None:
+    """``LeastSquaresEstimator`` in a graph on TIMIT's frames: the raw
+    frames and one cosine branch, each planned by ``NodeOptimizationRule``
+    and fit; then the exact solve, TSQR and L-BFGS fit directly on the raw
+    frames, TSQR held against the exact solve and L-BFGS against the
+    optimum and the CPU."""
+    from keystone_tpu_torch import cost
+    from keystone_tpu_torch.data.dataset import Dataset
+    from keystone_tpu_torch.linalg import bcd
+    from keystone_tpu_torch.nodes.learning.classifiers import LeastSquaresEstimator
+    from keystone_tpu_torch.nodes.learning.lbfgs import DenseLBFGSwithL2
+    from keystone_tpu_torch.nodes.learning.linear import (
+        BlockLeastSquaresEstimator, BlockLinearMapper, LinearMapEstimator, LinearMapper,
+        TSQRLeastSquaresEstimator,
+    )
+    from keystone_tpu_torch.nodes.util import ClassLabelIndicators
+    from keystone_tpu_torch.pipelines import timit
+    from keystone_tpu_torch.workflow.pipeline import Pipeline, clock
+
+    # -- the least-squares family on TIMIT's frames, planned in a graph ---
+    fresh_env()
+    frames = timit.synthetic_timit(TIMIT_ROWS, 147, seed=1)  # the full-width run's rows
+    A = frames.data.to_array().to(dev)
+    Y = ClassLabelIndicators(147).forward(frames.labels.to_array().to(dev))
+    solvers = (LinearMapEstimator, BlockLeastSquaresEstimator, TSQRLeastSquaresEstimator,
+               DenseLBFGSwithL2)
+    branch = timit._cosine_branch(timit.TimitConfig(), 0, dev)
+    plans, models = {}, {}
+    for name, pipe in (("raw", LeastSquaresEstimator().with_data(A, Y)),
+                       ("cosine", branch.and_then(LeastSquaresEstimator(), A, Y))):
+        fresh_env()
+        bcd._block_update_impl.steps = 0
+        with Probe() as probe:
+            probe.watch_fit(Pipeline)
+            for cls in solvers:
+                probe.watch(cls, "fit")
+            t0 = clock()
+            ls_fitted = pipe.fit()
+            fit_seconds = clock() - t0
+        models[name] = next(op for op in ls_fitted.graph.operators.values()
+                            if isinstance(op, (LinearMapper, BlockLinearMapper)))
+        plans[name] = {"fits": {k: v for k, v in probe.calls.items() if k.endswith(":fit")},
+                       "fit_seconds": fit_seconds,
+                       "block_steps": bcd._block_update_impl.steps}
+    blocks = [int(x.shape[0]) for x in getattr(models["cosine"], "xs", [])]
+    choices = {d: LeastSquaresEstimator().choose_solver(cost.ShapeSignature(TIMIT_ROWS, d, 147))
+               for d in (A.shape[1], timit.NUM_COSINE_FEATURES)}
+    # the exact solve, TSQR and L-BFGS fit directly on the raw frames
+    seconds = {}
+    for name, est in (("exact", LinearMapEstimator(0.0)), ("tsqr", TSQRLeastSquaresEstimator(0.0)),
+                      ("lbfgs", DenseLBFGSwithL2(num_iterations=LS_ITERATIONS))):
+        t0 = clock()
+        models[name] = est.fit(Dataset.of(A), Dataset.of(Y))
+        seconds[name] = clock() - t0
+    t0 = time.perf_counter()
+    lbfgs_cpu = DenseLBFGSwithL2(num_iterations=LS_ITERATIONS).fit(Dataset.of(A.cpu()),
+                                                                   Dataset.of(Y.cpu()))
+    seconds["lbfgs_cpu"] = time.perf_counter() - t0
+    W_exact = models["exact"].W
+    tsqr_rel = (torch.linalg.norm(models["tsqr"].W - W_exact) / torch.linalg.norm(W_exact)).item()
+    Ad, Yd = A.double(), Y.double()
+    W_star = torch.linalg.solve(Ad.T @ Ad, Ad.T @ Yd)  # the L-BFGS objective's minimum, λ = 0
+    objective = {"lbfgs_card": ls_objective(A, Y, models["lbfgs"].W, 0.0),
+                 "lbfgs_cpu": ls_objective(A.cpu(), Y.cpu(), lbfgs_cpu.W, 0.0),
+                 "optimum": ls_objective(A, Y, W_star, 0.0)}
+    lbfgs_rel = abs(objective["lbfgs_card"] - objective["lbfgs_cpu"]) / objective["lbfgs_cpu"]
+    emit({"phase": "ls_family", "n": TIMIT_ROWS, "k": 147, "lambda": 0.0, "plans": plans,
+          "cosine_block_widths": blocks,
+          "choices": {d: {"label": c.label, "units": {k: r["units"] for k, r in c.costs.items()}}
+                      for d, c in choices.items()},
+          "fit_seconds": seconds, "tsqr_rel_dev_from_exact": tsqr_rel, "tsqr_limit": 1e-3,
+          "lbfgs_iterations": LS_ITERATIONS, "objective": objective,
+          "lbfgs_rel_dev_from_cpu": lbfgs_rel, "lbfgs_limit": 0.01, "card": card})
+    check(choices[440].label == "LinearMapEstimator"
+          and choices[timit.NUM_COSINE_FEATURES].label == "BlockLeastSquaresEstimator",
+          f"chooser picked {choices[440].label} and {choices[timit.NUM_COSINE_FEATURES].label}")
+    check(plans["raw"]["fits"] == {"LinearMapEstimator.fit:fit": 1},
+          f"the raw frames must fit the exact solve once: {plans['raw']['fits']}")
+    check(plans["cosine"]["fits"] == {"BlockLeastSquaresEstimator.fit:fit": 1},
+          f"the cosine branch must fit the block solver once: {plans['cosine']['fits']}")
+    check(blocks == [1000] * 4 + [96] and plans["cosine"]["block_steps"] == 15,
+          f"block solver (1000, 3) over 4096 columns: widths {blocks}, "
+          f"{plans['cosine']['block_steps']} steps")
+    check(tsqr_rel < 1e-3, f"TSQR's W is {tsqr_rel} off the exact solve's")
+    check(objective["lbfgs_card"] >= objective["optimum"] * (1 - 1e-9),
+          f"L-BFGS below the optimum: {objective}")
+    check(lbfgs_rel <= 0.01, f"L-BFGS on the card is {lbfgs_rel} off the CPU's objective")
 
 
 def main() -> int:
@@ -477,7 +707,7 @@ def main() -> int:
 
     # -- MnistRandomFFT at BASELINE's configuration, against Bayes --------
     bayes = mnist.bayes_error_mc(mnist.DATA_SEED)
-    out = mnist_run(cli, bcd, MNIST_CANONICAL)
+    out = cli_run(cli, bcd, MNIST_CANONICAL)
     gate = 1.5 * bayes + 0.005
     emit({"phase": "mnist_canonical", "args": MNIST_CANONICAL,
           "train_error": out["train_error"], "test_error": out["test_error"],
@@ -495,7 +725,7 @@ def main() -> int:
         probe.watch_fit(Pipeline)
         probe.watch(BlockLeastSquaresEstimator, "fit")
         probe.watch(RuleExecutor, "execute")
-        out = mnist_run(cli, bcd, MNIST_FULL)
+        out = cli_run(cli, bcd, MNIST_FULL)
         fit_graph = probe.last["RuleExecutor.execute:fit"][0]
         fitted = out["scorer"].and_then(MaxClassifier()).fit()
     fits = {k: v for k, v in probe.calls.items() if k.startswith("BlockLeast")}
@@ -597,6 +827,9 @@ def main() -> int:
           "compose_seconds": t1 - t0, "optimize_seconds": runs, "card": card})
     del pipe, X, Y
 
+    timit_k1 = timit_phases(cli, dev, card)
+    ls_family_phase(dev, card)
+
     fit = timings["fit"]
     emit({"kernels": [{
         "name": "gaussian_kernel_block", "route": "cuda",
@@ -606,7 +839,7 @@ def main() -> int:
         "plain_ms": fit["plain_ms"], "bound_ms": fit["bound_ms"],
         "bound_by": fit["bound_by"], "library_ms": fit["library_ms"],
         "launches_by_path": {"slice": launches, "compiled_cifar": compiled_launches,
-                             "krr_family": krr_launches},
+                             "krr_family": krr_launches, "timit_full_width": timit_k1},
     }]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

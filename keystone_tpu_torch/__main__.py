@@ -1,7 +1,8 @@
 """Command line: ``python -m keystone_tpu_torch <App> [--device cpu] ...``.
 
-The port runs two applications so far, RandomPatchCifarKernel and
-MnistRandomFFT, with the flags of the JAX package's CLI. It runs on CUDA
+The port runs three applications so far, RandomPatchCifarKernel,
+MnistRandomFFT and TimitPipeline, with the flags of the JAX package's
+CLI. It runs on CUDA
 unless ``--device cpu`` is given.
 """
 
@@ -9,12 +10,13 @@ from __future__ import annotations
 
 import sys
 
-from .pipelines import cifar_extras, mnist_random_fft
+from .pipelines import cifar_extras, mnist_random_fft, timit
 
 #: application name → (runner returning a result dict, CLI main)
 PIPELINES = {
     "RandomPatchCifarKernel": (cifar_extras.run_app, cifar_extras.main),
     "MnistRandomFFT": (mnist_random_fft.run_app, mnist_random_fft.main),
+    "TimitPipeline": (timit.run_app, timit.main),
 }
 
 

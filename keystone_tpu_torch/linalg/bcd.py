@@ -7,7 +7,9 @@ A host loop walks the blocks; each block step is a residual GEMM, the
 block's Gram and cross products, a Cholesky solve and an in-place update
 of the prediction buffer (the JAX package donates that buffer to its
 step program). ``num_iter = 1`` is the one-pass variant that MNIST, CIFAR,
-VOC and ImageNet fit with.
+VOC and ImageNet fit with; TIMIT sweeps five times. Each sweep computes
+every block's Gram anew, as the JAX package's scan does, so that the two
+compute the same thing (keeping the factors across sweeps is later work).
 
 The streaming variants and the model-sharded scan of the JAX package are
 not ported.
@@ -15,6 +17,7 @@ not ported.
 
 from __future__ import annotations
 
+import math
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -49,6 +52,20 @@ def _block_update_impl(
 
 
 _block_update_impl.steps = 0
+
+
+def cost_signature(n: int, d: int, k: int, block_size: int, num_iter: int,
+                   machines: int = 1) -> dict:
+    """Work terms for pricing a BCD solve: ``num_iter`` sweeps, each reading
+    the data once per block and touching one (block, k) slab of the model.
+    Every term carries ``num_iter``, so that ``combine_cost``'s max
+    distributes like the reference's ``num_iter · (max(...) + net)``."""
+    return {
+        "flops": num_iter * n * d * (block_size + k) / machines,
+        "bytes": num_iter * (n * d / machines + d * k),
+        "network": 2.0 * num_iter * d * (block_size + k) * math.log2(max(machines, 2)),
+        "passes": 3 * num_iter + 1,
+    }
 
 
 def _block_means(blocks: Sequence[torch.Tensor],

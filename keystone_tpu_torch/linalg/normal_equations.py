@@ -11,6 +11,17 @@ import torch
 from .row_matrix import cross, gram, solve_spd
 
 
+def cost_signature(n: int, d: int, k: int, machines: int = 1) -> dict:
+    """Work terms for pricing an exact normal-equations solve: one pass
+    over the data, the Gram and cross GEMMs dominate."""
+    return {
+        "flops": n * d * (d + k) / machines,
+        "bytes": n * d / machines + d * d,
+        "network": d * (d + k),
+        "passes": 1,
+    }
+
+
 def solve_least_squares(A: torch.Tensor, b: torch.Tensor,
                         reg: float = 0.0) -> torch.Tensor:
     """argmin_X ‖AX − b‖² + reg·‖X‖² via (AᵀA + reg·I) X = Aᵀb; A is

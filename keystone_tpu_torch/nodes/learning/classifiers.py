@@ -1,0 +1,184 @@
+"""Classifiers and the least-squares solver front door (port of the dense
+paths of ``keystone_tpu/nodes/learning/classifiers.py``): multinomial
+naive Bayes, multinomial logistic regression by L-BFGS, linear
+discriminant analysis, and ``LeastSquaresEstimator``, which chooses its
+solver by the cost model.
+
+The sparse-row paths (naive Bayes and logistic regression on
+``SparseRows``) wait for the port of ``data/sparse.py``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ...data.dataset import Dataset
+from ...workflow.node_optimization import Optimizable
+from ...workflow.transformer import LabelEstimator, Transformer
+from .cost import AutoSolverFrontDoor, CostModel
+from .lbfgs import DenseLBFGSwithL2, SparseLBFGSwithL2, minimize_lbfgs
+from .linear import (
+    BlockLeastSquaresEstimator,
+    LinearMapEstimator,
+    LinearMapper,
+    TSQRLeastSquaresEstimator,
+)
+
+
+def _int_labels(labels, device) -> torch.Tensor:
+    return Dataset.of(labels).to_array().to(device).long().reshape(-1)
+
+
+class NaiveBayesModel(Transformer):
+    """x → log priors + log likelihoods · x."""
+
+    row_local = True
+
+    def __init__(self, pi: torch.Tensor, theta: torch.Tensor):
+        self.pi = pi  # (k,) log priors
+        self.theta = theta  # (k, d) log feature probabilities
+
+    def forward(self, X: torch.Tensor) -> torch.Tensor:
+        return X @ self.theta.T + self.pi
+
+
+class NaiveBayesEstimator(LabelEstimator):
+    """Multinomial naive Bayes with Laplace smoothing ``lam``:
+    π_c = log((n_c + λ)/(n + kλ)), θ_cj = log((Σ_c x_j + λ)/(Σ_c Σ_j x + dλ))."""
+
+    def __init__(self, num_classes: int, lam: float = 1.0):
+        self.num_classes = num_classes
+        self.lam = lam
+
+    def fit(self, data: Dataset, labels: Dataset) -> NaiveBayesModel:
+        X = Dataset.of(data).to_array().float()
+        y = _int_labels(labels, X.device)
+        n, d = X.shape
+        k = self.num_classes
+        onehot = F.one_hot(y, k).float()
+        feat_sums = onehot.T @ X  # (k, d)
+        pi = torch.log(onehot.sum(dim=0) + self.lam) - math.log(n + k * self.lam)
+        theta = torch.log(feat_sums + self.lam) - torch.log(
+            feat_sums.sum(dim=1, keepdim=True) + d * self.lam)
+        return NaiveBayesModel(pi, theta)
+
+
+def _logistic_value_and_grad(W, A, y_onehot, lam):
+    """Multinomial cross-entropy with an L2 penalty (the binary case is a
+    2-column softmax)."""
+    n = A.shape[0]
+    logits = A @ W
+    loss = -torch.sum(y_onehot * torch.log_softmax(logits, dim=-1)) / n \
+        + 0.5 * lam * torch.sum(W * W)
+    grad = A.T @ (torch.softmax(logits, dim=-1) - y_onehot) / n + lam * W
+    return loss, grad
+
+
+class LogisticRegressionModel(Transformer):
+    """The predicted class: argmax of the logits X·W."""
+
+    row_local = True
+
+    def __init__(self, W: torch.Tensor):
+        self.W = W
+
+    def forward(self, X: torch.Tensor) -> torch.Tensor:
+        return torch.argmax(X @ self.W, dim=-1)
+
+    def scores(self, X: torch.Tensor) -> torch.Tensor:
+        return torch.as_tensor(X) @ self.W
+
+
+class LogisticRegressionEstimator(LabelEstimator):
+    """Multinomial logistic regression with an L2 penalty, fit from W = 0
+    by :func:`~keystone_tpu_torch.nodes.learning.lbfgs.minimize_lbfgs`."""
+
+    def __init__(self, num_classes: int, reg_param: float = 0.0,
+                 num_iters: int = 100, convergence_tol: float = 1e-4):
+        self.num_classes = num_classes
+        self.reg_param = reg_param
+        self.num_iters = num_iters
+        self.convergence_tol = convergence_tol
+
+    def fit(self, data: Dataset, labels: Dataset) -> LogisticRegressionModel:
+        X = Dataset.of(data).to_array().float()
+        onehot = F.one_hot(_int_labels(labels, X.device), self.num_classes).float()
+        W0 = torch.zeros((X.shape[1], self.num_classes), dtype=torch.float32, device=X.device)
+        W = minimize_lbfgs(_logistic_value_and_grad, W0, max_iterations=self.num_iters,
+                           convergence_tol=self.convergence_tol,
+                           vag_args=(X, onehot, self.reg_param))
+        return LogisticRegressionModel(W)
+
+
+class LinearDiscriminantAnalysis(LabelEstimator):
+    """Multi-class LDA: the leading eigenvectors of S_W⁻¹S_B, computed in
+    float64 numpy on the host as the JAX package does; the projection is a
+    float32 :class:`LinearMapper` on the data's device."""
+
+    def __init__(self, num_dimensions: int):
+        self.num_dimensions = num_dimensions
+
+    def fit(self, data: Dataset, labels: Dataset) -> LinearMapper:
+        Xt = Dataset.of(data).to_array()
+        X = Xt.detach().cpu().numpy().astype(np.float64)
+        y = Dataset.of(labels).to_array().cpu().numpy().ravel().astype(np.int64)
+        total_mean = X.mean(axis=0)
+        d = X.shape[1]
+        sW = np.zeros((d, d))
+        sB = np.zeros((d, d))
+        for c in np.unique(y):
+            Xc = X[y == c]
+            mu = Xc.mean(axis=0)
+            Z = Xc - mu
+            sW += Z.T @ Z
+            m = (mu - total_mean)[:, None]
+            sB += Xc.shape[0] * (m @ m.T)
+        evals, evecs = np.linalg.eig(np.linalg.inv(sW) @ sB)
+        order = np.argsort(-np.abs(evals))[: self.num_dimensions]
+        W = np.real(evecs[:, order]).astype(np.float32)
+        return LinearMapper(torch.from_numpy(W).to(Xt.device))
+
+
+class LeastSquaresEstimator(LabelEstimator, AutoSolverFrontDoor, CostModel, Optimizable):
+    """Least squares that chooses its solver by the cost model, from the
+    options (in the JAX package's order) dense L-BFGS, sparse L-BFGS, the
+    block solver (1000, 3), exact normal equations and the augmented TSQR.
+    In a graph ``NodeOptimizationRule`` makes the choice before anything
+    runs, from sampled items and the full dataset size; called directly,
+    ``fit`` makes it from the data's shape.
+
+    The cluster weights are the reference's fitted constants. The number
+    of machines is ``num_machines`` or 1: the port runs on one card."""
+
+    def __init__(self, lam: float = 0.0, num_machines: Optional[int] = None,
+                 cpu_weight: float = 3.8e-4, mem_weight: float = 2.9e-1,
+                 network_weight: float = 1.32):
+        self.lam = lam
+        self.num_machines = num_machines
+        self.cpu_weight = cpu_weight
+        self.mem_weight = mem_weight
+        self.network_weight = network_weight
+        self.options: Sequence = [
+            DenseLBFGSwithL2(reg_param=lam, num_iterations=20),
+            SparseLBFGSwithL2(reg_param=lam, num_iterations=20),
+            BlockLeastSquaresEstimator(1000, 3, lam=lam),
+            LinearMapEstimator(lam=lam),
+            TSQRLeastSquaresEstimator(lam=lam),
+        ]
+        self.default = self.options[0]
+
+    def optimize(self, sample: Dataset, sample_labels: Dataset,
+                 total_n: Optional[int] = None) -> LabelEstimator:
+        """The solver for data of which ``sample`` is a part and ``total_n``
+        the size (the sample's own size when None)."""
+        n = total_n if total_n is not None else len(Dataset.of(sample))
+        return self.sample_optimize([sample, sample_labels], n)
+
+    def fit(self, data: Dataset, labels: Dataset):
+        data, labels = Dataset.of(data), Dataset.of(labels)
+        return self.optimize(data, labels, total_n=len(data)).fit(data, labels)

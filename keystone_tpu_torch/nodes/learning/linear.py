@@ -1,13 +1,18 @@
-"""Linear solvers: exact normal equations and block coordinate descent
-(port of the in-memory paths of ``keystone_tpu/nodes/learning/linear.py``).
+"""Linear solvers: exact normal equations, block coordinate descent and
+the augmented TSQR (port of the in-memory paths of
+``keystone_tpu/nodes/learning/linear.py``).
 
 Features and labels are mean-centered before solving; the label mean
 becomes the intercept, and the block estimator centers each feature block
 by its own column means. The fitted models apply as one GEMM,
 (X − μ)·W + b, which is row-local: a pipeline applies them in row chunks.
 
-Not ported: the snapshot, checkpoint and streaming fits, ``fit_lambda_grid``
-and the cost hooks.
+Each solver prices itself with ``cost`` (the JAX package's analytic
+units), which the cost-model chooser of ``LeastSquaresEstimator`` ranks.
+
+Not ported: the snapshot, checkpoint and streaming fits and
+``fit_lambda_grid``; without a streaming fit no solver here sets
+``supports_streaming``.
 """
 
 from __future__ import annotations
@@ -17,9 +22,11 @@ from typing import Any, Optional, Sequence
 import torch
 
 from ...data.dataset import Dataset
+from ...linalg import bcd, normal_equations, tsqr
 from ...linalg.bcd import _block_means, solve_blockwise_l2
 from ...linalg.normal_equations import solve_centered
 from ...workflow.transformer import LabelEstimator, Transformer
+from .cost import CostModel, combine_cost
 
 
 class LinearMapper(Transformer):
@@ -42,7 +49,7 @@ class LinearMapper(Transformer):
         return out
 
 
-class LinearMapEstimator(LabelEstimator):
+class LinearMapEstimator(LabelEstimator, CostModel):
     """Exact ridge regression by normal equations on centered data."""
 
     def __init__(self, lam: Optional[float] = None):
@@ -53,6 +60,11 @@ class LinearMapEstimator(LabelEstimator):
         b = Dataset.of(labels).to_array().to(A.device)
         W, a_mean, b_mean = solve_centered(A, b, reg=self.lam or 0.0)
         return LinearMapper(W, b=b_mean, feature_mean=a_mean)
+
+    def cost(self, n, d, k, sparsity, num_machines,
+             cpu_weight, mem_weight, network_weight):
+        return combine_cost(normal_equations.cost_signature(n, d, k, num_machines),
+                            cpu_weight, mem_weight, network_weight)
 
 
 class BlockLinearMapper(Transformer):
@@ -92,7 +104,7 @@ class BlockLinearMapper(Transformer):
         return out
 
 
-class BlockLeastSquaresEstimator(LabelEstimator):
+class BlockLeastSquaresEstimator(LabelEstimator, CostModel):
     """Block-coordinate-descent least squares, ``num_iter`` passes over
     column blocks of ``block_size`` with ridge ``lam``."""
 
@@ -102,6 +114,17 @@ class BlockLeastSquaresEstimator(LabelEstimator):
         self.num_iter = num_iter
         self.lam = lam
         self.num_features = num_features
+
+    @property
+    def weight(self) -> int:
+        """Passes over the input, for a cache planner."""
+        return 3 * self.num_iter + 1
+
+    def cost(self, n, d, k, sparsity, num_machines,
+             cpu_weight, mem_weight, network_weight):
+        return combine_cost(
+            bcd.cost_signature(n, d, k, self.block_size, self.num_iter, num_machines),
+            cpu_weight, mem_weight, network_weight)
 
     def fit(self, data: Any, labels: Dataset) -> BlockLinearMapper:
         """``data`` is a Dataset of (n, d) features, a Dataset whose payload
@@ -121,3 +144,45 @@ class BlockLeastSquaresEstimator(LabelEstimator):
         ws = solve_blockwise_l2(blocks, y - y_mean, reg=self.lam,
                                 num_iter=self.num_iter, means=means)
         return BlockLinearMapper(ws, self.block_size, b=y_mean, feature_means=means)
+
+
+class TSQRLeastSquaresEstimator(LabelEstimator, CostModel):
+    """Exact least squares by one QR of the augmented, centered design
+    matrix ``[A − μ | y − ν ; √λ·I | 0]``: its R factor's blocks satisfy
+    R₁₁ᵀR₁₁ = ÃᵀÃ + λI and R₁₁ᵀR₁₂ = Ãᵀỹ, so W = R₁₁⁻¹R₁₂ is one triangular
+    solve and no Gram matrix forms (the Gram route squares the condition
+    number). About twice the Gram route's flops, as ``cost`` says. Only
+    the in-memory fit is ported."""
+
+    def __init__(self, lam: float = 0.0):
+        self.lam = lam
+
+    @staticmethod
+    def _solve_from_r(R: torch.Tensor, d: int) -> torch.Tensor:
+        return torch.linalg.solve_triangular(R[:d, :d], R[:d, d:], upper=True)
+
+    def _reg_rows(self, d: int, k: int, device) -> Optional[torch.Tensor]:
+        """The √λ·I rows under the augmented matrix, or None at λ = 0."""
+        if not self.lam:
+            return None
+        rows = torch.zeros((d, d + k), dtype=torch.float32, device=device)
+        rows[:, :d] = torch.sqrt(torch.tensor(self.lam, dtype=torch.float32)) * torch.eye(
+            d, dtype=torch.float32, device=device)
+        return rows
+
+    def fit(self, data: Dataset, labels: Dataset) -> LinearMapper:
+        A = Dataset.of(data).to_array().float()
+        y = Dataset.of(labels).to_array().to(A.device, torch.float32)
+        a_mean, y_mean = A.mean(dim=0), y.mean(dim=0)
+        d, k = A.shape[1], y.shape[1]
+        aug = torch.cat([A - a_mean, y - y_mean], dim=1)
+        reg = self._reg_rows(d, k, A.device)
+        if reg is not None:
+            aug = torch.cat([aug, reg], dim=0)
+        W = self._solve_from_r(tsqr.tsqr_r(aug), d)
+        return LinearMapper(W, b=y_mean, feature_mean=a_mean)
+
+    def cost(self, n, d, k, sparsity, num_machines,
+             cpu_weight, mem_weight, network_weight):
+        return combine_cost(tsqr.cost_signature(n, d, k, num_machines),
+                            cpu_weight, mem_weight, network_weight)

@@ -1,11 +1,16 @@
 from .core import (
+    ColumnSampler,
+    CosineRandomFeatures,
     LinearRectifier,
+    NormalizeRows,
     PaddedFFT,
     RandomSignNode,
     Sampler,
+    SignedHellingerMapper,
     StandardScaler,
     StandardScalerModel,
 )
 
-__all__ = ["LinearRectifier", "PaddedFFT", "RandomSignNode", "Sampler",
+__all__ = ["ColumnSampler", "CosineRandomFeatures", "LinearRectifier", "NormalizeRows",
+           "PaddedFFT", "RandomSignNode", "Sampler", "SignedHellingerMapper",
            "StandardScaler", "StandardScalerModel"]

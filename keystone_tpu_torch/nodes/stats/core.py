@@ -1,9 +1,14 @@
 """Stats nodes (port of ``PaddedFFT``, ``RandomSignNode``,
-``LinearRectifier`` and the in-memory ``StandardScaler`` and ``Sampler`` of
-``keystone_tpu/nodes/stats/core.py``)."""
+``LinearRectifier``, ``NormalizeRows``, ``SignedHellingerMapper``,
+``CosineRandomFeatures``, the in-memory ``StandardScaler`` and ``Sampler``
+and the in-memory ``ColumnSampler`` of ``keystone_tpu/nodes/stats/core.py``).
+
+``ColumnSampler``'s ``ChunkedDataset`` branch waits for the out-of-core
+datasets; ``sample_chunk`` is ported, so a chunked scan can call it."""
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
@@ -63,6 +68,64 @@ class LinearRectifier(Transformer):
         return torch.clamp_min(X - self.alpha if self.alpha else X, self.max_val)
 
 
+class NormalizeRows(Transformer):
+    """Scale each row to unit L2 norm; a zero row passes through."""
+
+    row_local = True
+
+    def forward(self, X: torch.Tensor) -> torch.Tensor:
+        norm = torch.linalg.vector_norm(X, dim=-1, keepdim=True)
+        return X / torch.where(norm == 0, torch.ones_like(norm), norm)
+
+
+class SignedHellingerMapper(Transformer):
+    """x → sign(x)·√|x|."""
+
+    row_local = True
+
+    def forward(self, X: torch.Tensor) -> torch.Tensor:
+        return torch.sign(X) * torch.sqrt(torch.abs(X))
+
+
+class CosineRandomFeatures(Transformer):
+    """Random Fourier features cos(x Wᵀ + b), one GEMM with the bias added
+    in its epilogue, then the cosine in place.
+
+    W: (num_output_features, num_input_features); b: (num_output_features,).
+    """
+
+    row_local = True
+
+    def __init__(self, W: torch.Tensor, b: torch.Tensor):
+        if b.shape[0] != W.shape[0]:
+            raise ValueError("rows of W and size of b must match")
+        self.W = W
+        self.b = b
+
+    @staticmethod
+    def create(num_input_features: int, num_output_features: int, gamma: float,
+               seed: int = 0, device=None) -> "CosineRandomFeatures":
+        """Gaussian W scaled by ``gamma`` and uniform b in [0, 2π), drawn
+        with numpy ``default_rng(seed)``: another stream than the JAX
+        package's ``jax.random``, so parity tests copy the JAX node's W and
+        b (:meth:`from_reference`) instead of drawing them."""
+        rng = np.random.default_rng(seed)
+        W = gamma * rng.standard_normal((num_output_features, num_input_features),
+                                        dtype=np.float32)
+        b = np.float32(2 * math.pi) * rng.random(num_output_features, dtype=np.float32)
+        return CosineRandomFeatures.from_reference(W, b, device)
+
+    @staticmethod
+    def from_reference(W, b, device=None) -> "CosineRandomFeatures":
+        """The node with another fit's W and b, given as arrays."""
+        dev = pick_device(device)
+        return CosineRandomFeatures(torch.tensor(np.asarray(W, np.float32), device=dev),
+                                    torch.tensor(np.asarray(b, np.float32), device=dev))
+
+    def forward(self, X: torch.Tensor) -> torch.Tensor:
+        return torch.addmm(self.b, X, self.W.T).cos_()
+
+
 class StandardScalerModel(Transformer):
     """(x − mean) / std; std of None means center-only."""
 
@@ -114,3 +177,39 @@ class Sampler(Transformer):
     def forward(self, X: torch.Tensor) -> torch.Tensor:
         idx = torch.from_numpy(self.indices(X.shape[0])).to(X.device)
         return X[idx]
+
+
+class ColumnSampler(Transformer):
+    """Sample ``num_samples_per_matrix`` random columns of each (d, m)
+    matrix item. A batched (n, d, m) stack samples in one gather with a
+    column draw per item. The draws are numpy's, as in the JAX package, so
+    one seed samples the same columns in both packages: a stateful
+    ``default_rng(seed)`` for whole batches, ``default_rng((seed, chunk
+    index))`` for :meth:`sample_chunk`."""
+
+    def __init__(self, num_samples_per_matrix: int, seed: int = 0):
+        self.num_samples = num_samples_per_matrix
+        self.seed = seed
+        self._rng = np.random.default_rng(seed)
+
+    def apply(self, x: torch.Tensor) -> torch.Tensor:
+        x = torch.as_tensor(x)
+        cols = self._rng.integers(0, x.shape[1], size=self.num_samples)
+        return x[:, torch.from_numpy(cols).to(x.device)]
+
+    def apply_batch(self, data) -> Dataset:
+        data = Dataset.of(data)
+        if not data.is_batched:
+            return data.map(self.apply)
+        return Dataset(self._sample_batch(data.to_array()))
+
+    def sample_chunk(self, X: torch.Tensor, chunk_index: int) -> torch.Tensor:
+        """Sample one chunk of a chunked scan, keyed by (seed, chunk index)
+        so that a scan run again draws the same columns."""
+        return self._sample_batch(X, np.random.default_rng((self.seed, chunk_index)))
+
+    def _sample_batch(self, X: torch.Tensor, rng=None) -> torch.Tensor:
+        rng = self._rng if rng is None else rng
+        n, d, m = X.shape
+        cols = torch.from_numpy(rng.integers(0, m, size=(n, self.num_samples)))
+        return X.gather(2, cols.to(X.device)[:, None, :].expand(n, d, self.num_samples))

@@ -13,7 +13,6 @@ branch output is ever whole, only the feature matrix itself.
 from __future__ import annotations
 
 import argparse
-import time
 from dataclasses import dataclass
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -21,12 +20,12 @@ import numpy as np
 import torch
 
 from .. import device as pick_device
-from ..evaluation.multiclass import MulticlassClassifierEvaluator
 from ..loaders.csv_loader import LabeledData, load_labeled_csv
-from ..nodes.learning.linear import BlockLeastSquaresEstimator, BlockLinearMapper
+from ..nodes.learning.linear import BlockLeastSquaresEstimator
 from ..nodes.stats import LinearRectifier, PaddedFFT, RandomSignNode
-from ..nodes.util import ClassLabelIndicators, MaxClassifier, VectorCombiner
-from ..workflow.pipeline import FittedPipeline, Pipeline, clock
+from ..nodes.util import VectorCombiner
+from ..workflow.pipeline import FittedPipeline, Pipeline
+from .block_app import fit_and_score, fitted_block_model, print_errors
 
 MNIST_IMAGE_SIZE = 784
 NUM_CLASSES = 10
@@ -81,41 +80,14 @@ def run(train: LabeledData, test: LabeledData, conf: MnistRandomFFTConfig,
         device: Optional[torch.device] = None,
         timings: Optional[Dict[str, float]] = None,
         signs: Optional[np.ndarray] = None):
-    """Fit on ``train`` and score both sets. Returns (scorer, train_err,
-    test_err, seconds): ``scorer`` is the pipeline that ends at the linear
-    model's scores, fitted once (``scorer.fit()`` and the classifier
-    ``scorer.and_then(MaxClassifier())`` reuse its fit). ``timings``, when
-    given, receives the seconds of each phase: data (to the device),
-    optimize (the rule stack of the fit), featurize (fit data), solve (the
-    BCD fit), executor (the fit's graph bookkeeping) and apply (train and
-    test). ``signs`` as for :func:`build_featurizer`."""
+    """Fit on ``train`` and score both sets; returns (scorer, train_err,
+    test_err, seconds) and fills ``timings`` as
+    :func:`~keystone_tpu_torch.pipelines.block_app.fit_and_score` says.
+    ``signs`` as for :func:`build_featurizer`."""
     dev = device if device is not None else pick_device()
-    start = time.perf_counter()
-    X_train = train.data.to_array().to(dev, torch.float32)
-    X_test = test.data.to_array().to(dev, torch.float32)
-    labels = ClassLabelIndicators(NUM_CLASSES).forward(train.labels.to_array().to(dev))
-    t_data = clock()
-    scorer = build_featurizer(conf, dev, signs).and_then(
-        BlockLeastSquaresEstimator(conf.block_size, 1, conf.lam or 0.0),
-        X_train,
-        labels,
-    )
-    fitted = scorer.and_then(MaxClassifier()).fit()
-    t_fit = clock()
-    ev = MulticlassClassifierEvaluator(NUM_CLASSES)
-    train_err = ev.evaluate(fitted.apply(X_train).to_array(), train.labels).total_error
-    test_err = ev.evaluate(fitted.apply(X_test).to_array(), test.labels).total_error
-    t_apply = clock()
-    if timings is not None:
-        timings.update(
-            data=t_data - start,
-            optimize=fitted.seconds["optimize"],
-            featurize=fitted.seconds.get("featurize", 0.0),
-            solve=fitted.seconds.get("BlockLeastSquaresEstimator", 0.0),
-            executor=fitted.seconds["executor"],
-            apply=t_apply - t_fit,
-        )
-    return scorer, train_err, test_err, time.perf_counter() - start
+    return fit_and_score(lambda: build_featurizer(conf, dev, signs),
+                         BlockLeastSquaresEstimator(conf.block_size, 1, conf.lam or 0.0),
+                         train, test, NUM_CLASSES, dev, timings)
 
 
 def fitted_from_arrays(params: Dict[str, np.ndarray],
@@ -127,16 +99,8 @@ def fitted_from_arrays(params: Dict[str, np.ndarray],
     featurizer, the linear model and, with ``classify``, MaxClassifier;
     without it the pipeline ends at the scores."""
     dev = device if device is not None else pick_device()
-
-    def t(name):
-        return torch.tensor(np.asarray(params[name], np.float32), device=dev)
-
-    W = t("W")
-    mapper = BlockLinearMapper([W], W.shape[0], b=t("b"), feature_means=[t("feature_means")])
-    head = _featurizer(t("signs").unbind(0)).fit().and_then(mapper)
-    if classify:
-        head = head.and_then(MaxClassifier())
-    return FittedPipeline(head.graph, head.source, head.sink)
+    return fitted_block_model(build_featurizer(MnistRandomFFTConfig(), dev, params["signs"]),
+                              params, dev, classify)
 
 
 # ---- the synthetic task ------------------------------------------------
@@ -239,8 +203,5 @@ def run_app(argv=None) -> dict:
 
 
 def main(argv=None) -> int:
-    out = run_app(argv)
-    print(f"TRAIN Error is {100 * out['train_error']}%")
-    print(f"TEST Error is {100 * out['test_error']}%")
-    print(f"Pipeline took {out['seconds']} s")
+    print_errors(run_app(argv))
     return 0
