@@ -45,16 +45,21 @@ from collections import Counter
 import torch
 
 # H100 SXM peaks (NVIDIA's data sheet): float32 outside the tensor cores,
-# and device memory bandwidth
+# TF32 on the tensor cores (dense), and device memory bandwidth
 FP32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 HBM_BYTES_PER_S = 3.35e12
 
 GAMMA = 2e-4  # the RandomPatchCifarKernel default
 CHECK_SHAPES = [(700, 128, 256), (37, 5, 3), (1, 800, 100), (513, 33, 129),
+                (300, 7, 40), (129, 800, 17), (4100, 96, 700),
                 (50000, 800, 5000), (10000, 800, 5000), (8000, 800, 5000),
                 (8000, 800, 3000)]  # (n, d, b)
 FIT_SHAPE = (50000, 800, 5000)
 APPLY_SHAPE = (10000, 800, 5000)
+CHUNK_SHAPE = (2500, 800, 5000)  # apply_chunked's blocks
+F64_SHAPE, F64_LIMIT = (10000, 800, 5000), 1e-6  # one TF32 pass is ~1.3e-5 off
+SELF_GAMMA = 0.03  # the card tests' γ, at which a drift in a row's x·x shows
 # the exact KRR solve of 8000 rows builds its kernel from two column blocks
 EXACT_SHAPES = ((8000, 800, 5000), (8000, 800, 3000))
 SLICE_ARGS = ["RandomPatchCifarKernel", "--nTrain", "50000", "--nTest", "10000",
@@ -107,14 +112,20 @@ def time_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
-def gaussian_bound_ms(n: int, d: int, b: int):
+def gaussian_bound_ms(n: int, d: int, b: int) -> dict:
     """The least time for one Gaussian block on the card: each input read
-    once and the output written once, against the FP32 operations (the
-    2·n·b·d cross products, the 2·(n+b)·d norms and five per output)."""
-    bytes_ = 4.0 * (n * d + b * d + n * b)
-    ops = 2.0 * n * b * d + 2.0 * (n + b) * d + 5.0 * n * b
-    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, ops / FP32_FLOPS
-    return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes")
+    once and the output written once, against the operations at the rate of
+    their type. ``bound_ms``: the kernel's 3xTF32 cross term, 3·2·n·b·d on
+    the tensor cores, beside the 2·(n+b)·d norms and five FP32 operations per
+    output. ``fp32_simt_bound_ms``: the same work with the cross term as one
+    FP32 FFMA product (2·n·b·d), the bound no FFMA kernel can beat."""
+    t_bytes = 4.0 * (n * d + b * d + n * b) / HBM_BYTES_PER_S
+    t_fp32 = (2.0 * (n + b) * d + 5.0 * n * b) / FP32_FLOPS
+    t_ops = max(3 * 2.0 * n * b * d / TF32_FLOPS, t_fp32)
+    t_simt = t_fp32 + 2.0 * n * b * d / FP32_FLOPS
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "fp32_simt_bound_ms": 1e3 * max(t_bytes, t_simt)}
 
 
 class Probe:
@@ -487,10 +498,11 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build("gaussian_kernel")
     gk._lib()
+    # registers, shared memory and spills of every kernel function in the file
     emit({"phase": "build", "kernel": "gaussian_kernel",
           "seconds": time.perf_counter() - t0,
           "ptxas": [l.strip() for l in _build.BUILD_INFO["gaussian_kernel"]["log"].splitlines()
-                    if "registers" in l]})
+                    if l.strip()]})
 
     # -- each kernel against its plain version, on the card --------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -507,12 +519,51 @@ def main() -> int:
         emit({"phase": "kernel_check", "kernel": "gaussian_kernel_block",
               "shape": [n, d, b], "max_abs_err": err, "atol": 1e-5, "rtol": 1e-4})
         del X, Xb, got, want
+    # rows 132 B apart starting 4 B past a 16-byte edge, as a row slice passes them
+    X = torch.randn(2001, 33, device=dev, generator=gen)[1:]
+    got = gk.gaussian_kernel_block(X, X[300:700], GAMMA)
+    want = gk.gaussian_kernel_block_plain(X, X[300:700], GAMMA)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    max_err = max(max_err, err)
+    emit({"phase": "kernel_check", "kernel": "gaussian_kernel_block", "shape": [2000, 33, 400],
+          "rows": "X[1:] and X[301:701], unaligned", "max_abs_err": err, "atol": 1e-5, "rtol": 1e-4})
+    # a self block at the fit shape, as the KRR fit passes it: each row of
+    # the block is a row of X, and its x·x is a sum of d products of one
+    # sign, where tensor-core partial sums that are not promoted drift
+    n, d, b = FIT_SHAPE
+    X = torch.randn(n, d, device=dev, generator=gen)
+    got = gk.gaussian_kernel_block(X, X[2 * b:3 * b], SELF_GAMMA)
+    want = gk.gaussian_kernel_block_plain(X, X[2 * b:3 * b], SELF_GAMMA)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    diag = got[2 * b:3 * b].diagonal()
+    emit({"phase": "kernel_check", "kernel": "gaussian_kernel_block", "shape": [n, d, b],
+          "rows": "X against X[2b:3b]", "gamma": SELF_GAMMA, "max_abs_err": err,
+          "diagonal_min": diag.min().item(), "diagonal_max": diag.max().item(),
+          "atol": 1e-5, "rtol": 1e-4})
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    max_err = max(max_err, err)
+    del X, got, want, diag
+    # the 3xTF32 cross term against the exact block: one TF32 pass would fail
+    n, d, b = F64_SHAPE
+    X = torch.randn(n, d, device=dev, generator=gen)
+    Xb = torch.randn(b, d, device=dev, generator=gen)
+    exact = gk.gaussian_kernel_block_plain(X.double(), Xb.double(), GAMMA)
+    f64 = {"kernel": (gk.gaussian_kernel_block(X, Xb, GAMMA).double() - exact).abs().max().item(),
+           "plain": (gk.gaussian_kernel_block_plain(X, Xb, GAMMA).double() - exact)
+           .abs().max().item()}
+    emit({"phase": "kernel_accuracy_f64", "kernel": "gaussian_kernel_block", "shape": [n, d, b],
+          "gamma": GAMMA, "max_abs_err_vs_float64": f64, "limit": F64_LIMIT})
+    check(f64["kernel"] <= F64_LIMIT, f"K1 is {f64['kernel']} off the float64 block")
+    del X, Xb, exact
 
     # timed at the main path's shapes; the block is a row slice of the
     # data, as the KRR fit passes it
     timings = {}
     for label, (n, d, b) in (("fit", FIT_SHAPE), ("apply", APPLY_SHAPE),
-                             ("exact_block", EXACT_SHAPES[0]),
+                             ("chunk", CHUNK_SHAPE), ("exact_block", EXACT_SHAPES[0]),
                              ("exact_tail", EXACT_SHAPES[1])):
         X = torch.randn(max(n, FIT_SHAPE[0]), d, device=dev, generator=gen)
         Xq, Xb = X[:n], X[2 * b:3 * b]
@@ -524,9 +575,9 @@ def main() -> int:
                 time_ms(lambda: gk.gaussian_kernel_block(Xq, Xb, GAMMA)))
             row.setdefault("library_ms", []).append(
                 time_ms(lambda: torch.exp(-GAMMA * torch.cdist(Xq, Xb).square())))
-        bound, bound_by = gaussian_bound_ms(n, d, b)
         timings[label] = dict({k: min(v) for k, v in row.items()},
-                              bound_ms=bound, bound_by=bound_by, shape=[n, d, b])
+                              **gaussian_bound_ms(n, d, b), shape=[n, d, b])
+        timings[label]["share_of_bound"] = timings[label]["bound_ms"] / timings[label]["ms"]
         emit(dict({"phase": "kernel_time", "kernel": "gaussian_kernel_block",
                    "main_path_role": label, "card": card}, **timings[label],
                   all_runs=row))
