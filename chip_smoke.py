@@ -27,8 +27,16 @@ feature matrix of 50000 synthetic frames), which runs no hand-written
 kernel, with a traced sweep of its block solve; and the least-squares family on those frames, where the cost model
 picks the exact solve for the raw 440-wide frames and the block solver for
 one 4096-wide cosine branch, with TSQR and L-BFGS held against the exact
-solve and the CPU. Each phase prints one JSON line; any failure raises and
-exits non-zero. The last line is
+solve and the CPU. Then the rest of the CIFAR family through the command
+line's code at CIFAR-10's 50000 / 10000 (RandomPatchCifar, LinearPixels,
+RandomCifar, RandomPatchCifarAugmented: error bounds, no K1 launch), the
+augmented application small on the card against the CPU, and
+VOCSIFTFisher: small on the card against the CPU through the load path,
+the command line's defaults, and full width (dense SIFT of 2000 / 1000
+synthetic 256² images, 23,599 descriptors each, PCA to 80, a 256-centre
+GMM, Fisher vectors of 40,960) with its peak memory and per-phase
+seconds. Each phase prints one JSON line; any failure raises and exits
+non-zero. The last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card it exits non-zero
 and prints no result.
 """
@@ -85,6 +93,20 @@ TIMIT_FULL = ["TimitPipeline", "--nTrain", str(TIMIT_ROWS), "--nTest", "10000"]
 TIMIT_FULL_STEPS = 250  # 50 blocks × 5 epochs
 TIMIT_FALLBACK_LAMBDA = 100.0  # bench.py's λ for the TIMIT block shape
 LS_ITERATIONS = 20  # the L-BFGS option of LeastSquaresEstimator
+
+# the rest of the CIFAR family at CIFAR-10's count, each CLI's defaults
+# otherwise; the error bounds are the JAX package's tests'
+CIFAR_ROWS = ["--nTrain", "50000", "--nTest", "10000"]
+CIFAR_FAMILY = {"RandomPatchCifar": (0.1, 0.3), "LinearPixels": (None, 0.5),
+                "RandomCifar": (None, 0.6), "RandomPatchCifarAugmented": (None, 0.6)}
+
+# VOCSIFTFisher at KeystoneML's widths (descDim 80, vocabSize 256, 1e6 PCA
+# and GMM samples) on 256² images: VOC2007's 5011 / 4952 images cut to 2000
+# / 1000 so that the two cached descriptor stacks (24.2 + 15.1 GB) fit
+VOC_TRAIN, VOC_TEST, VOC_SIZE = 2000, 1000, 256
+VOC_DESCRIPTORS = 6561 + 6084 + 5625 + 5329  # steps of 3, bins 4/6/8/10 on 256²
+VOC_DESC_DIM, VOC_VOCAB = 80, 256
+VOC_PEAK_LIMIT = 60e9
 
 
 def emit(obj: dict) -> None:
@@ -456,10 +478,188 @@ def ls_family_phase(dev, card) -> None:
     check(lbfgs_rel <= 0.01, f"L-BFGS on the card is {lbfgs_rel} off the CPU's objective")
 
 
+def cifar_family_phases(cli, dev, card) -> int:
+    """RandomPatchCifar, LinearPixels, RandomCifar and
+    RandomPatchCifarAugmented through the command line's code at 50000 /
+    10000 synthetic images, then Augmented small on the card against the
+    CPU. Returns the K1 launches of the four runs (none of them reaches K1)."""
+    import numpy as np
+
+    from keystone_tpu_torch.linalg import bcd
+    from keystone_tpu_torch.loaders.cifar import synthetic_cifar
+    from keystone_tpu_torch.nodes.images.core import CenterCornerPatcher
+    from keystone_tpu_torch.ops import gaussian_kernel as gk
+    from keystone_tpu_torch.pipelines import cifar_extras
+
+    gk.gaussian_kernel_block.launches = 0
+    for app, (train_limit, test_limit) in CIFAR_FAMILY.items():
+        args = [app] + CIFAR_ROWS
+        out = cli_run(cli, bcd, args)
+        emit({"phase": "cifar_family", "app": app, "args": args,
+              "train_error": out.get("train_error"), "test_error": out["test_error"],
+              "train_error_limit": train_limit, "test_error_limit": test_limit,
+              "seconds": out["seconds"], "phase_seconds": out["phases"],
+              "wall_seconds": out["wall_seconds"], "block_steps": out["block_steps"],
+              "peak_mem_gb": out["peak_mem_bytes"] / 1e9, "card": card})
+        check(out["test_error"] < test_limit,
+              f"{app}: test error {out['test_error']} is not below {test_limit}")
+        if train_limit is not None:
+            check(out["train_error"] < train_limit,
+                  f"{app}: train error {out['train_error']} is not below {train_limit}")
+        del out
+    launches = gk.gaussian_kernel_block.launches
+    check(launches == 0, f"the CIFAR family launched K1 {launches} times; its paths have none")
+
+    # -- Augmented small: the card against the CPU, one seed -------------
+    conf = cifar_extras.AugmentedCifarConfig(
+        num_filters=24, lam=50.0, whitener_size=3000, num_random_images_augment=2,
+        pool_size=8, pool_stride=7)
+    train, test = synthetic_cifar(192, seed=5), synthetic_cifar(48, seed=6)
+    crops, scores, errs = {}, {}, {}
+    for name, where in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        fresh_env()
+        X = train.data.to_array().to(where)
+        crops[name] = cifar_extras.augment_train(X, np.asarray(train.labels.to_array()),
+                                                 conf)[0].cpu()
+        scorer, ev, _ = cifar_extras.run_random_patch_cifar_augmented(train, test, conf, where)
+        test_aug = CenterCornerPatcher(24, 24, True).forward(test.data.to_array().to(where))
+        scores[name] = scorer.fit().apply(test_aug).to_array().cpu()
+        errs[name] = ev.total_error
+    dev_max = (scores["cuda"] - scores["cpu"]).abs().max().item()
+    crops_equal = bool(torch.equal(crops["cuda"], crops["cpu"]))
+    preds_equal = bool(torch.equal(scores["cuda"].argmax(1), scores["cpu"].argmax(1)))
+    emit({"phase": "cifar_small_vs_cpu", "app": "RandomPatchCifarAugmented",
+          "crops_bit_equal": crops_equal, "predictions_equal": preds_equal,
+          "max_abs_dev": dev_max, "limit": 1e-3, "test_error_cuda": errs["cuda"],
+          "test_error_cpu": errs["cpu"]})
+    check(crops_equal, "the augmented crops and flips on the card differ from the CPU's")
+    check(preds_equal, "the augmented predictions on the card differ from the CPU's")
+    check(dev_max <= 1e-3, f"the augmented scores on the card are {dev_max} off the CPU's")
+    return launches
+
+
+def _voc_files(fitted, folder) -> dict:
+    """The fitted PCA matrix and GMM of a VOC pipeline written as the load
+    path reads them: the CSV file names by configuration field."""
+    import numpy as np
+
+    from keystone_tpu_torch.nodes.images.fisher_vector import FisherVector
+    from keystone_tpu_torch.nodes.learning.pca import BatchPCATransformer
+
+    ops = list(fitted.graph.operators.values())
+    pca = next(op for op in ops if isinstance(op, BatchPCATransformer)).pca_mat
+    gmm = next(op for op in ops if isinstance(op, FisherVector)).gmm
+    files = {}
+    for key, arr in (("pca_file", pca.T), ("gmm_mean_file", gmm.means),
+                     ("gmm_var_file", gmm.variances), ("gmm_wts_file", gmm.weights)):
+        files[key] = f"{folder}/{key}.csv"
+        np.savetxt(files[key], arr.cpu().double().numpy(), delimiter=",", fmt="%.9e")
+    return files
+
+
+def voc_phases(cli, dev, card) -> int:
+    """VOCSIFTFisher small on the card against the CPU through the load
+    path, at the command line's defaults, and at full width. Returns the K1
+    launches of the three (none reaches K1)."""
+    import tempfile
+
+    import numpy as np
+
+    from keystone_tpu_torch.data.dataset import Dataset
+    from keystone_tpu_torch.linalg import bcd
+    from keystone_tpu_torch.ops import gaussian_kernel as gk
+    from keystone_tpu_torch.pipelines import voc_sift_fisher as voc
+    from keystone_tpu_torch.workflow.expressions import DatasetExpression
+    from keystone_tpu_torch.workflow.fusion import FusedTransformerOperator
+
+    gk.gaussian_kernel_block.launches = 0
+    # -- small: PCA and GMM fitted once on the CPU, carried to the card
+    # through the load path; the same files on the CPU
+    tr_i, tr_l = voc.synthetic_voc(48, seed=1)
+    te_i, te_l = voc.synthetic_voc(16, seed=2)
+    small = dict(desc_dim=16, vocab_size=8, lam=10.0)
+    fresh_env()
+    fit_details = {}
+    voc.run(tr_i, tr_l, te_i, te_l, voc.SIFTFisherConfig(
+        num_pca_samples=20_000, num_gmm_samples=20_000, **small), torch.device("cpu"),
+        fit_details)
+    aps, fvs = {}, {}
+    with tempfile.TemporaryDirectory() as folder:
+        files = _voc_files(fit_details["fitted"], folder)
+        for name, where in (("cuda", dev), ("cpu", torch.device("cpu"))):
+            fresh_env()
+            details = {}
+            aps[name], _ = voc.run(tr_i, tr_l, te_i, te_l, voc.SIFTFisherConfig(**small, **files),
+                                   where, details)
+            fused = next(op for op in details["fitted"].graph.operators.values()
+                         if isinstance(op, FusedTransformerOperator))
+            X = torch.from_numpy(te_i).to(where)
+            fvs[name] = fused.batch_transform([DatasetExpression.now(Dataset(X))]).to_array().cpu()
+    fv_rel = ((fvs["cuda"] - fvs["cpu"]).abs().max() / fvs["cpu"].abs().max()).item()
+    ap_dev = float(np.abs(aps["cuda"] - aps["cpu"]).max())
+    emit({"phase": "voc_small_vs_cpu", "train": 48, "test": 16, "size": 64, **small,
+          "fv_shape": list(fvs["cpu"].shape), "fv_max_rel_dev": fv_rel, "fv_limit": 1e-3,
+          "ap_max_abs_dev": ap_dev, "ap_limit": 1e-3, "map_cuda": float(aps["cuda"].mean()),
+          "map_cpu": float(aps["cpu"].mean())})
+    check(fv_rel <= 1e-3, f"VOC Fisher vectors on the card are {fv_rel} (relative) off the CPU's")
+    check(ap_dev <= 1e-3, f"VOC APs on the card are {ap_dev} off the CPU's")
+    del fit_details, fvs
+
+    # -- the command line's defaults (256 / 64 synthetic 64-px images,
+    # descDim 24, vocabSize 16)
+    out = cli_run(cli, bcd, ["VOCSIFTFisher"])
+    emit({"phase": "voc_cli", "args": ["VOCSIFTFisher"], "map": out["map"],
+          "seconds": out["seconds"], "phase_seconds": out["phases"],
+          "descriptors": out["details"]["descriptors"], "fv_width": out["details"]["fv_width"],
+          "em_iterations": out["details"]["em_iterations"],
+          "pca_choice": out["details"]["pca_choice"], "block_steps": out["block_steps"],
+          "peak_mem_gb": out["peak_mem_bytes"] / 1e9, "card": card})
+    check(np.isfinite(out["aps"]).all() and out["aps"].shape == (voc.NUM_CLASSES,),
+          f"VOCSIFTFisher CLI APs {out['aps']}")
+    del out
+
+    # -- full width: KeystoneML's widths on 2000 / 1000 images of 256²
+    t0 = time.perf_counter()
+    tr_i, tr_l = voc.synthetic_voc(VOC_TRAIN, size=VOC_SIZE, seed=1)
+    te_i, te_l = voc.synthetic_voc(VOC_TEST, size=VOC_SIZE, seed=2)
+    draw_seconds = time.perf_counter() - t0
+    conf = voc.SIFTFisherConfig(num_pca_samples=1_000_000, num_gmm_samples=1_000_000,
+                                vocab_size=VOC_VOCAB, desc_dim=VOC_DESC_DIM, lam=0.5)
+    fresh_env()
+    bcd._block_update_impl.steps = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    details = {}
+    aps, seconds = voc.run(tr_i, tr_l, te_i, te_l, conf, dev, details)
+    peak = torch.cuda.max_memory_allocated()
+    steps = bcd._block_update_impl.steps
+    stacks = VOC_TRAIN * VOC_DESCRIPTORS * 4 * (128 + VOC_DESC_DIM)
+    fv_width = 2 * VOC_DESC_DIM * VOC_VOCAB
+    emit({"phase": "voc_full_width", "train": VOC_TRAIN, "test": VOC_TEST, "size": VOC_SIZE,
+          "desc_dim": VOC_DESC_DIM, "vocab_size": VOC_VOCAB, "lambda": 0.5,
+          "map": float(aps.mean()), "map_limit": 0.3, "seconds": seconds,
+          "phase_seconds": details["phases"], "host_draw_seconds": draw_seconds,
+          "descriptors": details["descriptors"], "fv_width": details["fv_width"],
+          "block_steps": steps, "em_iterations": details["em_iterations"],
+          "pca_choice": details["pca_choice"], "peak_mem_gb": peak / 1e9,
+          "peak_gb_by_phase_end": {k: v / 1e9 for k, v in details["peak_bytes"].items()},
+          "cached_stacks_gb": stacks / 1e9, "peak_limit_gb": VOC_PEAK_LIMIT / 1e9, "card": card})
+    check(details["descriptors"] == VOC_DESCRIPTORS,
+          f"{details['descriptors']} descriptors per image, want {VOC_DESCRIPTORS}")
+    check(details["fv_width"] == fv_width, f"FV width {details['fv_width']}, want {fv_width}")
+    check(steps == fv_width // 4096, f"{steps} block steps, want {fv_width // 4096}")
+    check(peak < VOC_PEAK_LIMIT, f"peak memory {peak} B is not below {VOC_PEAK_LIMIT} B")
+    check(aps.mean() > 0.3, f"mAP {aps.mean()} is not above 0.3")
+    launches = gk.gaussian_kernel_block.launches
+    check(launches == 0, f"VOCSIFTFisher launched K1 {launches} times; its path has none")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    started = time.perf_counter()
     import keystone_tpu_torch
     from keystone_tpu_torch import __main__ as cli
     from keystone_tpu_torch.data.dataset import Dataset
@@ -880,7 +1080,10 @@ def main() -> int:
 
     timit_k1 = timit_phases(cli, dev, card)
     ls_family_phase(dev, card)
+    cifar_family_k1 = cifar_family_phases(cli, dev, card)
+    voc_k1 = voc_phases(cli, dev, card)
 
+    emit({"phase": "total", "seconds": time.perf_counter() - started, "card": card})
     fit = timings["fit"]
     emit({"kernels": [{
         "name": "gaussian_kernel_block", "route": "cuda",
@@ -890,7 +1093,8 @@ def main() -> int:
         "plain_ms": fit["plain_ms"], "bound_ms": fit["bound_ms"],
         "bound_by": fit["bound_by"], "library_ms": fit["library_ms"],
         "launches_by_path": {"slice": launches, "compiled_cifar": compiled_launches,
-                             "krr_family": krr_launches, "timit_full_width": timit_k1},
+                             "krr_family": krr_launches, "timit_full_width": timit_k1,
+                             "cifar_family": cifar_family_k1, "voc": voc_k1},
     }]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,22 +1,28 @@
 """Command line: ``python -m keystone_tpu_torch <App> [--device cpu] ...``.
 
-The port runs three applications so far, RandomPatchCifarKernel,
-MnistRandomFFT and TimitPipeline, with the flags of the JAX package's
-CLI. It runs on CUDA
-unless ``--device cpu`` is given.
+The port runs eight of the JAX package's twelve applications, with the
+flags of its CLI: the CIFAR family (RandomPatchCifar, LinearPixels,
+RandomCifar, RandomPatchCifarAugmented, RandomPatchCifarKernel),
+MnistRandomFFT, TimitPipeline and VOCSIFTFisher. It runs on CUDA unless
+``--device cpu`` is given.
 """
 
 from __future__ import annotations
 
 import sys
 
-from .pipelines import cifar_extras, mnist_random_fft, timit
+from .pipelines import cifar_extras, mnist_random_fft, random_patch_cifar, timit, voc_sift_fisher
 
 #: application name → (runner returning a result dict, CLI main)
 PIPELINES = {
+    "RandomPatchCifar": (random_patch_cifar.run_app, random_patch_cifar.main),
+    "LinearPixels": (cifar_extras.run_app, cifar_extras.main),
+    "RandomCifar": (cifar_extras.run_app, cifar_extras.main),
+    "RandomPatchCifarAugmented": (cifar_extras.run_app, cifar_extras.main),
     "RandomPatchCifarKernel": (cifar_extras.run_app, cifar_extras.main),
     "MnistRandomFFT": (mnist_random_fft.run_app, mnist_random_fft.main),
     "TimitPipeline": (timit.run_app, timit.main),
+    "VOCSIFTFisher": (voc_sift_fisher.run_app, voc_sift_fisher.main),
 }
 
 

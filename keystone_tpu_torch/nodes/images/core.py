@@ -1,24 +1,68 @@
-"""Image operator nodes on batched (n, X, Y, C) tensors (port of the
-RandomPatchCifar subset of ``keystone_tpu/nodes/images/core.py``).
+"""Image operator nodes on batched (n, X, Y, C) tensors (port of
+``keystone_tpu/nodes/images/core.py``).
 
 The public layout is the JAX package's NHWC with H≡x and W≡y, and the
 canonical vectorized layout is channel-major ``c + x*C + y*X*C``. Inside,
 the convolution and pooling nodes permute to PyTorch's NCHW.
+
+RandomPatcher and RandomImageTransformer draw their crops and flips with a
+stateful numpy ``default_rng``, as the JAX nodes do, so one seed gives the
+same crops and flips in both packages; only the index tensors go to the
+device.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ...data.dataset import Dataset
 from ...workflow.transformer import Transformer
+
+#: luminance weights of R, G and B (the reference's human-eye weights)
+GRAY_WEIGHTS = (0.299, 0.587, 0.114)
 
 
 def vectorize_images(X: torch.Tensor) -> torch.Tensor:
     """(n, X, Y, C) → (n, X*Y*C) in channel-major order c + x*C + y*X*C."""
     return X.permute(0, 2, 1, 3).reshape(X.shape[0], -1)
+
+
+def images_from_vectors(V: torch.Tensor, x_dim: int, y_dim: int, channels: int) -> torch.Tensor:
+    """Inverse of :func:`vectorize_images`."""
+    return V.reshape(V.shape[0], y_dim, x_dim, channels).permute(0, 2, 1, 3)
+
+
+def pack_filter_images(filters: torch.Tensor) -> torch.Tensor:
+    """(k, S, S, C) filter images → (k, S·S·C) rows in the patch layout
+    c + px·C + py·C·S."""
+    return filters.permute(0, 2, 1, 3).reshape(filters.shape[0], -1)
+
+
+class PixelScaler(Transformer):
+    """Byte pixels → [0, 1] floats."""
+
+    row_local = True
+
+    def forward(self, X: torch.Tensor) -> torch.Tensor:
+        return X.float() / 255.0
+
+
+class GrayScaler(Transformer):
+    """Luminance 0.299 R + 0.587 G + 0.114 B of an RGB image, the channel
+    mean of any other; one channel out."""
+
+    row_local = True
+
+    def forward(self, X: torch.Tensor) -> torch.Tensor:
+        X = X.float()
+        if X.shape[-1] == 3:
+            r, g, b = GRAY_WEIGHTS
+            return (X[..., 0:1] * r + X[..., 1:2] * g) + X[..., 2:3] * b
+        return X.mean(dim=-1, keepdim=True)
 
 
 class ImageVectorizer(Transformer):
@@ -179,3 +223,107 @@ class Windower(Transformer):
         xs = (xi * st)[:, None] + off  # (k, w)
         ys = (yi * st)[:, None] + off
         return X[img[:, None, None], xs[:, :, None], ys[:, None, :], :]
+
+
+class Cropper(Transformer):
+    """The fixed crop [start_x, end_x) × [start_y, end_y)."""
+
+    row_local = True
+
+    def __init__(self, start_x: int, start_y: int, end_x: int, end_y: int):
+        self.start_x, self.start_y = start_x, start_y
+        self.end_x, self.end_y = end_x, end_y
+
+    def forward(self, X: torch.Tensor) -> torch.Tensor:
+        return X[:, self.start_x:self.end_x, self.start_y:self.end_y, :]
+
+
+class RandomPatcher(Transformer):
+    """``num_patches`` random windows of each image, new draws at every
+    batch, emitted image by image: (n, X, Y, C) → (n·num_patches, px, py, C).
+    Per patch, the x starts of all images are drawn, then the y starts."""
+
+    def __init__(self, num_patches: int, patch_size_x: int, patch_size_y: int,
+                 seed: int = 0):
+        self.num_patches = num_patches
+        self.patch_size_x = patch_size_x
+        self.patch_size_y = patch_size_y
+        self._rng = np.random.default_rng(seed)
+
+    def starts(self, n: int, xd: int, yd: int):
+        """The next draw: (n, num_patches) x starts and y starts."""
+        xs, ys = [], []
+        for _ in range(self.num_patches):
+            xs.append(self._rng.integers(0, xd - self.patch_size_x + 1, size=n))
+            ys.append(self._rng.integers(0, yd - self.patch_size_y + 1, size=n))
+        return np.stack(xs, axis=1), np.stack(ys, axis=1)
+
+    def apply_batch(self, data) -> Dataset:
+        X = Dataset.of(data).to_array()
+        n, xd, yd, c = X.shape
+        px, py = self.patch_size_x, self.patch_size_y
+        xs, ys = self.starts(n, xd, yd)
+        dev = X.device
+        ix = torch.from_numpy(xs).to(dev)[:, :, None] + torch.arange(px, device=dev)
+        iy = torch.from_numpy(ys).to(dev)[:, :, None] + torch.arange(py, device=dev)
+        img = torch.arange(n, device=dev)[:, None, None, None]
+        patches = X[img, ix[:, :, :, None], iy[:, :, None, :]]  # (n, P, px, py, C)
+        return Dataset(patches.reshape(-1, px, py, c))
+
+
+class CenterCornerPatcher(Transformer):
+    """The four corner crops and the center crop of each image, each
+    followed by its horizontal flip when ``horizontal_flips``, emitted image
+    by image: 5 or 10 crops per image."""
+
+    def __init__(self, patch_size_x: int, patch_size_y: int,
+                 horizontal_flips: bool = False):
+        self.px = patch_size_x
+        self.py = patch_size_y
+        self.horizontal_flips = horizontal_flips
+
+    def forward(self, X: torch.Tensor) -> torch.Tensor:
+        n, xd, yd, c = X.shape
+        px, py = self.px, self.py
+        starts = [(0, 0), (xd - px, 0), (0, yd - py), (xd - px, yd - py),
+                  ((xd - px) // 2, (yd - py) // 2)]
+        crops = [X[:, sx:sx + px, sy:sy + py, :] for sx, sy in starts]
+        if self.horizontal_flips:
+            crops = [v for cr in crops for v in (cr, cr.flip(2))]
+        return torch.stack(crops, dim=1).reshape(-1, px, py, c)
+
+
+class RandomImageTransformer(Transformer):
+    """Flip each image horizontally with probability ``flip_chance``, new
+    draws at every batch."""
+
+    def __init__(self, flip_chance: float = 0.5, seed: int = 0):
+        self.flip_chance = flip_chance
+        self._rng = np.random.default_rng(seed)
+
+    def apply_batch(self, data) -> Dataset:
+        X = Dataset.of(data).to_array()
+        flips = self._rng.random(X.shape[0]) < self.flip_chance
+        mask = torch.from_numpy(flips).to(X.device)[:, None, None, None]
+        return Dataset(torch.where(mask, X.flip(2), X))
+
+
+class LabelExtractor(Transformer):
+    """(label, image) item → label."""
+
+    def apply(self, item):
+        return item[0]
+
+
+class ImageExtractor(Transformer):
+    """(label, image) item → image."""
+
+    def apply(self, item):
+        return item[1]
+
+
+class MultiLabelExtractor(Transformer):
+    """(label set, image) item → label set."""
+
+    def apply(self, item):
+        return item[0]

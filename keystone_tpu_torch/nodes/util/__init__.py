@@ -1,3 +1,12 @@
-from .core import ClassLabelIndicators, MaxClassifier, VectorCombiner, VectorSplitter
+from .core import (
+    Cacher,
+    ClassLabelIndicators,
+    MatrixVectorizer,
+    MaxClassifier,
+    MultiClassLabelIndicators,
+    VectorCombiner,
+    VectorSplitter,
+)
 
-__all__ = ["ClassLabelIndicators", "MaxClassifier", "VectorCombiner", "VectorSplitter"]
+__all__ = ["Cacher", "ClassLabelIndicators", "MatrixVectorizer", "MaxClassifier",
+           "MultiClassLabelIndicators", "VectorCombiner", "VectorSplitter"]

@@ -1,14 +1,17 @@
-"""Glue nodes (port of ``ClassLabelIndicators``, ``MaxClassifier``,
-``VectorCombiner`` and ``VectorSplitter`` from
+"""Glue nodes (port of ``ClassLabelIndicators``,
+``MultiClassLabelIndicators``, ``MaxClassifier``, ``VectorCombiner``,
+``VectorSplitter``, ``Cacher`` and ``MatrixVectorizer`` from
 ``keystone_tpu/nodes/util/core.py``)."""
 
 from __future__ import annotations
 
 from typing import Optional, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ...data.dataset import Dataset
 from ...workflow.transformer import Transformer
 
 
@@ -24,6 +27,21 @@ class ClassLabelIndicators(Transformer):
 
     def forward(self, y: torch.Tensor) -> torch.Tensor:
         return 2.0 * F.one_hot(y.long(), self.num_classes).float() - 1.0
+
+
+class MultiClassLabelIndicators(Transformer):
+    """A label set (any number of class indices) → ±1 multi-hot vector.
+    Label sets are ragged, so this is a per-item host node."""
+
+    def __init__(self, num_classes: int):
+        if num_classes <= 1:
+            raise ValueError("num_classes must be > 1")
+        self.num_classes = num_classes
+
+    def apply(self, labels) -> torch.Tensor:
+        out = np.full((self.num_classes,), -1.0, dtype=np.float32)
+        out[np.asarray(labels, dtype=np.int64)] = 1.0
+        return torch.from_numpy(out)
 
 
 class MaxClassifier(Transformer):
@@ -65,3 +83,33 @@ class VectorSplitter(Transformer):
 
     def forward(self, X: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         return self.split_batch(X)
+
+
+class Cacher(Transformer):
+    """Materialize and hold the upstream result. Inside a fused group it is
+    the identity, so a chain with Cachers still fuses and compiles."""
+
+    row_local = True
+
+    def __init__(self, name: Optional[str] = None):
+        self.name = name
+
+    def forward(self, X):
+        return X
+
+    def apply(self, x):
+        return x
+
+    def apply_batch(self, data) -> Dataset:
+        return Dataset.of(data).cache()
+
+
+class MatrixVectorizer(Transformer):
+    """Flatten each (r, c) matrix item column-major (Fortran order), as
+    breeze's ``toDenseVector`` does: (n, r, c) → (n, r·c) with element
+    (i, j) at i + j·r."""
+
+    row_local = True
+
+    def forward(self, X: torch.Tensor) -> torch.Tensor:
+        return X.transpose(1, 2).reshape(X.shape[0], -1)

@@ -1,14 +1,24 @@
-"""RandomPatchCifarKernel (port of the kernel application of
-``keystone_tpu/pipelines/cifar_extras.py``): whitened random-patch
-convolutional features → StandardScaler → Gauss-Seidel kernel ridge
-regression → MaxClassifier.
+"""The other CIFAR applications (port of
+``keystone_tpu/pipelines/cifar_extras.py``). Each shares the loaders and
+the convolutional featurizer of RandomPatchCifar; what differs is the
+featurizer's filters and the model after it:
+
+* LinearPixels: GrayScaler → ImageVectorizer → exact linear map.
+* RandomCifar: random Gaussian filters, no whitening → the conv stack →
+  StandardScaler → exact linear map.
+* RandomPatchCifarAugmented: whitened patch filters on 24×24 crops; it
+  trains on random crops with random flips and tests on the center and
+  corner crops and their flips, whose scores are merged per source image
+  (AugmentedExamplesEvaluator).
+* RandomPatchCifarKernel: whitened patch features → StandardScaler →
+  Gauss-Seidel kernel ridge regression, whose kernel blocks go through the
+  K1 CUDA kernel on a CUDA device.
 
 Data arrives on the host (numpy) and is moved to ``device`` once; every
-stage after that runs there. The pipeline is a graph: the optimizer merges
-the two estimators' copies of the featurizer, so the fit data is
-featurized once, and fuses the four featurizer nodes into one row-local
-operator that runs in row chunks. The kernel ridge regression's kernel
-blocks go through the K1 CUDA kernel on a CUDA device.
+stage after that runs there. Each pipeline is a graph: the optimizer
+merges the estimators' copies of the featurizer, so the fit data is
+featurized once, and fuses the featurizer nodes into one row-local
+operator that runs in row chunks.
 """
 
 from __future__ import annotations
@@ -22,23 +32,165 @@ import numpy as np
 import torch
 
 from .. import device as pick_device
+from ..evaluation.augmented import AugmentedExamplesEvaluator
 from ..evaluation.multiclass import MulticlassClassifierEvaluator
-from ..loaders.cifar import NCHAN, NROW, load_cifar, synthetic_cifar
+from ..loaders.cifar import NCHAN
 from ..loaders.csv_loader import LabeledData
 from ..nodes.images.core import (
-    Convolver,
+    CenterCornerPatcher,
+    GrayScaler,
     ImageVectorizer,
-    Pooler,
-    SymmetricRectifier,
+    RandomImageTransformer,
+    RandomPatcher,
 )
 from ..nodes.learning.kernel import KernelBlockLinearMapper, KernelRidgeRegression
+from ..nodes.learning.linear import BlockLeastSquaresEstimator, LinearMapEstimator
 from ..nodes.learning.zca import ZCAWhitener
 from ..nodes.stats import StandardScaler, StandardScalerModel
 from ..nodes.util import ClassLabelIndicators, MaxClassifier
 from ..workflow.pipeline import FittedPipeline, Pipeline, clock
-from .random_patch_cifar import RandomCifarConfig, learn_filters
+from .random_patch_cifar import (
+    RandomCifarConfig,
+    conv_featurizer,
+    device_data,
+    learn_filters,
+    load_or_synthesize,
+)
 
 NUM_CLASSES = 10
+
+
+def _fit_and_score(pipeline: Pipeline, X_train, X_test, train: LabeledData,
+                   test: LabeledData, start: float, timings: Optional[Dict[str, float]]):
+    """Fit a classifier pipeline and score both sets; (train_err, test_err)
+    and the fit and apply seconds into ``timings``."""
+    t0 = clock()
+    fitted = pipeline.fit()
+    t_fit = clock()
+    ev = MulticlassClassifierEvaluator(NUM_CLASSES)
+    train_err = ev.evaluate(fitted.apply(X_train).to_array(), train.labels).total_error
+    test_err = ev.evaluate(fitted.apply(X_test).to_array(), test.labels).total_error
+    if timings is not None:
+        featurize = fitted.seconds.get("featurize", 0.0)
+        timings.update(data=t0 - start, optimize=fitted.seconds["optimize"],
+                       featurize=featurize,
+                       solve=t_fit - t0 - fitted.seconds["optimize"] - featurize,
+                       apply=clock() - t_fit)
+    return train_err, test_err
+
+
+# ---- LinearPixels --------------------------------------------------------
+
+def run_linear_pixels(train: LabeledData, test: LabeledData, lam: Optional[float] = None,
+                      device: Optional[torch.device] = None,
+                      timings: Optional[Dict[str, float]] = None):
+    """Grayscale pixels into an exact linear map. Returns (pipeline,
+    train_err, test_err, seconds)."""
+    dev = device if device is not None else pick_device()
+    start = time.perf_counter()
+    X_train, labels = device_data(train, dev)
+    X_test = test.data.to_array().to(dev, torch.float32)
+    pipeline = (
+        GrayScaler()
+        .and_then(ImageVectorizer())
+        .and_then(LinearMapEstimator(lam), X_train, labels)
+        .and_then(MaxClassifier())
+    )
+    tr, te = _fit_and_score(pipeline, X_train, X_test, train, test, start, timings)
+    return pipeline, tr, te, time.perf_counter() - start
+
+
+# ---- RandomCifar ---------------------------------------------------------
+
+def random_filters(conf: RandomCifarConfig) -> np.ndarray:
+    """The random Gaussian filter bank, numpy ``default_rng(conf.seed)``:
+    (num_filters, patch_size² · 3) float32, the JAX package's draw."""
+    rng = np.random.default_rng(conf.seed)
+    return rng.standard_normal(
+        (conf.num_filters, conf.patch_size * conf.patch_size * NCHAN)).astype(np.float32)
+
+
+def run_random_cifar(train: LabeledData, test: LabeledData, conf: RandomCifarConfig,
+                     device: Optional[torch.device] = None,
+                     timings: Optional[Dict[str, float]] = None):
+    """Random Gaussian filters, no whitening, into StandardScaler and an
+    exact linear map. Returns (pipeline, train_err, test_err, seconds)."""
+    dev = device if device is not None else pick_device()
+    start = time.perf_counter()
+    X_train, labels = device_data(train, dev)
+    X_test = test.data.to_array().to(dev, torch.float32)
+    filters = torch.from_numpy(random_filters(conf)).to(dev)
+    pipeline = (
+        conv_featurizer(filters, None, conf)
+        .and_then(StandardScaler(), X_train)
+        .and_then(LinearMapEstimator(conf.lam), X_train, labels)
+        .and_then(MaxClassifier())
+    )
+    tr, te = _fit_and_score(pipeline, X_train, X_test, train, test, start, timings)
+    return pipeline, tr, te, time.perf_counter() - start
+
+
+# ---- RandomPatchCifarAugmented ------------------------------------------
+
+@dataclass
+class AugmentedCifarConfig(RandomCifarConfig):
+    num_random_images_augment: int = 4
+    augment_img_size: int = 24
+    flip_chance: float = 0.5
+
+
+#: test crops per image: the four corners and the center, and their flips
+TEST_CROPS = 10
+
+
+def augment_train(X: torch.Tensor, y: np.ndarray, conf: AugmentedCifarConfig):
+    """``num_random_images_augment`` random crops of each image, each
+    flipped at random (numpy draws of ``conf.seed`` and ``conf.seed + 1``),
+    and the labels repeated per crop: (crops, their labels)."""
+    patcher = RandomPatcher(conf.num_random_images_augment, conf.augment_img_size,
+                            conf.augment_img_size, seed=conf.seed)
+    flipper = RandomImageTransformer(conf.flip_chance, seed=conf.seed + 1)
+    crops = flipper.apply_batch(patcher.apply_batch(X)).to_array()
+    return crops, np.repeat(np.asarray(y), conf.num_random_images_augment)
+
+
+def run_random_patch_cifar_augmented(train: LabeledData, test: LabeledData,
+                                     conf: AugmentedCifarConfig,
+                                     device: Optional[torch.device] = None,
+                                     timings: Optional[Dict[str, float]] = None):
+    """Train on random crops and flips, test on the center and corner crops
+    and their flips with the scores merged per source image. Returns
+    (scorer, evaluation, seconds): ``scorer`` ends at the block model's
+    scores; ``evaluation`` is the merged multiclass metrics."""
+    dev = device if device is not None else pick_device()
+    start = time.perf_counter()
+    X_train = train.data.to_array().to(dev, torch.float32)
+    X_test = test.data.to_array().to(dev, torch.float32)
+    t0 = clock()
+    filters, whitener = learn_filters(X_train, conf)
+    train_aug, y_aug = augment_train(X_train, train.labels.to_array().numpy(), conf)
+    labels = ClassLabelIndicators(NUM_CLASSES).forward(torch.from_numpy(y_aug).to(dev))
+    t_filters = clock()
+    sz = conf.augment_img_size
+    scorer = conv_featurizer(filters, whitener, conf, size=sz).and_then(
+        StandardScaler(), train_aug
+    ).and_then(
+        BlockLeastSquaresEstimator(4096, 1, conf.lam or 0.0), train_aug, labels,
+    )
+    fitted = scorer.fit()
+    t_fit = clock()
+    test_aug = CenterCornerPatcher(sz, sz, horizontal_flips=True).forward(X_test)
+    scores = fitted.apply(test_aug).to_array()
+    names = np.repeat(np.arange(len(test)), TEST_CROPS)
+    evaluation = AugmentedExamplesEvaluator(names.tolist(), NUM_CLASSES, "average").evaluate(
+        scores, np.repeat(test.labels.to_array().numpy(), TEST_CROPS))
+    if timings is not None:
+        featurize = fitted.seconds.get("featurize", 0.0)
+        timings.update(data=t0 - start, filters=t_filters - t0,
+                       optimize=fitted.seconds["optimize"], featurize=featurize,
+                       solve=t_fit - t_filters - fitted.seconds["optimize"] - featurize,
+                       apply=clock() - t_fit)
+    return scorer, evaluation, time.perf_counter() - start
 
 
 @dataclass
@@ -48,16 +200,6 @@ class KernelCifarConfig(RandomCifarConfig):
     block_size: int = 5000
     num_epochs: int = 1
     checkpoint_dir: Optional[str] = None
-
-
-def _featurizer(filters, whitener, conf: RandomCifarConfig) -> Pipeline:
-    return (
-        Convolver(filters, NROW, NROW, NCHAN, whitener=whitener,
-                  normalize_patches=True)
-        .and_then(SymmetricRectifier(alpha=conf.alpha))
-        .and_then(Pooler(conf.pool_stride, conf.pool_size, None, "sum"))
-        .and_then(ImageVectorizer())
-    )
 
 
 def run_random_patch_cifar_kernel(
@@ -80,7 +222,7 @@ def run_random_patch_cifar_kernel(
         train.labels.to_array().to(dev))
     filters, whitener = learn_filters(X_train, conf)
     t_filters = clock()
-    scorer = _featurizer(filters, whitener, conf).and_then(
+    scorer = conv_featurizer(filters, whitener, conf).and_then(
         StandardScaler(), X_train
     ).and_then(
         KernelRidgeRegression(
@@ -135,7 +277,7 @@ def fitted_from_arrays(params: Dict[str, np.ndarray], conf: RandomCifarConfig,
         return torch.tensor(np.asarray(params[name], np.float32), device=dev)
 
     whitener = ZCAWhitener(t("whitener"), t("means"))
-    head = _featurizer(t("filters"), whitener, conf).fit().and_then(
+    head = conv_featurizer(t("filters"), whitener, conf).fit().and_then(
         StandardScalerModel(t("scaler_mean"), t("scaler_std"))
     ).and_then(
         KernelBlockLinearMapper(t("train_X"), t("W"), float(params["gamma"]),
@@ -150,7 +292,8 @@ def fitted_from_arrays(params: Dict[str, np.ndarray], conf: RandomCifarConfig,
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser("CifarExtras")
-    p.add_argument("app", choices=["RandomPatchCifarKernel"])
+    p.add_argument("app", choices=["LinearPixels", "RandomCifar", "RandomPatchCifarAugmented",
+                                   "RandomPatchCifarKernel"])
     p.add_argument("--device", default=None,
                    help="torch device; CUDA unless 'cpu' is named")
     p.add_argument("--trainLocation", default=None)
@@ -174,17 +317,38 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def run_app(argv=None) -> dict:
-    """Parse the command line and run the application. Returns the train
-    and test errors, the total seconds, the per-phase seconds and the
-    fitted-once scorer pipeline."""
+    """Parse the command line and run the application named first. Returns
+    the test error, the total seconds and the per-phase seconds; the train
+    error and the pipeline (``scorer``, ``pipeline``) where the application
+    has them."""
     args = parse_args(argv)
     dev = pick_device(args.device)
-    if args.trainLocation:
-        train = load_cifar(args.trainLocation)
-        test = load_cifar(args.testLocation)
-    else:
-        train = synthetic_cifar(args.nTrain, seed=1)
-        test = synthetic_cifar(args.nTest, seed=2)
+    train, test = load_or_synthesize(args.trainLocation, args.testLocation,
+                                     args.nTrain, args.nTest)
+    phases: Dict[str, float] = {}
+    if args.app == "LinearPixels":
+        pipe, tr, te, secs = run_linear_pixels(train, test, args.lam, dev, phases)
+        return {"train_error": tr, "test_error": te, "seconds": secs, "phases": phases,
+                "pipeline": pipe}
+    if args.app == "RandomCifar":
+        conf = RandomCifarConfig(
+            num_filters=args.numFilters, patch_size=args.patchSize,
+            pool_size=args.poolSize, pool_stride=args.poolStride,
+            alpha=args.alpha, lam=args.lam,
+        )
+        pipe, tr, te, secs = run_random_cifar(train, test, conf, dev, phases)
+        return {"train_error": tr, "test_error": te, "seconds": secs, "phases": phases,
+                "pipeline": pipe}
+    if args.app == "RandomPatchCifarAugmented":
+        conf = AugmentedCifarConfig(
+            num_filters=args.numFilters, whitening_epsilon=args.whiteningEpsilon,
+            patch_size=args.patchSize, pool_size=args.poolSize,
+            pool_stride=args.poolStride, alpha=args.alpha, lam=args.lam,
+        )
+        scorer, evaluation, secs = run_random_patch_cifar_augmented(train, test, conf, dev,
+                                                                    phases)
+        return {"test_error": evaluation.total_error, "seconds": secs, "phases": phases,
+                "scorer": scorer, "evaluation": evaluation}
     conf = KernelCifarConfig(
         num_filters=args.numFilters,
         whitening_epsilon=args.whiteningEpsilon,
@@ -194,7 +358,6 @@ def run_app(argv=None) -> dict:
         num_epochs=args.numEpochs, cache_kernel=args.cacheKernel,
         checkpoint_dir=args.checkpointDir,
     )
-    phases: Dict[str, float] = {}
     scorer, tr, te, secs = run_random_patch_cifar_kernel(train, test, conf, dev, phases)
     return {"train_error": tr, "test_error": te, "seconds": secs,
             "phases": phases, "scorer": scorer}
@@ -202,7 +365,8 @@ def run_app(argv=None) -> dict:
 
 def main(argv=None) -> int:
     out = run_app(argv)
-    print(f"Training error is: {out['train_error']}\n"
-          f"Test error is: {out['test_error']}")
+    if "train_error" in out:
+        print(f"Training error is: {out['train_error']}")
+    print(f"Test error is: {out['test_error']}")
     print(f"Pipeline took {out['seconds']} s")
     return 0

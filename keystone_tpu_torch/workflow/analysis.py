@@ -54,23 +54,29 @@ def get_descendants(graph: Graph, gid: GraphId) -> Set[GraphId]:
 
 
 def linearize(graph: Graph) -> List[GraphId]:
-    """A topological order over sources, nodes, and sinks (dependencies first)."""
+    """A topological order over sources, nodes, and sinks (dependencies
+    first): the post-order of a depth-first walk from the sinks, then from
+    the nodes and sources no sink reaches.
+
+    The walk keeps its own stack: a recursive local function would refer
+    to itself and so make a reference cycle holding ``graph``, which frees
+    the graph's data leaves only when the garbage collector next runs."""
     order: List[GraphId] = []
     visited: Set[GraphId] = set()
-
-    def visit(gid: GraphId) -> None:
-        if gid in visited:
-            return
-        visited.add(gid)
-        for p in get_parents(graph, gid):
-            visit(p)
-        order.append(gid)
-
-    for sink in sorted(graph.sinks):
-        visit(sink)
-    # include disconnected nodes/sources too
-    for node in sorted(graph.nodes):
-        visit(node)
-    for source in sorted(graph.sources):
-        visit(source)
+    roots = [*sorted(graph.sinks), *sorted(graph.nodes), *sorted(graph.sources)]
+    for root in roots:
+        if root in visited:
+            continue
+        visited.add(root)
+        stack = [(root, iter(get_parents(graph, root)))]
+        while stack:
+            gid, parents = stack[-1]
+            for p in parents:
+                if p not in visited:
+                    visited.add(p)
+                    stack.append((p, iter(get_parents(graph, p))))
+                    break
+            else:
+                stack.pop()
+                order.append(gid)
     return order

@@ -4,14 +4,18 @@ operator (port of ``keystone_tpu/workflow/fusion.py``).
 The JAX package compiles each fused group to one XLA program, which keeps
 every intermediate on the device and frees it as the program goes. The
 counterpart here is one operator per group that runs its steps, when
-every step is row-local, over row chunks of :data:`ROW_CHUNK`: the large
-intermediates of a featurizer (a conv output of 14.6 GB for 50000 CIFAR
-images, 200 FFT branches of 24.6 GB for 60000 MNIST images) then never
-exist for the whole batch at once, and the chunk outputs are written into
-one output allocated at the first chunk. On CUDA each chunk (or the whole
-batch, for a group that is not row-local) is one replay of a CUDA graph
-captured per input signature (``cuda_graph.py``), as XLA compiles one
-program per shape; on the CPU the steps run eagerly.
+every step is row-local, over row chunks: the large intermediates of a
+featurizer (a conv output of 14.6 GB for 50000 CIFAR images, 200 FFT
+branches of 24.6 GB for 60000 MNIST images) then never exist for the
+whole batch at once, and the chunk outputs are written into one output
+allocated at the first chunk. A chunk is at most :data:`ROW_CHUNK` rows
+and at most :data:`CHUNK_BYTES` of live values (:func:`chunk_rows`): a row
+of dense SIFT descriptors of one 256² image is 12 MB, so an image
+featurizer's chunk is a few dozen rows where a CIFAR chunk is 2500. On
+CUDA each chunk (or the whole batch, for a group that is not row-local)
+is one replay of a CUDA graph captured per input signature
+(``cuda_graph.py``), as XLA compiles one program per shape; on the CPU the
+steps run eagerly.
 
 A node is traceable here when it is a ``TransformerOperator`` with a
 ``forward`` and no ``no_fuse`` mark, or a gather.
@@ -20,13 +24,13 @@ A node is traceable here when it is a ``TransformerOperator`` with a
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Any, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from ..data.dataset import Dataset, Payload, first_leaf, map_leaves
 from . import analysis
-from .cuda_graph import GraphCache
+from .cuda_graph import GraphCache, leaves, signature
 from .expressions import DatasetExpression, DatumExpression
 from .graph import Graph, NodeId
 from .operators import GatherTransformerOperator, TransformerOperator, structural_key
@@ -34,6 +38,12 @@ from .rules import Annotations, Rule
 
 #: rows per chunk when a fused group of row-local steps runs over a batch
 ROW_CHUNK = 2500
+
+#: bytes a chunk's live values may take: its inputs, the step outputs alive
+#: at once and the temporaries a step declares (``row_work_bytes``). CIFAR's
+#: (0.9 MB a row), MNIST's at 200 FFTs (0.8 MB) and TIMIT's at 50 branches
+#: (1.6 MB) stay at ROW_CHUNK rows under it
+CHUNK_BYTES = 4 << 30
 
 #: the CUDA graphs of fused groups, shared by every group of equal content
 #: on one device (the JAX package's ``_FUSED_JIT_CACHE``): each
@@ -63,14 +73,35 @@ def _copy_rows(out: Payload, part: Payload, start: int) -> None:
         out[start:start + part.shape[0]].copy_(part)
 
 
-def forward_in_row_chunks(forward, arrays: Sequence[Payload], n: int) -> Payload:
-    """``forward(*arrays)`` of a row-local function, run over row chunks of
-    :data:`ROW_CHUNK` and writing each chunk's output into one output
-    allocated at the first chunk (never a list of chunk outputs joined at
-    the end, which would hold the output twice)."""
+def payload_bytes(values: Sequence[Any]) -> int:
+    """Bytes of the tensors in ``values`` (payloads, tuples of them, or
+    None), each tensor counted once however often it appears."""
+    seen = set()
+    total = 0
+    for t in leaves([v for v in values if v is not None]):
+        key = (t.data_ptr(), t.numel())
+        if key not in seen:
+            seen.add(key)
+            total += t.numel() * t.element_size()
+    return total
+
+
+def chunk_rows(row_bytes: int) -> int:
+    """Rows of a chunk whose rows take ``row_bytes`` each: as many as fit
+    in :data:`CHUNK_BYTES`, at least one and at most :data:`ROW_CHUNK`."""
+    return max(1, min(ROW_CHUNK, CHUNK_BYTES // max(1, int(row_bytes))))
+
+
+def forward_in_row_chunks(forward, arrays: Sequence[Payload], n: int,
+                          rows: Optional[int] = None) -> Payload:
+    """``forward(*arrays)`` of a row-local function, run over chunks of
+    ``rows`` rows (:data:`ROW_CHUNK` by default) and writing each chunk's
+    output into one output allocated at the first chunk (never a list of
+    chunk outputs joined at the end, which would hold the output twice)."""
+    rows = ROW_CHUNK if rows is None else rows
     out = None
-    for s in range(0, n, ROW_CHUNK):
-        part = forward(*[_rows(a, s, s + ROW_CHUNK) for a in arrays])
+    for s in range(0, n, rows):
+        part = forward(*[_rows(a, s, s + rows) for a in arrays])
         if out is None:
             out = map_leaves(
                 lambda p: torch.empty((n,) + tuple(p.shape[1:]), dtype=p.dtype,
@@ -81,9 +112,12 @@ def forward_in_row_chunks(forward, arrays: Sequence[Payload], n: int) -> Payload
     return out
 
 
-def _run_steps(steps, last_use, xs: Sequence[Payload]) -> Payload:
+def _run_steps(steps, last_use, xs: Sequence[Payload], meter: Optional[list] = None) -> Payload:
     """A fused group's steps on its inputs ``xs``, each value dropped after
-    the last step that reads it."""
+    the last step that reads it. With ``meter`` (a one-element list), the
+    most bytes alive at once is kept in ``meter[0]``: after each step, the
+    live values plus what the step declares beyond its output
+    (``row_work_bytes``)."""
     values: List[Any] = list(xs)
     for k, (op, deps) in enumerate(steps):
         args = [values[i] for i in deps]
@@ -91,6 +125,10 @@ def _run_steps(steps, last_use, xs: Sequence[Payload]) -> Payload:
             values.append(tuple(args))
         else:
             values.append(op.forward(*args))
+        if meter is not None:
+            work = getattr(op, "row_work_bytes", None)
+            extra = max(0, work(*args) - payload_bytes([values[-1]])) if work else 0
+            meter[0] = max(meter[0], payload_bytes(values) + extra)
         del args
         for i in deps:
             if last_use[i] == k:
@@ -120,6 +158,8 @@ class FusedTransformerOperator(TransformerOperator):
         #: the CUDA graphs of this group, one per input signature; built at
         #: the first CUDA call (the counterpart of the JAX package's ``_jit``)
         self._graphs = None
+        #: bytes one row keeps alive, by the signature of one input row
+        self._row_bytes: Dict[tuple, int] = {}
 
     @property
     def label(self) -> str:
@@ -164,7 +204,38 @@ class FusedTransformerOperator(TransformerOperator):
             self._graphs = cache
         return self._graphs
 
+    def row_bytes(self, xs: Sequence[Payload]) -> int:
+        """The most bytes one row of ``xs`` keeps alive while the steps run,
+        measured once per input signature by running the steps on the
+        first row (eagerly, outside any CUDA graph)."""
+        one = [_rows(x, 0, 1) for x in xs]
+        sig = signature(tuple(one))
+        hit = self._row_bytes.get(sig)
+        if hit is None:
+            meter = [payload_bytes(one)]
+            with torch.no_grad():
+                _run_steps(self.steps, self.last_use, one, meter)
+            hit = self._row_bytes[sig] = meter[0]
+        return hit
+
+    def chunk_rows(self, xs: Sequence[Payload]) -> int:
+        """Rows per chunk of this group on ``xs``: the whole batch when the
+        group is not row-local, else :func:`chunk_rows` of its row bytes."""
+        n = int(first_leaf(xs[0]).shape[0])
+        if not self.row_local or n == 0:
+            return max(n, 1)
+        return chunk_rows(self.row_bytes(xs))
+
     def forward(self, *xs: Payload) -> Payload:
+        """The steps on ``xs``; a row-local group on more rows than
+        :meth:`chunk_rows` runs them chunk by chunk into one output, so a
+        whole-chain program (``FittedPipeline.compile``) holding this group
+        keeps its intermediates to a chunk as well."""
+        n = int(first_leaf(xs[0]).shape[0]) if xs else 0
+        rows = self.chunk_rows(xs) if xs else 1
+        if n > rows:
+            return forward_in_row_chunks(
+                lambda *c: _run_steps(self.steps, self.last_use, c), xs, n, rows)
         return _run_steps(self.steps, self.last_use, xs)
 
     # -- operator glue --------------------------------------------------
@@ -174,8 +245,10 @@ class FusedTransformerOperator(TransformerOperator):
         if all(ds.is_batched for ds in datasets):
             arrays = [ds.payload for ds in datasets]
             n = len(datasets[0])
-            chunked = (self.row_local and n > ROW_CHUNK
-                       and all(len(ds) == n for ds in datasets))
+            rows = n
+            if self.row_local and all(len(ds) == n for ds in datasets):
+                rows = self.chunk_rows(arrays)
+            chunked = n > rows
             lead = first_leaf(arrays[0])
             if lead.is_cuda:
                 graphs = self.graphs(lead.device)
@@ -183,10 +256,10 @@ class FusedTransformerOperator(TransformerOperator):
                 # replay: it is copied out before another thread replays
                 with graphs.lock:
                     if chunked:
-                        return Dataset(forward_in_row_chunks(graphs, arrays, n))
+                        return Dataset(forward_in_row_chunks(graphs, arrays, n, rows))
                     return Dataset(map_leaves(torch.clone, graphs(*arrays)))
             if chunked:
-                return Dataset(forward_in_row_chunks(self.forward, arrays, n))
+                return Dataset(forward_in_row_chunks(self.forward, arrays, n, rows))
             return Dataset(self.forward(*arrays))
         # item-list inputs: the per-op Dataset semantics the unfused graph
         # would have used

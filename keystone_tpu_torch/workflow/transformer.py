@@ -54,6 +54,14 @@ class Transformer(Chainable, TransformerOperator):
     #: output row i depends on input row i alone
     row_local: bool = False
 
+    def row_work_bytes(self, *rows: Any) -> int:
+        """Bytes that ``forward`` allocates for one row (``rows``: each
+        input cut to its first row): its output and its temporaries. 0, the
+        default, for nodes whose rows are small; a node with large rows
+        (image descriptors, posteriors) says how large, and the row chunks
+        it runs in are cut to fit ``fusion.CHUNK_BYTES``."""
+        return 0
+
     def apply(self, x: Any) -> Any:
         if self.forward is not None:
             return map_leaves(lambda t: t[0], self.forward(_one_row(x)))
@@ -66,9 +74,14 @@ class Transformer(Chainable, TransformerOperator):
             # fusion, such as the linear model after the featurizer) runs
             # in row chunks as a fused group would: its whole-batch
             # temporaries (X − μ of a 24.6 GB feature matrix) never exist.
-            if self.row_local and len(data) > fusion.ROW_CHUNK:
-                return Dataset(fusion.forward_in_row_chunks(
-                    self.forward, [data.payload], len(data)))
+            if self.row_local:
+                X = data.payload
+                one = map_leaves(lambda t: t[:1], X)
+                rows = fusion.chunk_rows(fusion.payload_bytes([one])
+                                         + self.row_work_bytes(one))
+                if len(data) > rows:
+                    return Dataset(fusion.forward_in_row_chunks(
+                        self.forward, [X], len(data), rows))
             return data.map_batch(self.forward)
         return data.map(self.apply)
 

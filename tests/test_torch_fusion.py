@@ -472,7 +472,7 @@ def test_cifar_plan_matches_jax():
     X = t_train.data.to_array()
     labels = ClassLabelIndicators(10).forward(t_train.labels.to_array())
     filters, whitener = learn_filters(X, conf_t)
-    t_pipe = tce._featurizer(filters, whitener, conf_t).and_then(StandardScaler(), X).and_then(
+    t_pipe = tce.conv_featurizer(filters, whitener, conf_t).and_then(StandardScaler(), X).and_then(
         KernelRidgeRegression(conf_t.gamma, conf_t.lam, conf_t.block_size, conf_t.num_epochs,
                               block_permuter=conf_t.seed, cache_kernel=False), X, labels
     ).and_then(MaxClassifier())
@@ -484,3 +484,95 @@ def test_cifar_plan_matches_jax():
     assert [cls for cls, _, _ in fitted_rows] == [
         "FusedTransformerOperator", "StandardScalerModel", "KernelBlockLinearMapper",
         "MaxClassifier"]
+
+
+# ---- row chunks bounded by bytes ------------------------------------------
+
+class _Widen(ttransformer.Transformer):
+    """Row-local: each (d,) row becomes ``width`` copies of itself, with a
+    declared temporary of the same size (a wide-row node, as SIFT is)."""
+
+    row_local = True
+
+    def __init__(self, width):
+        self.width = width
+
+    def forward(self, X):
+        return X.repeat(1, self.width) * 2.0
+
+    def row_work_bytes(self, x):
+        return 2 * 4 * x.shape[1] * self.width
+
+
+def test_a_group_of_wide_rows_is_chunked_under_the_byte_budget(monkeypatch):
+    """Rows of 12 MB (3 M floats): the chunk is cut to the budget, far
+    under ROW_CHUNK, and the chunked output equals the unchunked run."""
+    fitted = _Widen(3 * 2 ** 20 // 8).and_then(TMul(0.5)).fit()
+    (op,) = fitted.graph.operators.values()
+    assert isinstance(op, tfusion.FusedTransformerOperator) and op.row_local
+    X = torch.from_numpy(_x(9, 8, seed=2))
+    row = op.row_bytes([X])
+    assert row >= 2 * 12 * 2 ** 20  # the widened row with its temporary, then beside the output
+    monkeypatch.setattr(tfusion, "CHUNK_BYTES", 4 * row)
+    assert op.chunk_rows([X]) == 4
+    calls = []
+    forward = tfusion.FusedTransformerOperator.forward
+    monkeypatch.setattr(tfusion.FusedTransformerOperator, "forward",
+                        lambda self, *xs: calls.append(xs[0].shape[0]) or forward(self, *xs))
+    chunked = fitted.apply(X).to_array()
+    assert calls == [4, 4, 1]
+    torch.testing.assert_close(chunked, X.repeat(1, 3 * 2 ** 20 // 8), rtol=0, atol=0)
+    # a chunk's live bytes stay under the budget
+    assert 4 * row <= tfusion.CHUNK_BYTES
+
+
+def test_the_cifar_and_mnist_chunk_plans_are_unchanged():
+    """At full width both fused featurizers keep ROW_CHUNK rows a chunk:
+    CIFAR's 100 filters on 32² images (0.87 MB a row alive) and MNIST's 200
+    FFT branches (0.82 MB)."""
+    conf = tce.KernelCifarConfig()
+    filters = torch.from_numpy(_x(100, 108, seed=3))
+    cifar = tce.conv_featurizer(filters, None, conf).fit()
+    mnist = tm.build_featurizer(tm.MnistRandomFFTConfig(num_ffts=200), "cpu").fit()
+    for fitted, X in ((cifar, torch.zeros(5, 32, 32, 3)), (mnist, torch.zeros(5, 784))):
+        (op,) = fitted.graph.operators.values()
+        assert isinstance(op, tfusion.FusedTransformerOperator)
+        assert op.row_bytes([X]) * tfusion.ROW_CHUNK <= tfusion.CHUNK_BYTES
+        assert op.chunk_rows([X]) == tfusion.ROW_CHUNK == 2500
+    assert [op.label for op, _ in next(iter(cifar.graph.operators.values())).steps] == [
+        "Convolver", "SymmetricRectifier", "Pooler", "ImageVectorizer"]
+
+
+def test_chunk_signatures_are_one_per_chunk_shape(monkeypatch):
+    """The callable a group's chunks go through on CUDA (its graph cache)
+    sees one input signature per chunk shape: the full chunk and the tail."""
+    from keystone_tpu_torch.workflow.cuda_graph import signature
+
+    fitted = _Widen(1000).and_then(TMul(3.0)).fit()
+    (op,) = fitted.graph.operators.values()
+    X = torch.from_numpy(_x(23, 6, seed=5))
+    monkeypatch.setattr(tfusion, "CHUNK_BYTES", 5 * op.row_bytes([X]))
+    rows = op.chunk_rows([X])
+    seen = []
+
+    def graphs(*xs):
+        seen.append(signature(xs))
+        return op.forward(*xs)
+
+    out = tfusion.forward_in_row_chunks(graphs, [X], 23, rows)
+    assert rows == 5 and len(seen) == 5 and len(set(seen)) == 2
+    assert set(seen) == {(((5, 6), "float32"),), (((3, 6), "float32"),)}
+    torch.testing.assert_close(out, op.forward(X), rtol=0, atol=0)
+
+
+def test_an_unfused_wide_row_node_is_chunked_by_its_declared_bytes(monkeypatch):
+    node = _Widen(64)
+    fitted = node.to_pipeline().fit()
+    X = torch.from_numpy(_x(10, 4, seed=6))
+    per_row = 4 * 4 + node.row_work_bytes(X[:1])
+    monkeypatch.setattr(tfusion, "CHUNK_BYTES", 3 * per_row)
+    calls = []
+    forward = _Widen.forward
+    monkeypatch.setattr(_Widen, "forward", lambda self, X: calls.append(X.shape[0]) or forward(self, X))
+    torch.testing.assert_close(fitted.apply(X).to_array(), X.repeat(1, 64) * 2.0, rtol=0, atol=0)
+    assert calls == [3, 3, 3, 1]

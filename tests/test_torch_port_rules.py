@@ -75,3 +75,16 @@ def test_mnist_cli_without_device_cpu_does_not_run_on_the_cpu():
     assert proc.returncode != 0
     assert "CUDA is not available" in proc.stderr
     assert "Error is" not in proc.stdout
+
+
+@pytest.mark.parametrize("app", ["RandomPatchCifar", "LinearPixels", "RandomCifar",
+                                 "RandomPatchCifarAugmented"])
+def test_cifar_family_clis_without_device_cpu_do_not_run_on_the_cpu(app):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run(
+        [sys.executable, "-m", "keystone_tpu_torch", app, "--nTrain", "16", "--nTest", "8"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode != 0
+    assert "CUDA is not available" in proc.stderr
+    assert "error is" not in proc.stdout
