@@ -35,8 +35,15 @@ VOCSIFTFisher: small on the card against the CPU through the load path,
 the command line's defaults, and full width (dense SIFT of 2000 / 1000
 synthetic 256² images, 23,599 descriptors each, PCA to 80, a 256-centre
 GMM, Fisher vectors of 40,960) with its peak memory and per-phase
-seconds. Each phase prints one JSON line; any failure raises and exits
-non-zero. The last line is
+seconds. Last, ImageNetSiftLcsFV: DAISY, HOG and LCS against the CPU; small
+on the card against the CPU through the load path; the command line's
+defaults; the calibrated 100-class row at 224² against its Bayes error and
+raw pixels (the weighted solver's dual path); and the reference's widths
+(1000 classes, descDim 64, vocabSize 16, λ 6e-5) on 5000 / 1000 synthetic
+256² images (the dense path, 125 class chunks, FVs of 4096) with its peak
+memory and the solver's phases; after each of the last two, the weighted
+solve is held against a float64 per-class solve. Each phase prints one
+JSON line; any failure raises and exits non-zero. The last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card it exits non-zero
 and prints no result.
 """
@@ -107,6 +114,23 @@ VOC_TRAIN, VOC_TEST, VOC_SIZE = 2000, 1000, 256
 VOC_DESCRIPTORS = 6561 + 6084 + 5625 + 5329  # steps of 3, bins 4/6/8/10 on 256²
 VOC_DESC_DIM, VOC_VOCAB = 80, 256
 VOC_PEAK_LIMIT = 60e9
+
+# ImageNetSiftLcsFV at the reference's widths (1000 classes, descDim 64,
+# vocabSize 16, λ 6e-5, SIFT scale step 1, LCS (4, 16, 6), one weighted
+# block of 4096) on 256² images: 1.28 M images cut to 5000 / 1000, the
+# fewest that take the dense path (n + 3 ≥ d), 1e7 samples to 1e6
+IN_TRAIN, IN_TEST, IN_SIZE, IN_CLASSES = 5000, 1000, 256, 1000
+IN_SIFT, IN_LCS = 13436, 3136  # descriptors per 256² image
+IN_FV = 2 * 2 * 64 * 16
+IN_CHUNKS = IN_CLASSES // 8  # the dense path's chunks of 8 classes
+IN_PEAK_LIMIT = 64e9
+IN_TOP5_LIMIT = 95.0  # chance is 99.5 %: breakage only
+# the calibrated quality row (bench.py's): 100 classes at 224², its Bayes
+# error known; 1000 test images, not 128, so that top-1 is steady
+IN_QUALITY = dict(num_classes=100, size=224, theta_sigma=0.09, logf_sigma=0.030, n_theta=5,
+                  f_range=(0.06, 0.45))
+IN_QUALITY_TRAIN, IN_QUALITY_TEST = 1000, 1000
+SOLVE_CHECK_CLASSES, SOLVE_CHECK_AGREEMENT = 8, 0.95
 
 
 def emit(obj: dict) -> None:
@@ -655,6 +679,291 @@ def voc_phases(cli, dev, card) -> int:
     return launches
 
 
+def _top5_rows(scores):
+    """Rows whose 5th and 6th largest scores are more than 1e-4 of the
+    largest magnitude apart: there the top-5 set is not decided by rounding."""
+    s = torch.sort(scores, dim=1, descending=True).values
+    return (s[:, 4] - s[:, 5]) > 1e-4 * scores.abs().max()
+
+
+def weighted_solve_check(fitted, X_train, labels, X_test, scores, conf, label, card) -> None:
+    """The exact per-class weighted ridge in float64 on the card for the
+    first classes, from the fit's own training Fisher vectors (with one block
+    and one iteration the block update is that system), against the fitted
+    scores of the test images: argmax agreement over those classes and the
+    largest deviation of the scores relative to their largest magnitude."""
+    from keystone_tpu_torch.nodes.learning import weighted
+    from keystone_tpu_torch.pipelines import imagenet_sift_lcs_fv as imagenet
+
+    featurizer = imagenet.featurizer_of(fitted)
+    F_train = featurizer.apply(X_train).to_array().double()
+    F_test = featurizer.apply(X_test).to_array().double()
+    k, w = conf.num_classes, conf.mixture_weight
+    Y = 2.0 * torch.nn.functional.one_hot(torch.as_tensor(labels, device=F_train.device).long(),
+                                          k).double() - 1.0
+    n = F_train.shape[0]
+    y_idx, counts, label_mean, means = weighted._joint_weighted_stats(F_train, Y, w)
+    eye = torch.eye(F_train.shape[1], dtype=torch.float64, device=F_train.device)
+    cols = []
+    t0 = time.perf_counter()
+    for c in range(SOLVE_CHECK_CLASSES):
+        b = weighted._class_sample_weights(y_idx, counts, c, w, n)
+        Xc = F_train - means[c]
+        cols.append(torch.linalg.solve(Xc.T @ (Xc * b[:, None]) + conf.lam * eye,
+                                       Xc.T @ ((Y[:, c] - label_mean[c]) * b)))
+    W = torch.stack(cols, dim=1)
+    exact = F_test @ W + (label_mean[:SOLVE_CHECK_CLASSES]
+                          - torch.einsum("cd,dc->c", means[:SOLVE_CHECK_CLASSES], W))
+    torch.cuda.synchronize()
+    got = scores[:, :SOLVE_CHECK_CLASSES].double()
+    agreement = (got.argmax(1) == exact.argmax(1)).double().mean().item()
+    deviation = ((got - exact).abs().max() / exact.abs().max()).item()
+    emit({"phase": "imagenet_solve_check", "run": label, "classes": SOLVE_CHECK_CLASSES,
+          "train": n, "test": F_test.shape[0], "fv_width": F_train.shape[1],
+          "argmax_agreement": agreement, "agreement_limit": SOLVE_CHECK_AGREEMENT,
+          "max_rel_dev": deviation, "f64_seconds": time.perf_counter() - t0, "card": card})
+    check(agreement >= SOLVE_CHECK_AGREEMENT,
+          f"{label}: argmax agreement {agreement} with the float64 per-class solve")
+
+
+def imagenet_phases(cli, dev, card) -> dict:
+    """ImageNetSiftLcsFV: DAISY, HOG and LCS on the card against the CPU;
+    small through the load path on the card against the CPU; the command
+    line's defaults; the calibrated quality row (dual path) and the
+    reference's widths (dense path), each with a float64 check of its
+    weighted solve. Returns the K1 launches of each path (none reaches K1)."""
+    import tempfile
+
+    import numpy as np
+
+    from keystone_tpu_torch.linalg import bcd
+    from keystone_tpu_torch.data.dataset import Dataset
+    from keystone_tpu_torch.nodes.images.core import GrayScaler, PixelScaler
+    from keystone_tpu_torch.nodes.images.daisy import DaisyExtractor
+    from keystone_tpu_torch.nodes.images.sift import SIFTExtractor
+    from keystone_tpu_torch.nodes.learning.gmm import GaussianMixtureModel
+    from keystone_tpu_torch.nodes.stats import SignedHellingerMapper
+    from keystone_tpu_torch.nodes.images.hog import HogExtractor
+    from keystone_tpu_torch.nodes.images.lcs import LCSExtractor
+    from keystone_tpu_torch.nodes.learning.lbfgs import LocalLeastSquaresEstimator
+    from keystone_tpu_torch.nodes.util import ClassLabelIndicators
+    from keystone_tpu_torch.ops import gaussian_kernel as gk
+    from keystone_tpu_torch.pipelines import imagenet_sift_lcs_fv as imagenet
+    from keystone_tpu_torch.utils import timing
+
+    cpu = torch.device("cpu")
+    launches = {}
+
+    # -- the descriptors on 16 seeded 256² images, the card against the CPU
+    gk.gaussian_kernel_block.launches = 0
+    imgs = torch.from_numpy(imagenet.synthetic_imagenet(16, 16, size=256, seed=3)[0]).float()
+    rows = []
+    for node, X in ((DaisyExtractor(), imgs[..., :1] / 255.0), (HogExtractor(8), imgs),
+                    (LCSExtractor(4, 16, 6), imgs)):
+        want = node.forward(X)
+        Xd = X.to(dev)
+        got = node.forward(Xd)
+        err = ((got.cpu() - want).abs().max() / want.abs().max()).item()
+        rows.append({"node": type(node).__name__, "shape": list(want.shape),
+                     "max_rel_dev": err, "ms": time_ms(lambda: node.forward(Xd), reps=3)})
+        check(err <= 1e-4, f"{type(node).__name__} on the card is {err} (relative) off the CPU")
+    emit({"phase": "image_descriptors", "images": 16, "size": 256, "limit": 1e-4,
+          "nodes": rows, "card": card})
+    launches["image_descriptors"] = gk.gaussian_kernel_block.launches
+
+    # -- small: each branch's PCA and GMM fitted once on the CPU, loaded
+    # through the CLI's CSV files on the card and on the CPU
+    gk.gaussian_kernel_block.launches = 0
+    tr_i, tr_l = imagenet.synthetic_imagenet(96, 16, size=48, seed=1)
+    te_i, te_l = imagenet.synthetic_imagenet(48, 16, size=48, seed=2)
+    small = dict(desc_dim=16, vocab_size=4, num_classes=16, lam=1e-4)
+    fresh_env()
+    fit_details = {}
+    imagenet.run(tr_i, tr_l, te_i, te_l, imagenet.ImageNetSiftLcsFVConfig(
+        num_pca_samples=20_000, num_gmm_samples=20_000, **small), cpu, fit_details)
+    out = {}
+    X = torch.from_numpy(te_i)
+    sift = PixelScaler().and_then(GrayScaler()).and_then(SIFTExtractor(scale_step=1)).fit()
+    with tempfile.TemporaryDirectory() as folder:
+        files = imagenet.write_codebooks(fit_details["codebooks"], folder)
+        for name, where in (("cuda", dev), ("cpu", cpu)):
+            fresh_env()
+            details = {}
+            _, err, _ = imagenet.run(tr_i, tr_l, te_i, te_l,
+                                     imagenet.ImageNetSiftLcsFVConfig(**small, **files), where,
+                                     details)
+            out[name] = dict(err=err, scores=details["scores"].cpu(), top5=details["top5"].cpu(),
+                             codebooks=details["codebooks"], sift=sift.apply(
+                                 X.to(where)).to_array().cpu(),
+                             fv=imagenet.featurizer_of(details["fitted"]).apply(
+                                 X.to(where)).to_array().cpu())
+    # SIFT quantizes: a last-bit difference before the quantization is a
+    # step of one after it, and moves that descriptor's Fisher vector. So
+    # the SIFT half is held on the CPU's descriptors, the steps counted
+    steps = (out["cuda"]["sift"] - out["cpu"]["sift"]).abs()
+    step_share = (steps > 0).double().mean().item()
+    descs = SignedHellingerMapper().forward(out["cpu"]["sift"])
+    book = out["cpu"]["codebooks"]["sift"]
+    tails = {name: imagenet.codebook_tail(book["pca_mat"].to(where), GaussianMixtureModel(
+        book["gmm"].means.to(where), book["gmm"].variances.to(where),
+        book["gmm"].weights.to(where))).fit().apply(descs.to(where)).to_array().cpu()
+        for name, where in (("cuda", dev), ("cpu", cpu))}
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    half = out["cpu"]["fv"].shape[1] // 2
+    sift_fv_rel = rel(tails["cuda"], tails["cpu"])
+    lcs_fv_rel = rel(out["cuda"]["fv"][:, half:], out["cpu"]["fv"][:, half:])
+    fv_rel = rel(out["cuda"]["fv"], out["cpu"]["fv"])
+    score_rel = rel(out["cuda"]["scores"], out["cpu"]["scores"])
+    sep = _top5_rows(out["cpu"]["scores"])
+    top5_equal = bool(torch.equal(out["cuda"]["top5"][sep], out["cpu"]["top5"][sep]))
+    emit({"phase": "imagenet_small_vs_cpu", "train": 96, "test": 48, "size": 48, **small,
+          "fv_shape": list(out["cpu"]["fv"].shape), "sift_max_step": steps.max().item(),
+          "sift_step_share": step_share, "sift_step_share_limit": 1e-3,
+          "sift_fv_max_rel_dev_same_descriptors": sift_fv_rel, "lcs_fv_max_rel_dev": lcs_fv_rel,
+          "fv_limit": 1e-3, "fv_max_rel_dev_whole": fv_rel,
+          "images_with_a_sift_step": int((steps.flatten(1) > 0).any(dim=1).sum()),
+          "score_max_rel_dev": score_rel, "score_limit": 1e-3,
+          "top5_rows_compared": int(sep.sum()), "top5_equal": top5_equal,
+          "top5_error_cuda": out["cuda"]["err"], "top5_error_cpu": out["cpu"]["err"],
+          "card": card})
+    check(steps.max().item() <= 1 and step_share <= 1e-3,
+          f"SIFT on the card: steps up to {steps.max().item()}, {step_share} of entries")
+    check(sift_fv_rel <= 1e-3, f"SIFT-branch Fisher vectors on the card are {sift_fv_rel} off")
+    check(lcs_fv_rel <= 1e-3, f"LCS-branch Fisher vectors on the card are {lcs_fv_rel} off")
+    check(score_rel <= 1e-3, f"ImageNet scores on the card are {score_rel} (relative) off")
+    check(top5_equal, "ImageNet top-5 on the card differs from the CPU's")
+    launches["imagenet_small_vs_cpu"] = gk.gaussian_kernel_block.launches
+    del out, fit_details
+
+    # -- the command line's defaults: 256 / 64 synthetic 64-px images, 16
+    # classes, descDim 64, vocabSize 16 (the dual path)
+    gk.gaussian_kernel_block.launches = 0
+    res = cli_run(cli, bcd, ["ImageNetSiftLcsFV"])
+    details = res["details"]
+    scores = details["scores"]
+    emit({"phase": "imagenet_cli", "args": ["ImageNetSiftLcsFV"],
+          "top5_error": res["top5_error"], "seconds": res["seconds"],
+          "phase_seconds": res["phases"], "descriptors": details["descriptors"],
+          "fv_width": details["fv_width"], "solver_path": details["solver_path"],
+          "class_chunks": details["class_chunks"], "block_steps": details["block_steps"],
+          "pca_choice": details["pca_choice"], "em_iterations": details["em_iterations"],
+          "peak_mem_gb": res["peak_mem_bytes"] / 1e9, "card": card})
+    check(bool(torch.isfinite(scores).all()) and tuple(details["top5"].shape) == (64, 5),
+          f"ImageNet CLI: scores finite {bool(torch.isfinite(scores).all())}, top-5 shape "
+          f"{tuple(details['top5'].shape)}")
+    check(details["solver_path"] == "dual", f"ImageNet CLI took the {details['solver_path']} path")
+    launches["imagenet_cli"] = gk.gaussian_kernel_block.launches
+    del res, details, scores
+
+    # -- the calibrated quality row: 100 classes at 224², dual path
+    gk.gaussian_kernel_block.launches = 0
+    t0 = time.perf_counter()
+    tr_i, tr_l, bayes = imagenet.synthetic_gradient_imagenet(IN_QUALITY_TRAIN, seed=1,
+                                                             **IN_QUALITY)
+    te_i, te_l, _ = imagenet.synthetic_gradient_imagenet(IN_QUALITY_TEST, seed=9, **IN_QUALITY)
+    draw_seconds = time.perf_counter() - t0
+    conf = imagenet.ImageNetSiftLcsFVConfig(desc_dim=64, vocab_size=16,
+                                            num_pca_samples=200_000, num_gmm_samples=200_000,
+                                            num_classes=IN_QUALITY["num_classes"], lam=1e-4)
+    fresh_env()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    details = {}
+    timing.reset()
+    timing.enable()
+    try:
+        fitted, top5_err, seconds = imagenet.run(tr_i, tr_l, te_i, te_l, conf, dev, details)
+    finally:
+        timing.enable(False)
+    solver_phases = timing.snapshot("wls.")
+    top1 = 100.0 * float((details["top5"][:, 0].cpu().numpy() != te_l).mean())
+    Xtr = torch.from_numpy(tr_i).to(dev).reshape(len(tr_i), -1).float() / 255.0
+    Xte = torch.from_numpy(te_i).to(dev).reshape(len(te_i), -1).float() / 255.0
+    Y = ClassLabelIndicators(conf.num_classes).forward(torch.from_numpy(tr_l).to(dev))
+    raw = LocalLeastSquaresEstimator(lam=10.0).fit(Dataset.of(Xtr), Dataset.of(Y))
+    raw_err = 100.0 * float((raw.forward(Xte).argmax(1).cpu().numpy() != te_l).mean())
+    del raw, Xtr, Xte, Y
+    emit({"phase": "imagenet_quality", "train": IN_QUALITY_TRAIN, "test": IN_QUALITY_TEST,
+          **{k: v for k, v in IN_QUALITY.items() if k != "f_range"},
+          "f_range": list(IN_QUALITY["f_range"]), "desc_dim": 64, "vocab_size": 16,
+          "samples": 200_000, "lambda": 1e-4, "top1_error": top1, "bayes_top1_error": bayes,
+          "top1_band": [0.5 * bayes, 3.0 * bayes], "top5_error": top5_err,
+          "raw_pixel_top1_error": raw_err, "seconds": seconds,
+          "phase_seconds": details["phases"], "solver_phases": solver_phases,
+          "host_draw_seconds": draw_seconds,
+          "descriptors": details["descriptors"], "fv_width": details["fv_width"],
+          "solver_path": details["solver_path"], "class_chunks": details["class_chunks"],
+          "block_steps": details["block_steps"], "pca_choice": details["pca_choice"],
+          "em_iterations": details["em_iterations"],
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": card})
+    check(0.5 * bayes <= top1 <= 3.0 * bayes,
+          f"quality: top-1 {top1} % is outside [0.5, 3] × the Bayes error {bayes} %")
+    check(raw_err > 50.0 and raw_err > 2 * top1,
+          f"quality: raw pixels err {raw_err} % against top-1 {top1} %")
+    check(details["solver_path"] == "dual", f"quality took the {details['solver_path']} path")
+    launches["imagenet_quality"] = gk.gaussian_kernel_block.launches
+    weighted_solve_check(fitted, torch.from_numpy(tr_i).to(dev), tr_l,
+                         torch.from_numpy(te_i).to(dev), details["scores"], conf, "quality", card)
+    del fitted, details, tr_i, te_i
+
+    # -- the reference's widths on 5000 / 1000 images of 256² (dense path)
+    gk.gaussian_kernel_block.launches = 0
+    t0 = time.perf_counter()
+    tr_i, tr_l = imagenet.synthetic_imagenet(IN_TRAIN, IN_CLASSES, size=IN_SIZE, seed=1)
+    te_i, te_l = imagenet.synthetic_imagenet(IN_TEST, IN_CLASSES, size=IN_SIZE, seed=2)
+    draw_seconds = time.perf_counter() - t0
+    conf = imagenet.ImageNetSiftLcsFVConfig(num_pca_samples=1_000_000,
+                                            num_gmm_samples=1_000_000, num_classes=IN_CLASSES)
+    fresh_env()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    details = {}
+    timing.reset()
+    timing.enable()  # each phase of the weighted solve synchronizes at its end
+    try:
+        fitted, top5_err, seconds = imagenet.run(tr_i, tr_l, te_i, te_l, conf, dev, details)
+    finally:
+        timing.enable(False)
+    solver_phases = timing.snapshot("wls.")
+    peak = torch.cuda.max_memory_allocated()
+    stacks = IN_TRAIN * 4 * (128 * IN_SIFT + 96 * IN_LCS)
+    # one LU of each class's 4096² system, (2/3)·d³ operations, at the FP32 peak
+    lu_bound = IN_CLASSES * (2.0 / 3.0) * IN_FV ** 3 / FP32_FLOPS
+    emit({"phase": "imagenet_full_width", "train": IN_TRAIN, "test": IN_TEST, "size": IN_SIZE,
+          "classes": IN_CLASSES, "desc_dim": conf.desc_dim, "vocab_size": conf.vocab_size,
+          "lambda": conf.lam, "mixture_weight": conf.mixture_weight, "samples": 1_000_000,
+          "top5_error": top5_err, "top5_limit": IN_TOP5_LIMIT, "seconds": seconds,
+          "fit_seconds": details["fit_seconds"], "phase_seconds": details["phases"],
+          "solver_phases": solver_phases, "lu_bound_seconds": lu_bound,
+          "host_draw_seconds": draw_seconds, "descriptors": details["descriptors"],
+          "fv_width": details["fv_width"], "solver_path": details["solver_path"],
+          "class_chunks": details["class_chunks"], "block_steps": details["block_steps"],
+          "pca_choice": details["pca_choice"], "em_iterations": details["em_iterations"],
+          "peak_mem_gb": peak / 1e9,
+          "peak_gb_by_phase_end": {k: v / 1e9 for k, v in details["peak_bytes"].items()},
+          "cached_stacks_gb": stacks / 1e9, "peak_limit_gb": IN_PEAK_LIMIT / 1e9,
+          "card": card})
+    check(details["descriptors"] == {"sift": IN_SIFT, "lcs": IN_LCS},
+          f"descriptors per image {details['descriptors']}, want {IN_SIFT} and {IN_LCS}")
+    check(details["fv_width"] == IN_FV, f"FV width {details['fv_width']}, want {IN_FV}")
+    check(details["solver_path"] == "dense", f"full width took the {details['solver_path']} path")
+    check(details["class_chunks"] == IN_CHUNKS,
+          f"{details['class_chunks']} class chunks, want {IN_CHUNKS}")
+    check(details["block_steps"] == 1, f"{details['block_steps']} weighted block steps, want 1")
+    check(peak < IN_PEAK_LIMIT, f"peak memory {peak} B is not below {IN_PEAK_LIMIT} B")
+    check(top5_err < IN_TOP5_LIMIT, f"top-5 error {top5_err} % is not below {IN_TOP5_LIMIT} %")
+    launches["imagenet_full_width"] = gk.gaussian_kernel_block.launches
+    check(all(v == 0 for v in launches.values()),
+          f"ImageNetSiftLcsFV launched K1 {launches}; its paths have none")
+    weighted_solve_check(fitted, torch.from_numpy(tr_i).to(dev), tr_l,
+                         torch.from_numpy(te_i).to(dev), details["scores"], conf, "full_width",
+                         card)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1082,6 +1391,7 @@ def main() -> int:
     ls_family_phase(dev, card)
     cifar_family_k1 = cifar_family_phases(cli, dev, card)
     voc_k1 = voc_phases(cli, dev, card)
+    imagenet_k1 = imagenet_phases(cli, dev, card)
 
     emit({"phase": "total", "seconds": time.perf_counter() - started, "card": card})
     fit = timings["fit"]
@@ -1094,7 +1404,7 @@ def main() -> int:
         "bound_by": fit["bound_by"], "library_ms": fit["library_ms"],
         "launches_by_path": {"slice": launches, "compiled_cifar": compiled_launches,
                              "krr_family": krr_launches, "timit_full_width": timit_k1,
-                             "cifar_family": cifar_family_k1, "voc": voc_k1},
+                             "cifar_family": cifar_family_k1, "voc": voc_k1, **imagenet_k1},
     }]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

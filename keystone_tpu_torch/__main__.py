@@ -1,9 +1,9 @@
 """Command line: ``python -m keystone_tpu_torch <App> [--device cpu] ...``.
 
-The port runs eight of the JAX package's twelve applications, with the
+The port runs nine of the JAX package's twelve applications, with the
 flags of its CLI: the CIFAR family (RandomPatchCifar, LinearPixels,
 RandomCifar, RandomPatchCifarAugmented, RandomPatchCifarKernel),
-MnistRandomFFT, TimitPipeline and VOCSIFTFisher. It runs on CUDA unless
+MnistRandomFFT, TimitPipeline, VOCSIFTFisher and ImageNetSiftLcsFV. It runs on CUDA unless
 ``--device cpu`` is given.
 """
 
@@ -11,7 +11,14 @@ from __future__ import annotations
 
 import sys
 
-from .pipelines import cifar_extras, mnist_random_fft, random_patch_cifar, timit, voc_sift_fisher
+from .pipelines import (
+    cifar_extras,
+    imagenet_sift_lcs_fv,
+    mnist_random_fft,
+    random_patch_cifar,
+    timit,
+    voc_sift_fisher,
+)
 
 #: application name → (runner returning a result dict, CLI main)
 PIPELINES = {
@@ -23,6 +30,7 @@ PIPELINES = {
     "MnistRandomFFT": (mnist_random_fft.run_app, mnist_random_fft.main),
     "TimitPipeline": (timit.run_app, timit.main),
     "VOCSIFTFisher": (voc_sift_fisher.run_app, voc_sift_fisher.main),
+    "ImageNetSiftLcsFV": (imagenet_sift_lcs_fv.run_app, imagenet_sift_lcs_fv.main),
 }
 
 

@@ -167,16 +167,24 @@ class GaussianMixtureModelEstimator(Estimator):
     def initial(self, X: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """(means, variances, weights) before EM, (k, d), (k, d), (k,):
         the moments of a one-round k-means++ clustering, or the reference's
-        random initialisation (numpy draws)."""
+        random initialisation (numpy draws).
+
+        The round's Lloyd step can leave a cluster with no point, where the
+        JAX package divides by its zero mass and EM runs on NaNs. Such a
+        cluster starts here at its k-means center with the variance floor
+        and a mass of one point; every other cluster starts as in JAX."""
         n, d = X.shape
         k = self.k
         if self.initialization_method == KMEANS_PLUS_PLUS_INITIALIZATION:
             km = KMeansPlusPlusEstimator(k, 1, seed=self.seed).fit_matrix(X)
             assign = km.forward(X)
             mass = torch.sum(assign, dim=0)
-            means = (assign.T @ X) / mass[:, None]
-            variances = (assign.T @ (X * X)) / mass[:, None] - means * means
-            return means, variances, mass / n
+            filled = (mass > 0)[:, None]
+            safe = torch.clamp_min(mass, 1.0)
+            means = torch.where(filled, (assign.T @ X) / safe[:, None], km.means)
+            variances = torch.where(filled, (assign.T @ (X * X)) / safe[:, None] - means * means,
+                                    self.var_floor(X))
+            return means, variances, safe / n
         rng = np.random.default_rng(self.seed)
         col_min = X.min(dim=0).values
         col_range = X.max(dim=0).values - col_min

@@ -1,12 +1,17 @@
 from .core import (
     Cacher,
     ClassLabelIndicators,
+    DoubleToFloat,
+    FloatToDouble,
     MatrixVectorizer,
     MaxClassifier,
     MultiClassLabelIndicators,
+    Shuffler,
+    TopKClassifier,
     VectorCombiner,
     VectorSplitter,
 )
 
-__all__ = ["Cacher", "ClassLabelIndicators", "MatrixVectorizer", "MaxClassifier",
-           "MultiClassLabelIndicators", "VectorCombiner", "VectorSplitter"]
+__all__ = ["Cacher", "ClassLabelIndicators", "DoubleToFloat", "FloatToDouble",
+           "MatrixVectorizer", "MaxClassifier", "MultiClassLabelIndicators", "Shuffler",
+           "TopKClassifier", "VectorCombiner", "VectorSplitter"]

@@ -1,6 +1,7 @@
 """Glue nodes (port of ``ClassLabelIndicators``,
-``MultiClassLabelIndicators``, ``MaxClassifier``, ``VectorCombiner``,
-``VectorSplitter``, ``Cacher`` and ``MatrixVectorizer`` from
+``MultiClassLabelIndicators``, ``MaxClassifier``, ``TopKClassifier``,
+``VectorCombiner``, ``VectorSplitter``, ``Cacher``, ``Shuffler``,
+``FloatToDouble``, ``DoubleToFloat`` and ``MatrixVectorizer`` from
 ``keystone_tpu/nodes/util/core.py``)."""
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ...data.dataset import Dataset
+from ...data.dataset import Dataset, map_leaves
 from ...workflow.transformer import Transformer
 
 
@@ -52,6 +53,21 @@ class MaxClassifier(Transformer):
 
     def forward(self, X: torch.Tensor) -> torch.Tensor:
         return torch.argmax(X, dim=-1)
+
+
+class TopKClassifier(Transformer):
+    """Indices of the k largest scores, largest first. Ties go to the lower
+    index, as ``jax.lax.top_k`` breaks them: ``torch.topk`` promises no
+    order among ties, so this takes the first k of a stable descending
+    sort."""
+
+    row_local = True
+
+    def __init__(self, k: int):
+        self.k = k
+
+    def forward(self, X: torch.Tensor) -> torch.Tensor:
+        return torch.sort(X, dim=-1, descending=True, stable=True).indices[..., :self.k]
 
 
 class VectorCombiner(Transformer):
@@ -102,6 +118,44 @@ class Cacher(Transformer):
 
     def apply_batch(self, data) -> Dataset:
         return Dataset.of(data).cache()
+
+
+class Shuffler(Transformer):
+    """Permute the rows by ``numpy.random.default_rng(seed).permutation``,
+    the JAX package's draw, so one seed gives one order in both."""
+
+    def __init__(self, seed: int = 42):
+        self.seed = seed
+
+    def apply(self, x):
+        return x
+
+    def apply_batch(self, data) -> Dataset:
+        data = Dataset.of(data)
+        perm = np.random.default_rng(self.seed).permutation(len(data))
+        if data.is_batched:
+            return Dataset(map_leaves(lambda t: t[torch.from_numpy(perm).to(t.device)],
+                                      data.payload))
+        items = data.collect()
+        return Dataset.from_items([items[i] for i in perm])
+
+
+class FloatToDouble(Transformer):
+    """Widen to float64."""
+
+    row_local = True
+
+    def forward(self, X: torch.Tensor) -> torch.Tensor:
+        return X.double()
+
+
+class DoubleToFloat(Transformer):
+    """Narrow to float32."""
+
+    row_local = True
+
+    def forward(self, X: torch.Tensor) -> torch.Tensor:
+        return X.float()
 
 
 class MatrixVectorizer(Transformer):

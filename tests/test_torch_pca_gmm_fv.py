@@ -260,6 +260,29 @@ def test_gmm_em_recovers_mixture():
     assert (q[:200].argmax(axis=1) == q[0].argmax()).all()
 
 
+def test_kmeans_initialisation_with_an_empty_cluster_stays_finite(monkeypatch):
+    """When the k-means round leaves a cluster without a point (where the
+    JAX package divides by zero), that cluster starts at its center with
+    the variance floor and a mass of one point; the others start at their
+    moments, and the fit and its posteriors are finite."""
+    X = _t(_mixture(np.random.default_rng(9), n=300))
+    far = X.mean(dim=0) + 1e3
+    centers = torch.stack([X[:150].mean(dim=0), X[150:].mean(dim=0), far])
+    monkeypatch.setattr(tkm.KMeansPlusPlusEstimator, "fit_matrix",
+                        lambda self, X, init=None: tkm.KMeansModel(centers))
+    est = tgmm.GaussianMixtureModelEstimator(3, max_iterations=5, min_cluster_size=1)
+    means, variances, weights = est.initial(X)
+    assign = tkm.KMeansModel(centers).forward(X)
+    assert assign[:, 2].sum() == 0
+    torch.testing.assert_close(means[2], far)
+    torch.testing.assert_close(variances[2], est.var_floor(X))
+    torch.testing.assert_close(weights, assign.sum(dim=0).clamp_min(1.0) / X.shape[0])
+    torch.testing.assert_close(means[:2], (assign.T @ X)[:2] / assign.sum(dim=0)[:2, None])
+    model = est.fit_matrix(X)
+    for t in (model.means, model.variances, model.weights, model.forward(X)):
+        assert bool(torch.isfinite(t).all())
+
+
 def test_random_initialisation_is_the_jax_draw():
     X = _mixture(np.random.default_rng(7), n=30)
     est = tgmm.GaussianMixtureModelEstimator(3, initialization_method="random", seed=4)

@@ -88,3 +88,15 @@ def test_cifar_family_clis_without_device_cpu_do_not_run_on_the_cpu(app):
     assert proc.returncode != 0
     assert "CUDA is not available" in proc.stderr
     assert "error is" not in proc.stdout
+
+
+def test_imagenet_cli_without_device_cpu_does_not_run_on_the_cpu():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run(
+        [sys.executable, "-m", "keystone_tpu_torch", "ImageNetSiftLcsFV", "--nTrain", "8",
+         "--nTest", "4"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode != 0
+    assert "CUDA is not available" in proc.stderr
+    assert "TEST Error" not in proc.stdout
