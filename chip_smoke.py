@@ -42,7 +42,16 @@ raw pixels (the weighted solver's dual path); and the reference's widths
 (1000 classes, descDim 64, vocabSize 16, λ 6e-5) on 5000 / 1000 synthetic
 256² images (the dense path, 125 class chunks, FVs of 4096) with its peak
 memory and the solver's phases; after each of the last two, the weighted
-solve is held against a float64 per-class solve. Each phase prints one
+solve is held against a float64 per-class solve. Then the text
+applications: NewsgroupsPipeline and AmazonReviewsPipeline small on the card
+against the CPU, then at the JAX CLIs' defaults (100,000 common features of
+uni- and bigrams) on 11,314 / 7,532 and 262,144 / 65,536 synthetic
+documents, with the seconds split between the host's text work (the native
+frontend, which must have been built and run) and the card; the sparse
+L-BFGS at the reference's Amazon shape (n 262,144, d 16,384, 85 entries a
+row, 50 iterations) by its Gram and its gather/scatter strategies, against
+the planted flip rate, each other and the Gram's FP32 bound; and
+StupidBackoffPipeline's defaults. Each phase prints one
 JSON line; any failure raises and exits non-zero. The last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card it exits non-zero
 and prints no result.
@@ -964,6 +973,276 @@ def imagenet_phases(cli, dev, card) -> dict:
     return launches
 
 
+# the text applications (NewsgroupsPipeline, AmazonReviewsPipeline) at the
+# JAX CLIs' defaults: 20 Newsgroups' "bydate" split sizes, and the JAX
+# package's Amazon L-BFGS row's n for the reviews (real corpora are not in
+# the repository)
+NEWSGROUPS_FULL = ["NewsgroupsPipeline", "--nTrain", "11314", "--nTest", "7532"]
+AMAZON_FULL = ["AmazonReviewsPipeline", "--nTrain", "262144", "--nTest", "65536"]
+# bench.py's _bench_sparse_lbfgs: the reference's Amazon L-BFGS shape, planted
+# labels with the measured flip rate as the quality floor
+AMAZON_LBFGS = dict(n=262144, d=16384, nnz=85, seed=17, iterations=50, lam=1e-7, tol=1e-5)
+AMAZON_LBFGS_SMALL = dict(AMAZON_LBFGS, n=4096, d=1024)
+# the JAX chooser's pick at that shape on one machine (tests/test_torch_sparse.py
+# holds the port's choice against it on the CPU)
+AMAZON_LBFGS_CHOICE = "SparseLBFGSwithL2"
+
+
+def planted_sparse_problem(dev, n, d, nnz, seed, **_):
+    """bench.py's planted problem, the same numpy draws: rows of ``nnz``
+    random features with normal values, labels sign(X·w* + noise), the
+    noise 0.65 × the margins' spread (it flips 18.4 % of the labels at the
+    Amazon shape). Returns (X on ``dev``, the (n, 1) labels on ``dev``, the
+    flip rate)."""
+    import numpy as np
+
+    from keystone_tpu_torch.data.sparse import SparseRows
+
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, d, size=(n, nnz), dtype=np.int64)
+    val = rng.standard_normal((n, nnz)).astype(np.float32)
+    X = SparseRows(torch.from_numpy(idx), torch.from_numpy(val), d).to(dev)
+    w_star = (rng.standard_normal(d) / np.sqrt(nnz)).astype(np.float32)
+    margin = X.matmul(torch.from_numpy(w_star[:, None]).to(dev))[:, 0].cpu().numpy()
+    noise = 0.65 * np.std(margin) * rng.standard_normal(n)
+    y = np.sign(margin + noise).astype(np.float32)
+    y[y == 0] = 1.0
+    flip_rate = float((np.sign(margin) != y).mean())
+    return X, torch.from_numpy(y[:, None]).to(dev), flip_rate
+
+
+def text_phases(cli, dev, card) -> dict:
+    """The text applications: small on the card against the CPU (and the
+    sparse L-BFGS at (4096, 1024, 85)); NewsgroupsPipeline and
+    AmazonReviewsPipeline at the CLIs' defaults on full-size synthetic
+    corpora, with the seconds split between the host's text work and the
+    card; the sparse L-BFGS at the reference's Amazon shape with both
+    strategies; StupidBackoffPipeline's defaults. Checks that the native
+    text frontend was built and ran on each text path. Returns the K1
+    launches of each path (none reaches K1)."""
+    from keystone_tpu_torch import native
+    from keystone_tpu_torch.data.dataset import Dataset
+    from keystone_tpu_torch.nodes.learning import lbfgs
+    from keystone_tpu_torch.nodes.learning.classifiers import (
+        LeastSquaresEstimator, LogisticRegressionEstimator, LogisticRegressionModel,
+        NaiveBayesEstimator, NaiveBayesModel,
+    )
+    from keystone_tpu_torch.nodes.nlp.packed_features import (
+        PackedTextFeatures, PackedTextVectorizer,
+    )
+    from keystone_tpu_torch.ops import gaussian_kernel as gk
+    from keystone_tpu_torch.pipelines import amazon_reviews as am
+    from keystone_tpu_torch.pipelines import newsgroups as ng
+    from keystone_tpu_torch.workflow.pipeline import Pipeline, clock
+
+    cpu = torch.device("cpu")
+    launches = {}
+    t0 = time.perf_counter()
+    native.require_lib()  # a failed g++ build raises here, not a quiet fallback
+    emit({"phase": "build", "library": "native text frontend", "source": str(native.SOURCE),
+          "seconds": time.perf_counter() - t0})
+
+    def native_runs(before) -> dict:
+        return {k: native.CALLS[k] - before.get(k, 0) for k in native.CALLS}
+
+    def model(fitted, cls):
+        return next(op for op in fitted.graph.operators.values() if isinstance(op, cls))
+
+    def rel(a, b) -> float:
+        return ((a.cpu() - b.cpu()).abs().max() / b.cpu().abs().max()).item()
+
+    # -- small on the card against the port on the CPU --------------------
+    gk.gaussian_kernel_block.launches = 0
+    before = dict(native.CALLS)
+    small = {}
+    for app, mod, conf, train, test, cls in (
+            ("NewsgroupsPipeline", ng, ng.NewsgroupsConfig(common_features=2000, num_classes=6),
+             ng.synthetic_newsgroups(256, 6, seed=1), ng.synthetic_newsgroups(96, 6, seed=2),
+             NaiveBayesModel),
+            ("AmazonReviewsPipeline", am, am.AmazonReviewsConfig(common_features=2000,
+                                                                 num_iters=30),
+             am.synthetic_reviews(256, seed=1), am.synthetic_reviews(96, seed=2),
+             LogisticRegressionModel)):
+        runs = {}
+        for name, where in (("cuda", dev), ("cpu", cpu)):
+            fresh_env()
+            predictor, _, _ = mod.run(train, test, conf, where)
+            fitted = predictor.fit()
+            runs[name] = (fitted.apply(test.data).to_array().cpu(), model(fitted, cls))
+        (p_dev, m_dev), (p_cpu, m_cpu) = runs["cuda"], runs["cpu"]
+        row = {"predictions_equal": bool(torch.equal(p_dev, p_cpu))}
+        if cls is NaiveBayesModel:
+            row["pi_max_abs_dev"] = (m_dev.pi.cpu() - m_cpu.pi).abs().max().item()
+            row["theta_max_abs_dev"] = (m_dev.theta.cpu() - m_cpu.theta).abs().max().item()
+            check(max(row["pi_max_abs_dev"], row["theta_max_abs_dev"]) <= 1e-6,
+                  f"{app}: naive Bayes on the card is off the CPU's: {row}")
+        else:
+            row["W_rel_dev"] = rel(m_dev.W, m_cpu.W)
+            check(row["W_rel_dev"] <= 1e-4, f"{app}: W on the card is off the CPU's: {row}")
+        check(row["predictions_equal"], f"{app}: predictions on the card differ from the CPU's")
+        small[app] = row
+    X, B, flip = planted_sparse_problem(cpu, **AMAZON_LBFGS_SMALL)
+    for label, budget in (("gram", 2e9), ("gather_scatter", 0)):
+        W = {}
+        for name, where in (("cuda", dev), ("cpu", cpu)):
+            est = lbfgs.SparseLBFGSwithL2(convergence_tol=AMAZON_LBFGS["tol"],
+                                          num_iterations=AMAZON_LBFGS["iterations"],
+                                          reg_param=AMAZON_LBFGS["lam"],
+                                          gram_budget_bytes=budget)
+            W[name] = est.fit(Dataset(X.to(where)), Dataset(B.to(where))).W
+        small[f"sparse_lbfgs_{label}"] = {"W_rel_dev": rel(W["cuda"], W["cpu"])}
+        check(small[f"sparse_lbfgs_{label}"]["W_rel_dev"] <= 1e-4,
+              f"sparse L-BFGS ({label}) on the card is off the CPU's: {small}")
+    launches["text_small_vs_cpu"] = gk.gaussian_kernel_block.launches
+    emit({"phase": "text_small_vs_cpu", "checks": small, "limits": {
+        "naive_bayes_abs": 1e-6, "W_rel": 1e-4}, "native_runs": native_runs(before),
+        "card": card})
+
+    # -- the two applications at full size, through the command line -------
+    for phase, args in (("newsgroups_full_width", NEWSGROUPS_FULL),
+                        ("amazon_full_width", AMAZON_FULL)):
+        fresh_env()
+        gk.gaussian_kernel_block.launches = 0
+        before = dict(native.CALLS)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()  # left by earlier phases, inside the peak
+        with Probe() as probe:
+            probe.watch_fit(Pipeline)
+            probe.watch(PackedTextFeatures, "fit")
+            probe.watch(PackedTextVectorizer, "apply_batch")
+            for cls in (NaiveBayesEstimator, LogisticRegressionEstimator):
+                probe.watch(cls, "fit")
+            out = cli.run(args)
+        peak = torch.cuda.max_memory_allocated()
+        launches[phase] = gk.gaussian_kernel_block.launches
+        runs = native_runs(before)
+        fitted = out["predictor"].fit()  # fit-once: the run's fits
+        vec = model(fitted, PackedTextVectorizer)
+        train_rows = probe.last["PackedTextVectorizer.apply_batch:fit"].payload
+        ph = out["phases"]
+        vectorize = sum(v for k, v in probe.seconds.items()
+                        if k.startswith("PackedTextVectorizer.apply_batch"))
+        solver = "NaiveBayesEstimator" if "NaiveBayesEstimator" in ph else \
+            "LogisticRegressionEstimator"
+        fits = {k: v for k, v in probe.calls.items() if ".fit:" in k}
+        # the host's text work: the corpus draw, the feature fit (frontend,
+        # grams, selection) and both vectorizations (their rows' copy to the
+        # card included); the rest of the run is the card's and the graph's
+        host = ph["draw"] + ph["PackedTextFeatures"] + vectorize
+        row = {"phase": phase, "args": args, "seconds": out["seconds"], "phase_seconds": ph,
+               "split": {"draw": ph["draw"], "featurize": ph["PackedTextFeatures"] + ph["featurize"],
+                         "fit": ph[solver], "apply": ph["apply"], "evaluate": ph["evaluate"]},
+               "host_text_seconds": host,
+               "card_and_graph_seconds": out["seconds"] + ph["draw"] - host,
+               "vectorize_seconds": vectorize, "selected_features": vec.num_features,
+               "train_rows": len(train_rows), "row_capacity": train_rows.row_capacity,
+               "train_nnz": train_rows.nnz, "rows_device": str(train_rows.device),
+               "estimator_fits": fits, "native_runs": runs, "peak_mem_gb": peak / 1e9,
+               "held_at_start_gb": held / 1e9, "card": card}
+        if phase == "newsgroups_full_width":
+            row["test_error"] = out["test_error"]
+            check(out["test_error"] < 0.15, f"Newsgroups test error {out['test_error']}")
+        else:
+            row["accuracy"] = out["accuracy"]
+            check(out["accuracy"] > 0.9, f"Amazon accuracy {out['accuracy']}")
+        emit(row)
+        check(train_rows.device.type == "cuda", "the text features are not on the card")
+        check(fits == {"PackedTextFeatures.fit:fit": 1, f"{solver}.fit:fit": 1},
+              f"{phase}: each estimator must fit once: {fits}")
+        check(runs.get("text_frontend_batch", 0) >= 2 and runs.get("packed_grams_unique", 0) >= 2,
+              f"{phase}: the native text frontend did not carry the corpora: {runs}")
+        del out, fitted, vec, train_rows, probe
+
+    # -- the sparse L-BFGS at the reference's Amazon shape ------------------
+    fresh_env()
+    gk.gaussian_kernel_block.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    X, B, flip = planted_sparse_problem(dev, **AMAZON_LBFGS)
+    torch.cuda.synchronize()
+    draw = time.perf_counter() - t0
+    n, d, lam = AMAZON_LBFGS["n"], AMAZON_LBFGS["d"], AMAZON_LBFGS["lam"]
+    t0 = time.perf_counter()
+    G, c = lbfgs.streamed_gram(X, B)
+    torch.cuda.synchronize()
+    gram_seconds = time.perf_counter() - t0
+    gram_bound = 2.0 * n * d * d / FP32_FLOPS
+    W_probe = torch.randn(d, 1, device=dev, generator=torch.Generator(device=dev).manual_seed(3))
+    e = 0.5 * torch.sum(B * B)
+    eval_ms = {
+        "gram": time_ms(lambda: lbfgs.gram_value_and_grad(W_probe, G, c, e, n, lam)),
+        "gather_scatter": time_ms(lambda: lbfgs.sparse_ls_value_and_grad(W_probe, X, B, lam)),
+    }
+    del G, c
+    fits = {}
+    for label, budget, fn in (("gram", 2e9, "gram_value_and_grad"),
+                              ("gather_scatter", 0, "sparse_ls_value_and_grad")):
+        counted = [0]
+        orig = getattr(lbfgs, fn)
+
+        def counting(*a, _orig=orig):
+            counted[0] += 1
+            return _orig(*a)
+
+        setattr(lbfgs, fn, counting)
+        try:
+            est = lbfgs.SparseLBFGSwithL2(convergence_tol=AMAZON_LBFGS["tol"],
+                                          num_iterations=AMAZON_LBFGS["iterations"],
+                                          reg_param=lam, gram_budget_bytes=budget)
+            t0 = clock()
+            W = est.fit(Dataset(X), Dataset(B)).W
+            secs = clock() - t0
+        finally:
+            setattr(lbfgs, fn, orig)
+        err = (torch.sign(X.matmul(W)) != B).float().mean().item()
+        fits[label] = {"fit_seconds": secs, "evaluations": counted[0],
+                       "seconds_per_evaluation": secs / max(counted[0], 1),
+                       "evaluation_ms": eval_ms[label], "train_error": err, "W": W}
+        check(err < 1.5 * flip + 0.005, f"sparse L-BFGS ({label}) train error {err}, "
+              f"flip rate {flip}")
+    W_gram, W_gather = fits["gram"].pop("W"), fits["gather_scatter"].pop("W")
+    excess = ((W_gather - W_gram).abs() - (2e-3 + 2e-2 * W_gram.abs())).max().item()
+    choice = LeastSquaresEstimator(lam=lam, num_machines=1)
+    shape = choice.shape_from_samples([Dataset(X).take(24), Dataset(B).take(24)], n)
+    chosen = choice.choose_solver(shape)
+    peak = torch.cuda.max_memory_allocated()
+    launches["amazon_lbfgs_sparse"] = gk.gaussian_kernel_block.launches
+    emit({"phase": "amazon_lbfgs_sparse", "n": n, "d": d, "nnz_per_row": AMAZON_LBFGS["nnz"],
+          "iterations": AMAZON_LBFGS["iterations"], "lambda": lam, "draw_seconds": draw,
+          "gram_seconds": gram_seconds, "gram_fp32_bound_seconds": gram_bound,
+          "gram_share_of_bound": gram_bound / gram_seconds,
+          "gram_block_rows": lbfgs.gram_row_chunk(d, X.row_capacity),
+          "strategies": fits, "planted_flip_rate": flip,
+          "train_error_limit": 1.5 * flip + 0.005,
+          "strategy_agreement_excess": excess, "agreement_tolerance": {"rtol": 2e-2, "atol": 2e-3},
+          "chooser": {"label": chosen.label, "sparsity": shape.sparsity,
+                      "units": {k: r["units"] for k, r in chosen.costs.items()}},
+          "peak_mem_gb": peak / 1e9, "held_at_start_gb": held / 1e9, "card": card})
+    check(excess <= 0, f"the two strategies' W disagree beyond rtol 2e-2 / atol 2e-3 ({excess})")
+    check(chosen.label == AMAZON_LBFGS_CHOICE,
+          f"the cost model picked {chosen.label}, the JAX chooser {AMAZON_LBFGS_CHOICE}")
+    del X, B, W_gram, W_gather, W_probe
+
+    # -- StupidBackoffPipeline's defaults -----------------------------------
+    gk.gaussian_kernel_block.launches = 0
+    out = cli.run(["StupidBackoffPipeline"])
+    lm = out["model"]
+    bigram = next(g for g in lm.scores if len(g) == 2)
+    launches["stupid_backoff_cli"] = gk.gaussian_kernel_block.launches
+    emit({"phase": "stupid_backoff_cli", "seconds": out["seconds"], "tokens": lm.num_tokens,
+          "vocabulary": len(lm.unigram_counts), "ngrams": len(lm.scores),
+          "seen_bigram_score": lm.score(bigram)})
+    check(lm.num_tokens > 0, "the language model saw no token")
+    check(all(0.0 <= v <= 1.0 for v in lm.scores.values()), "a score outside [0, 1]")
+    check(lm.score(bigram) > 0, f"the seen bigram {bigram} scores 0")
+
+    check(not any(launches.values()), f"the text paths launched K1: {launches}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1392,6 +1671,7 @@ def main() -> int:
     cifar_family_k1 = cifar_family_phases(cli, dev, card)
     voc_k1 = voc_phases(cli, dev, card)
     imagenet_k1 = imagenet_phases(cli, dev, card)
+    text_k1 = text_phases(cli, dev, card)
 
     emit({"phase": "total", "seconds": time.perf_counter() - started, "card": card})
     fit = timings["fit"]
@@ -1404,7 +1684,8 @@ def main() -> int:
         "bound_by": fit["bound_by"], "library_ms": fit["library_ms"],
         "launches_by_path": {"slice": launches, "compiled_cifar": compiled_launches,
                              "krr_family": krr_launches, "timit_full_width": timit_k1,
-                             "cifar_family": cifar_family_k1, "voc": voc_k1, **imagenet_k1},
+                             "cifar_family": cifar_family_k1, "voc": voc_k1, **imagenet_k1,
+                             **text_k1},
     }]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

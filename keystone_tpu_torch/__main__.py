@@ -1,10 +1,12 @@
 """Command line: ``python -m keystone_tpu_torch <App> [--device cpu] ...``.
 
-The port runs nine of the JAX package's twelve applications, with the
-flags of its CLI: the CIFAR family (RandomPatchCifar, LinearPixels,
-RandomCifar, RandomPatchCifarAugmented, RandomPatchCifarKernel),
-MnistRandomFFT, TimitPipeline, VOCSIFTFisher and ImageNetSiftLcsFV. It runs on CUDA unless
-``--device cpu`` is given.
+The port runs the JAX package's twelve applications, with the flags of its
+CLI: the CIFAR family (RandomPatchCifar, LinearPixels, RandomCifar,
+RandomPatchCifarAugmented, RandomPatchCifarKernel), MnistRandomFFT,
+TimitPipeline, VOCSIFTFisher, ImageNetSiftLcsFV, NewsgroupsPipeline,
+AmazonReviewsPipeline and StupidBackoffPipeline. Each runs on CUDA unless
+``--device cpu`` is given, but StupidBackoffPipeline, whose language model
+is host numpy.
 """
 
 from __future__ import annotations
@@ -12,10 +14,13 @@ from __future__ import annotations
 import sys
 
 from .pipelines import (
+    amazon_reviews,
     cifar_extras,
     imagenet_sift_lcs_fv,
     mnist_random_fft,
+    newsgroups,
     random_patch_cifar,
+    stupid_backoff_pipeline,
     timit,
     voc_sift_fisher,
 )
@@ -31,6 +36,9 @@ PIPELINES = {
     "TimitPipeline": (timit.run_app, timit.main),
     "VOCSIFTFisher": (voc_sift_fisher.run_app, voc_sift_fisher.main),
     "ImageNetSiftLcsFV": (imagenet_sift_lcs_fv.run_app, imagenet_sift_lcs_fv.main),
+    "NewsgroupsPipeline": (newsgroups.run_app, newsgroups.main),
+    "AmazonReviewsPipeline": (amazon_reviews.run_app, amazon_reviews.main),
+    "StupidBackoffPipeline": (stupid_backoff_pipeline.run_app, stupid_backoff_pipeline.main),
 }
 
 

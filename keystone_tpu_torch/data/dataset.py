@@ -6,7 +6,9 @@ A ``Dataset`` holds N items in one of two forms:
   tuple of such payloads (nested tuples allowed) that share their number
   of rows (the output of ``Pipeline.gather``: one ``(n, d_i)`` tensor per
   branch, or the column blocks of ``VectorSplitter``). Every numeric node
-  works on this form.
+  works on this form. A :class:`~keystone_tpu_torch.data.sparse.SparseRows`
+  batch (text features) is a batched payload too: it indexes, slices and
+  iterates by row, and the nodes that take sparse rows read it whole.
 * items: a Python list of arbitrary objects (ragged tensors, strings)
   for data with no rectangular layout.
 """
@@ -18,7 +20,9 @@ from typing import Any, Callable, Iterable, Iterator, List, Sequence, Tuple, Uni
 import numpy as np
 import torch
 
-Payload = Union[torch.Tensor, Tuple[Any, ...]]
+from .sparse import SparseRows
+
+Payload = Union[torch.Tensor, SparseRows, Tuple[Any, ...]]
 
 
 def first_leaf(payload: Payload) -> torch.Tensor:
@@ -44,7 +48,7 @@ def _leaves(payload: Payload) -> List[torch.Tensor]:
 def _is_batch(data: Any) -> bool:
     if isinstance(data, tuple):
         return bool(data) and all(_is_batch(p) for p in data)
-    return isinstance(data, torch.Tensor)
+    return isinstance(data, (torch.Tensor, SparseRows))
 
 
 class Dataset:
@@ -65,9 +69,9 @@ class Dataset:
 
     @staticmethod
     def of(data: Any) -> "Dataset":
-        """Wrap ``data``: a Dataset as is; a tensor, a tuple of tensors or a
-        numpy array (as a CPU tensor sharing its memory) batched; any other
-        iterable as an item list."""
+        """Wrap ``data``: a Dataset as is; a tensor, a tuple of tensors, a
+        SparseRows batch or a numpy array (as a CPU tensor sharing its
+        memory) batched; any other iterable as an item list."""
         if isinstance(data, Dataset):
             return data
         if _is_batch(data):

@@ -1,11 +1,11 @@
-"""Classifiers and the least-squares solver front door (port of the dense
-paths of ``keystone_tpu/nodes/learning/classifiers.py``): multinomial
-naive Bayes, multinomial logistic regression by L-BFGS, linear
-discriminant analysis, and ``LeastSquaresEstimator``, which chooses its
-solver by the cost model.
+"""Classifiers and the least-squares solver front door (port of
+``keystone_tpu/nodes/learning/classifiers.py``): multinomial naive Bayes,
+multinomial logistic regression by L-BFGS, linear discriminant analysis,
+and ``LeastSquaresEstimator``, which chooses its solver by the cost model.
 
-The sparse-row paths (naive Bayes and logistic regression on
-``SparseRows``) wait for the port of ``data/sparse.py``.
+Naive Bayes and logistic regression also fit and apply on ``SparseRows``
+batches (text features) without densifying: the class sums and the
+gradient are scatter-adds, the scores gathers (``data/sparse.py``).
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from ...data.dataset import Dataset
+from ...data.sparse import SparseRows
 from ...workflow.node_optimization import Optimizable
 from ...workflow.transformer import LabelEstimator, Transformer
 from .cost import AutoSolverFrontDoor, CostModel
@@ -46,6 +47,18 @@ class NaiveBayesModel(Transformer):
     def forward(self, X: torch.Tensor) -> torch.Tensor:
         return X @ self.theta.T + self.pi
 
+    def apply_batch(self, data) -> Dataset:
+        data = Dataset.of(data)
+        if isinstance(data.payload, SparseRows):
+            return Dataset(data.payload.matmul(self.theta.T.contiguous()) + self.pi)
+        return super().apply_batch(data)
+
+    def apply(self, x):
+        sr = SparseRows.datum_from_pairs(x, self.theta.shape[1])
+        if sr is not None:
+            return (sr.to(self.theta.device).matmul(self.theta.T.contiguous()) + self.pi)[0]
+        return super().apply(x)
+
 
 class NaiveBayesEstimator(LabelEstimator):
     """Multinomial naive Bayes with Laplace smoothing ``lam``:
@@ -56,13 +69,22 @@ class NaiveBayesEstimator(LabelEstimator):
         self.lam = lam
 
     def fit(self, data: Dataset, labels: Dataset) -> NaiveBayesModel:
-        X = Dataset.of(data).to_array().float()
-        y = _int_labels(labels, X.device)
-        n, d = X.shape
+        data = Dataset.of(data)
         k = self.num_classes
-        onehot = F.one_hot(y, k).float()
-        feat_sums = onehot.T @ X  # (k, d)
-        pi = torch.log(onehot.sum(dim=0) + self.lam) - math.log(n + k * self.lam)
+        if isinstance(data.payload, SparseRows):
+            X = data.payload
+            y = _int_labels(labels, X.device)
+            # integer labels: one scatter-add of the n·m values
+            feat_sums = X.label_sums(y, k)
+            class_counts = torch.bincount(y, minlength=k).float()
+        else:
+            X = data.to_array().float()
+            y = _int_labels(labels, X.device)
+            onehot = F.one_hot(y, k).float()
+            feat_sums = onehot.T @ X  # (k, d)
+            class_counts = onehot.sum(dim=0)
+        n, d = X.shape
+        pi = torch.log(class_counts + self.lam) - math.log(n + k * self.lam)
         theta = torch.log(feat_sums + self.lam) - torch.log(
             feat_sums.sum(dim=1, keepdim=True) + d * self.lam)
         return NaiveBayesModel(pi, theta)
@@ -79,6 +101,17 @@ def _logistic_value_and_grad(W, A, y_onehot, lam):
     return loss, grad
 
 
+def _sparse_logistic_value_and_grad(W, X: SparseRows, y_onehot, lam):
+    """The same objective on sparse rows: the logits a gather, the gradient
+    a scatter-add, nothing densified."""
+    n = y_onehot.shape[0]
+    logits = X.matmul(W)
+    loss = -torch.sum(y_onehot * torch.log_softmax(logits, dim=-1)) / n \
+        + 0.5 * lam * torch.sum(W * W)
+    grad = X.rmatmul(torch.softmax(logits, dim=-1) - y_onehot) / n + lam * W
+    return loss, grad
+
+
 class LogisticRegressionModel(Transformer):
     """The predicted class: argmax of the logits X·W."""
 
@@ -89,6 +122,18 @@ class LogisticRegressionModel(Transformer):
 
     def forward(self, X: torch.Tensor) -> torch.Tensor:
         return torch.argmax(X @ self.W, dim=-1)
+
+    def apply_batch(self, data) -> Dataset:
+        data = Dataset.of(data)
+        if isinstance(data.payload, SparseRows):
+            return Dataset(torch.argmax(data.payload.matmul(self.W), dim=-1))
+        return super().apply_batch(data)
+
+    def apply(self, x):
+        sr = SparseRows.datum_from_pairs(x, self.W.shape[0])
+        if sr is not None:
+            return torch.argmax(sr.to(self.W.device).matmul(self.W), dim=-1)[0]
+        return super().apply(x)
 
     def scores(self, X: torch.Tensor) -> torch.Tensor:
         return torch.as_tensor(X) @ self.W
@@ -106,10 +151,16 @@ class LogisticRegressionEstimator(LabelEstimator):
         self.convergence_tol = convergence_tol
 
     def fit(self, data: Dataset, labels: Dataset) -> LogisticRegressionModel:
-        X = Dataset.of(data).to_array().float()
+        data = Dataset.of(data)
+        if isinstance(data.payload, SparseRows):
+            X = data.payload
+            vag = _sparse_logistic_value_and_grad
+        else:
+            X = data.to_array().float()
+            vag = _logistic_value_and_grad
         onehot = F.one_hot(_int_labels(labels, X.device), self.num_classes).float()
         W0 = torch.zeros((X.shape[1], self.num_classes), dtype=torch.float32, device=X.device)
-        W = minimize_lbfgs(_logistic_value_and_grad, W0, max_iterations=self.num_iters,
+        W = minimize_lbfgs(vag, W0, max_iterations=self.num_iters,
                            convergence_tol=self.convergence_tol,
                            vag_args=(X, onehot, self.reg_param))
         return LogisticRegressionModel(W)
@@ -171,6 +222,28 @@ class LeastSquaresEstimator(LabelEstimator, AutoSolverFrontDoor, CostModel, Opti
             TSQRLeastSquaresEstimator(lam=lam),
         ]
         self.default = self.options[0]
+
+    def shape_from_samples(self, samples, num_items: int, chunked: bool = False):
+        """The chooser's shape of (data, labels) ``samples`` from a dataset of
+        ``num_items`` rows: d and k from the samples, and their sparsity
+        (the density of a SparseRows sample, the mean density of scipy
+        sparse items, else 1.0)."""
+        from ...cost import ShapeSignature
+
+        sample, sample_labels = Dataset.of(samples[0]), Dataset.of(samples[1])
+        if isinstance(sample.payload, SparseRows):
+            sparsity, d = sample.payload.density(), sample.payload.num_features
+        else:
+            first = sample.first()
+            if hasattr(first, "nnz"):  # scipy sparse items
+                sparsity = float(np.mean([i.nnz / np.prod(i.shape) for i in sample.collect()]))
+                d = first.shape[-1]
+            else:
+                sparsity, d = 1.0, first.shape[-1]
+        n = num_items if num_items else len(sample)
+        k = sample_labels.first().shape[-1]
+        return ShapeSignature(n=int(n), d=int(d), k=int(k), sparsity=float(sparsity),
+                              chunked=bool(chunked), machines=int(self.num_machines or 1))
 
     def optimize(self, sample: Dataset, sample_labels: Dataset,
                  total_n: Optional[int] = None) -> LabelEstimator:

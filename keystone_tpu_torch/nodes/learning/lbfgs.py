@@ -20,9 +20,10 @@ import numpy as np
 import torch
 
 from ...data.dataset import Dataset
+from ...data.sparse import SparseRows
 from ...workflow.transformer import LabelEstimator
 from .cost import CostModel
-from .linear import LinearMapper
+from .linear import LinearMapper, SparseLinearMapper
 
 #: Armijo's sufficient-decrease constant and the line search's halvings
 ARMIJO_C1 = 1e-4
@@ -157,20 +158,100 @@ class DenseLBFGSwithL2(LabelEstimator, CostModel):
             max(cpu_weight * flops, mem_weight * bytes_scanned) + network_weight * network)
 
 
+#: dense bytes of one row block of the streamed Gram
+GRAM_BLOCK_BYTES = 256 << 20
+
+
+def gram_row_chunk(d: int, m: int) -> int:
+    """Rows of one dense block of :func:`streamed_gram` over d features and
+    a row capacity of m: bounded by 2²¹ scattered entries and by
+    :data:`GRAM_BLOCK_BYTES` of dense block, as in the JAX package."""
+    return max(1, min((1 << 21) // max(m, 1), GRAM_BLOCK_BYTES // max(4 * d, 1)))
+
+
+def streamed_gram(X: SparseRows, B: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """G = AᵀA (d, d) and c = AᵀB of sparse rows, summed over dense row
+    blocks: each block is scattered dense, added into G and c by two FP32
+    GEMMs (TF32 is off package-wide: the port's form of the JAX package's
+    ``precision="high"``) and dropped, so the peak is G and one block."""
+    n, m = X.indices.shape
+    d = X.num_features
+    rows = gram_row_chunk(d, m)
+    G = torch.zeros((d, d), dtype=torch.float32, device=X.device)
+    c = torch.zeros((d, B.shape[1]), dtype=torch.float32, device=X.device)
+    for i in range(0, n, rows):
+        Ab = X.row_slice(i, min(i + rows, n)).to_dense()
+        G.addmm_(Ab.T, Ab)
+        c.addmm_(Ab.T, B[i:i + rows])
+        del Ab
+    return G, c
+
+
+def gram_value_and_grad(W, G, c, e, n: int, lam: float):
+    """The least-squares objective from its Gram: (½WᵀGW − cᵀW + e)/n +
+    ½λ‖W‖², with e = ½‖B‖²; one (d, d)·(d, k) product, no data."""
+    GW = G @ W
+    loss = (0.5 * _vdot(W, GW) - _vdot(c, W) + e) / n + 0.5 * lam * torch.sum(W * W)
+    return loss, (GW - c) / n + lam * W
+
+
+def sparse_ls_value_and_grad(W, X: SparseRows, B, lam: float):
+    """The least-squares objective on sparse rows: AW a gather, Aᵀ(AW − B)
+    a scatter-add."""
+    axb = X.matmul(W) - B
+    n = B.shape[0]
+    loss = 0.5 * torch.sum(axb * axb) / n + 0.5 * lam * torch.sum(W * W)
+    return loss, X.rmatmul(axb) / n + lam * W
+
+
 class SparseLBFGSwithL2(DenseLBFGSwithL2):
-    """The sparse-input variant: priced as a sparse solve (``cost`` scales
-    the work by the input's density and a 10× sparse overhead). Its fit of
-    dense input is the dense fit; its sparse-row fit waits for the port of
-    ``data/sparse.py``."""
+    """Least squares with an L2 penalty by L-BFGS on sparse rows; priced as
+    a sparse solve (``cost`` scales the work by the input's density and a
+    10× sparse overhead). A SparseRows batch, or scipy sparse items
+    (converted to one), is fit by one of two strategies, chosen by memory:
+
+    * the Gram (when the d×d float32 Gram fits ``gram_budget_bytes``): the
+      objective is a fixed quadratic in W, so G = AᵀA and c = AᵀB are summed
+      once over dense row blocks (:func:`streamed_gram`) and every
+      evaluation is one (d, d)·(d, k) product;
+    * gather/scatter (``gram_budget_bytes=0`` forces it): A·W a gather and
+      Aᵀ·r a scatter-add each evaluation.
+
+    Both run :func:`minimize_lbfgs` on the same objective and reach the
+    same W up to float32 rounding. The model is a SparseLinearMapper, so it
+    applies sparsely either way; W is (d, k), (d, 1) for one label column.
+    Dense input takes the dense fit."""
 
     sparse_overhead = 10.0
 
-    def fit(self, data: Dataset, labels: Dataset) -> LinearMapper:
+    def __init__(self, *args, gram_budget_bytes: float = 2e9, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.gram_budget_bytes = gram_budget_bytes
+
+    def fit(self, data: Dataset, labels: Dataset):
+        import scipy.sparse as sp
+
         data = Dataset.of(data)
-        if not data.is_batched and data.payload and hasattr(data.first(), "nnz"):
-            raise NotImplementedError(
-                "sparse rows are not ported yet; pass dense rows")
-        return super().fit(data, labels)
+        if isinstance(data.payload, SparseRows):
+            X = data.payload
+        elif not data.is_batched and data.payload and sp.issparse(data.first()):
+            X = SparseRows.from_scipy(sp.vstack(data.collect()))
+        else:
+            return super().fit(data, labels)
+
+        B = Dataset.of(labels).to_array().to(X.device, torch.float32)
+        n, d = B.shape[0], X.num_features
+        if 4.0 * d * d <= self.gram_budget_bytes:
+            G, c = streamed_gram(X, B)
+            e = 0.5 * torch.sum(B * B)
+            vag, vag_args = gram_value_and_grad, (G, c, e, n, self.reg_param)
+        else:
+            vag, vag_args = sparse_ls_value_and_grad, (X, B, self.reg_param)
+        W0 = torch.zeros((d, B.shape[1]), dtype=torch.float32, device=X.device)
+        W = minimize_lbfgs(vag, W0, max_iterations=self.num_iterations,
+                           num_corrections=self.num_corrections,
+                           convergence_tol=self.convergence_tol, vag_args=vag_args)
+        return SparseLinearMapper(W)
 
     def cost(self, n, d, k, sparsity, num_machines,
              cpu_weight, mem_weight, network_weight):

@@ -22,6 +22,7 @@ from typing import Any, Optional, Sequence
 import torch
 
 from ...data.dataset import Dataset
+from ...data.sparse import SparseRows
 from ...linalg import bcd, normal_equations, tsqr
 from ...linalg.bcd import _block_means, solve_blockwise_l2
 from ...linalg.normal_equations import solve_centered
@@ -186,3 +187,43 @@ class TSQRLeastSquaresEstimator(LabelEstimator, CostModel):
              cpu_weight, mem_weight, network_weight):
         return combine_cost(tsqr.cost_signature(n, d, k, num_machines),
                             cpu_weight, mem_weight, network_weight)
+
+
+class SparseLinearMapper(Transformer):
+    """A dense model applied to sparse rows: x·W (+ b). A SparseRows batch
+    applies as a gather of W's rows (``data/sparse.py``), never densified;
+    dense rows as one GEMM."""
+
+    row_local = True
+
+    def __init__(self, W: torch.Tensor, b: Optional[torch.Tensor] = None):
+        self.W = W
+        self.b = b
+
+    def forward(self, X: torch.Tensor) -> torch.Tensor:
+        out = X @ self.W
+        return out if self.b is None else out + self.b
+
+    def apply_batch(self, data) -> Dataset:
+        data = Dataset.of(data)
+        if isinstance(data.payload, SparseRows):
+            out = data.payload.matmul(self.W)
+            return Dataset(out if self.b is None else out + self.b)
+        return super().apply_batch(data)
+
+    def apply(self, x: Any) -> Any:
+        sr = SparseRows.datum_from_pairs(x, self.W.shape[0])
+        if sr is not None:
+            x = sr
+        if isinstance(x, SparseRows):
+            out = x.to(self.W.device).matmul(self.W)
+            out = out if self.b is None else out + self.b
+            return out[0] if len(x) == 1 else out
+        if hasattr(x, "nnz"):  # a scipy sparse vector or matrix
+            import numpy as np
+
+            dense = torch.as_tensor(np.asarray(x.todense(), dtype=np.float32), device=self.W.device)
+            if dense.dim() == 2 and dense.shape[0] > 1:
+                return self.forward(dense)  # an r×d matrix → r×k
+            x = dense.reshape(-1)
+        return self.forward(torch.as_tensor(x, device=self.W.device)[None])[0]

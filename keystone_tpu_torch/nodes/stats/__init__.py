@@ -9,8 +9,9 @@ from .core import (
     SignedHellingerMapper,
     StandardScaler,
     StandardScalerModel,
+    TermFrequency,
 )
 
 __all__ = ["ColumnSampler", "CosineRandomFeatures", "LinearRectifier", "NormalizeRows",
            "PaddedFFT", "RandomSignNode", "Sampler", "SignedHellingerMapper",
-           "StandardScaler", "StandardScalerModel"]
+           "StandardScaler", "StandardScalerModel", "TermFrequency"]

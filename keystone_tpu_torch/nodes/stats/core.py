@@ -1,6 +1,6 @@
 """Stats nodes (port of ``PaddedFFT``, ``RandomSignNode``,
 ``LinearRectifier``, ``NormalizeRows``, ``SignedHellingerMapper``,
-``CosineRandomFeatures``, the in-memory ``StandardScaler`` and ``Sampler``
+``TermFrequency``, ``CosineRandomFeatures``, the in-memory ``StandardScaler`` and ``Sampler``
 and the in-memory ``ColumnSampler`` of ``keystone_tpu/nodes/stats/core.py``).
 
 ``ColumnSampler``'s ``ChunkedDataset`` branch waits for the out-of-core
@@ -85,6 +85,22 @@ class SignedHellingerMapper(Transformer):
 
     def forward(self, X: torch.Tensor) -> torch.Tensor:
         return torch.sign(X) * torch.sqrt(torch.abs(X))
+
+
+class TermFrequency(Transformer):
+    """Sequence of terms → (distinct term, fun(count)) pairs, in first
+    appearance order. ``fun`` maps the raw count, for example
+    ``TermFrequency(lambda x: math.log(x) + 1)``; identity by default."""
+
+    def __init__(self, fun=None):
+        self.fun = fun
+
+    def apply(self, terms):
+        from collections import Counter
+
+        fun = self.fun or (lambda x: x)
+        counts = Counter(tuple(t) if isinstance(t, list) else t for t in terms)
+        return [(term, float(fun(c))) for term, c in counts.items()]
 
 
 class CosineRandomFeatures(Transformer):

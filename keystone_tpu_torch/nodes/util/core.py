@@ -1,8 +1,8 @@
 """Glue nodes (port of ``ClassLabelIndicators``,
 ``MultiClassLabelIndicators``, ``MaxClassifier``, ``TopKClassifier``,
 ``VectorCombiner``, ``VectorSplitter``, ``Cacher``, ``Shuffler``,
-``FloatToDouble``, ``DoubleToFloat`` and ``MatrixVectorizer`` from
-``keystone_tpu/nodes/util/core.py``)."""
+``FloatToDouble``, ``DoubleToFloat``, ``MatrixVectorizer``, ``Densify``
+and ``Sparsify`` from ``keystone_tpu/nodes/util/core.py``)."""
 
 from __future__ import annotations
 
@@ -167,3 +167,24 @@ class MatrixVectorizer(Transformer):
 
     def forward(self, X: torch.Tensor) -> torch.Tensor:
         return X.transpose(1, 2).reshape(X.shape[0], -1)
+
+
+class Densify(Transformer):
+    """Sparse → dense per item: a scipy sparse item becomes a 1-D float32
+    tensor, anything else a tensor."""
+
+    def apply(self, x):
+        if hasattr(x, "todense"):
+            return torch.as_tensor(np.asarray(x.todense(), dtype=np.float32).squeeze())
+        return torch.as_tensor(x)
+
+
+class Sparsify(Transformer):
+    """Dense → one scipy CSR row per item, on the host."""
+
+    def apply(self, x):
+        import scipy.sparse as sp
+
+        if isinstance(x, torch.Tensor):
+            x = x.detach().cpu().numpy()
+        return sp.csr_matrix(np.asarray(x))

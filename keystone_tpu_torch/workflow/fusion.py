@@ -29,6 +29,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..data.dataset import Dataset, Payload, first_leaf, map_leaves
+from ..data.sparse import SparseRows
 from . import analysis
 from .cuda_graph import GraphCache, leaves, signature
 from .expressions import DatasetExpression, DatumExpression
@@ -242,7 +243,7 @@ class FusedTransformerOperator(TransformerOperator):
 
     def batch_transform(self, inputs: Sequence[DatasetExpression]) -> Dataset:
         datasets = [d.get() for d in inputs]
-        if all(ds.is_batched for ds in datasets):
+        if all(ds.is_batched and not isinstance(ds.payload, SparseRows) for ds in datasets):
             arrays = [ds.payload for ds in datasets]
             n = len(datasets[0])
             rows = n
@@ -261,8 +262,9 @@ class FusedTransformerOperator(TransformerOperator):
             if chunked:
                 return Dataset(forward_in_row_chunks(self.forward, arrays, n, rows))
             return Dataset(self.forward(*arrays))
-        # item-list inputs: the per-op Dataset semantics the unfused graph
-        # would have used
+        # item-list or sparse-row inputs: the per-op Dataset semantics the
+        # unfused graph would have used (a SparseRows batch has no rows to
+        # chunk into a CUDA graph; each step's own apply_batch reads it)
         values = list(datasets)
         for op, deps in self.steps:
             args = [DatasetExpression.now(values[i]) for i in deps]

@@ -165,10 +165,17 @@ def test_lbfgs_estimators_on_dense_data_match_jax(cls, reg):
 
 
 def test_sparse_lbfgs_refuses_sparse_rows_for_now():
+    """Sparse rows are ported now: scipy items fit as one SparseRows
+    batch into a SparseLinearMapper whose W matches the JAX fit's."""
     sp = pytest.importorskip("scipy.sparse")
+    from keystone_tpu_torch.nodes.learning.linear import SparseLinearMapper
+
     items = [sp.csr_matrix(np.eye(1, 8, k=i)) for i in range(4)]
-    with pytest.raises(NotImplementedError, match="sparse rows"):
-        SparseLBFGSwithL2().fit(Dataset.from_items(items), Dataset.of(np.ones((4, 1), np.float32)))
+    Y = np.ones((4, 1), np.float32)
+    got = SparseLBFGSwithL2().fit(Dataset.from_items(items), Dataset.of(Y))
+    want = jlbfgs.SparseLBFGSwithL2().fit(JDataset.from_items(items), JDataset.of(Y))
+    assert isinstance(got, SparseLinearMapper) and got.W.shape == (8, 1)
+    np.testing.assert_allclose(got.W.numpy(), np.asarray(want.W), rtol=1e-3, atol=1e-4)
 
 
 def test_local_least_squares_matches_jax():
