@@ -51,8 +51,16 @@ frontend, which must have been built and run) and the card; the sparse
 L-BFGS at the reference's Amazon shape (n 262,144, d 16,384, 85 entries a
 row, 50 iterations) by its Gram and its gather/scatter strategies, against
 the planted flip rate, each other and the Gram's FP32 bound; and
-StupidBackoffPipeline's defaults. Each phase prints one
-JSON line; any failure raises and exits non-zero. The last line is
+StupidBackoffPipeline's defaults. Last, the out-of-core fit: the pipelined
+scan against a serial one (overlap, bit-equal results) and a fused chain's
+CUDA graphs over ragged chunks; bench.py's streamed block and exact solves
+at TIMIT's 2,228,224 rows (d 16,384 and 8,192, drawn on the card chunk by
+chunk, against their planted models); TimitPipeline fitted over all
+2,228,224 synthetic frames at d = 16,384 (4 cosine branches), the 146 GB
+design matrix never whole (20 block steps, 21 scans of 34 chunks, peak
+below 32 GB); the least-squares family on the chunked frames; the chunked
+fit against the in-memory one at 200,000 frames; and the scan's card tests.
+Each phase prints one JSON line; any failure raises and exits non-zero. The last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card it exits non-zero
 and prints no result.
 """
@@ -61,6 +69,8 @@ from __future__ import annotations
 
 import functools
 import json
+import math
+import os
 import subprocess
 import sys
 import time
@@ -1243,6 +1253,451 @@ def text_phases(cli, dev, card) -> dict:
     return launches
 
 
+# The out-of-core fit (slice 10): TimitPipeline over all of TIMIT's frames
+# (bench.py's count, 34 chunks of 65,536), the JAX TimitConfig's defaults
+# but 4 cosine branches (d = 16,384, the solver comparison's TIMIT width:
+# at the CLI's 50 each of the 21 scans would refeaturize 2.2 M × 204,800),
+# the 2,228,224 × 16,384 design matrix (146 GB) never whole
+OOC_CHUNK, OOC_CHUNKS = 65536, 34
+OOC_ROWS = OOC_CHUNK * OOC_CHUNKS
+OOC_COSINES, OOC_TEST = 4, 100_000
+OOC_STEPS = 5 * OOC_COSINES  # epochs × blocks of 4096
+OOC_PEAK_LIMIT = 32e9
+OOC_MEMORY_ROWS = 200_000  # the in-memory comparison: 13.1 GB of features
+# bench.py's planted streaming rows (timit_block_stream_full_n, timit_exact_d8192)
+STREAM_SIGMA, STREAM_LAMBDA = 0.5, 1e-2
+BLOCK_STREAM = dict(d=16384, block=4096, k=147, rows=OOC_CHUNK, chunks=OOC_CHUNKS)
+EXACT_STREAM = dict(d=8192, k=147, rows=131072, chunks=17)
+# bench.py's scan-overlap row: 16 host chunks of 4096 × 256, the last 1500 rows
+OVERLAP_CHUNKS, OVERLAP_ROWS, OVERLAP_D, OVERLAP_TAIL = 16, 4096, 256, 1500
+# bench.py's step is a 25 µs Gram queued on the card, which a serial scan
+# already overlaps with host production; the gated consumer waits for each
+# chunk's result (4096 cosine features and their Gram, ~2.5 ms) before it
+# takes the next, which only a producer thread can overlap
+OVERLAP_WIDTH, OVERLAP_TURNS = 4096, 6
+RAGGED_ROWS = [512, 480, 500, 300, 450, 200]
+
+
+class ScanLog:
+    """Records the counters of every pipelined scan made while it is
+    entered (the ScanPipeline constructor is wrapped and restored)."""
+
+    def __enter__(self) -> list:
+        from keystone_tpu_torch.data.pipeline_scan import ScanPipeline
+
+        self._cls, self._orig = ScanPipeline, ScanPipeline.__init__
+        self.scans = []
+        orig, scans = self._orig, self.scans
+
+        @functools.wraps(orig)
+        def init(obj, *args, **kwargs):
+            orig(obj, *args, **kwargs)
+            scans.append(obj.stats)
+
+        ScanPipeline.__init__ = init
+        return self.scans
+
+    def __exit__(self, *exc) -> None:
+        self._cls.__init__ = self._orig
+
+
+def stall_totals(scans) -> dict:
+    return {k: sum(getattr(s, k) for s in scans)
+            for k in ("producer_seconds", "producer_stall_seconds", "consumer_stall_seconds",
+                      "staged_bytes")}
+
+
+def planted_stream(dev, chunk_rows: int, d: int, k: int, seed: int):
+    """bench.py's planted streaming problem on the card: w* ~ N(0, 1/d),
+    chunk i's rows drawn from a generator seeded by (seed, i), labels
+    A·w* + σ·ε. Returns (w*, the chunk function)."""
+    w_star = torch.randn(d, k, device=dev,
+                         generator=torch.Generator(dev).manual_seed(seed)) / d ** 0.5
+
+    def feat(i):
+        return torch.randn(chunk_rows, d, device=dev,
+                           generator=torch.Generator(dev).manual_seed(seed * 1_000_003 + i))
+
+    def labels(i, A):
+        eps = torch.randn(chunk_rows, k, device=dev,
+                          generator=torch.Generator(dev).manual_seed(seed * 1_000_033 + i))
+        return A @ w_star + STREAM_SIGMA * eps
+
+    return w_star, feat, labels
+
+
+def out_of_core_phases(dev, card) -> dict:
+    """The out-of-core fit: the scan runtime's overlap and row buckets;
+    bench.py's streamed block and exact solves at TIMIT's full row count;
+    TimitPipeline fitted over all 2,228,224 frames with the design matrix
+    never whole; the least-squares family on chunked input; the chunked fit
+    against the in-memory one at 200,000 frames; the card tests of the
+    scan. Returns the K1 launches of each path (none reaches K1)."""
+    import numpy as np
+
+    from keystone_tpu_torch.data.chunked import ChunkedDataset
+    from keystone_tpu_torch.data.dataset import Dataset
+    from keystone_tpu_torch.data.pipeline_scan import bucket_ladder, scan_pipeline
+    from keystone_tpu_torch import cost
+    from keystone_tpu_torch.linalg import bcd, normal_equations
+    from keystone_tpu_torch.loaders.csv_loader import LabeledData
+    from keystone_tpu_torch.nodes.learning.classifiers import LeastSquaresEstimator
+    from keystone_tpu_torch.nodes.learning.linear import (
+        BlockLeastSquaresEstimator, BlockLinearMapper, LinearMapEstimator,
+        TSQRLeastSquaresEstimator,
+    )
+    from keystone_tpu_torch.nodes.util import ClassLabelIndicators, MaxClassifier
+    from keystone_tpu_torch.ops import gaussian_kernel as gk
+    from keystone_tpu_torch.pipelines import timit
+    from keystone_tpu_torch.workflow import fusion
+    from keystone_tpu_torch.workflow.env import PipelineEnv
+    from keystone_tpu_torch.workflow.pipeline import Pipeline, clock
+    from keystone_tpu_torch.workflow.rules import RuleExecutor
+    from keystone_tpu_torch.workflow.transformer import FunctionNode
+
+    launches = {}
+
+    def start(name):
+        fresh_env()
+        gk.gaussian_kernel_block.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        return name, clock()
+
+    def finish(name, t0, row):
+        launches[name] = gk.gaussian_kernel_block.launches
+        row.update(phase=name, seconds=clock() - t0,
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   k1_launches=launches[name], card=card)
+        emit(row)
+        check(launches[name] == 0, f"{name} launched K1 {launches[name]} times")
+        return row
+
+    def with_env(name, value, fn):
+        prior = os.environ.get(name)
+        os.environ[name] = value
+        try:
+            return fn()
+        finally:
+            if prior is None:
+                del os.environ[name]
+            else:
+                os.environ[name] = prior
+
+    # -- scan_overlap: host production against the card, serial and pipelined
+    name, t0 = start("scan_overlap")
+
+    def host_chunk(i):
+        rows = OVERLAP_TAIL if i == OVERLAP_CHUNKS - 1 else OVERLAP_ROWS
+        x = np.random.default_rng(1000 + i).standard_normal((rows, OVERLAP_D)).astype(np.float32)
+        return np.tanh(x)
+
+    gen = torch.Generator(dev).manual_seed(13)
+    W_rf = torch.randn(OVERLAP_D, OVERLAP_WIDTH, device=dev, generator=gen) * 0.1
+    b_rf = torch.rand(OVERLAP_WIDTH, device=dev, generator=gen) * 6.283185307179586
+
+    def bench_step(acc, c):
+        # bench.py's step: queued on the card, the host goes on at once
+        acc.addmm_(c.T, c)
+
+    def waiting_step(acc, c):
+        # the chunk featurized to 4096 cosines and its Gram accumulated,
+        # and the result read before the next chunk is taken
+        F = torch.addmm(b_rf, c, W_rf).cos_()
+        acc.addmm_(F.T, F)
+        acc.diagonal().sum().item()
+
+    def consume(step, width):
+        def run(it):
+            acc = torch.zeros(width, width, device=dev)
+            for c in it:
+                step(acc, c)
+            torch.cuda.synchronize()
+            return acc
+        return run
+
+    def src():
+        return (host_chunk(i) for i in range(OVERLAP_CHUNKS))
+
+    overlap_rows = {}
+    for label, step, width in (("bench_step", bench_step, OVERLAP_D),
+                               ("waiting_step", waiting_step, OVERLAP_WIDTH)):
+        run = consume(step, width)
+        staged = [torch.from_numpy(host_chunk(i)).to(dev) for i in range(OVERLAP_CHUNKS)]
+        run(iter(staged))  # cuBLAS warm
+        t1 = time.perf_counter()
+        run(iter(staged))
+        t_dev = time.perf_counter() - t1
+        del staged
+        t1 = time.perf_counter()
+        for i in range(OVERLAP_CHUNKS):
+            host_chunk(i)
+        t_host = time.perf_counter() - t1
+        times, accs = {"0": [], "1": []}, {}
+        for _ in range(OVERLAP_TURNS):  # in turns: serial, pipelined
+            for mode in ("0", "1"):
+                t1 = time.perf_counter()
+                accs[mode] = with_env("KEYSTONE_SCAN_PIPELINE", mode,
+                                      lambda: run(scan_pipeline(src(), label="overlap",
+                                                                device=dev)))
+                times[mode].append(time.perf_counter() - t1)
+        t_serial, t_pipe = min(times["0"]), min(times["1"])
+        overlap_rows[label] = {
+            "seconds_host_production_only": t_host, "seconds_device_consume_only": t_dev,
+            "seconds_serial_scan": times["0"], "seconds_pipelined_scan": times["1"],
+            "speedup_vs_serial": t_serial / t_pipe,
+            "overlap_fraction": max(0.0, min(1.0, (t_serial - t_pipe)
+                                             / max(min(t_host, t_dev), 1e-9))),
+            "bit_equal": bool(torch.equal(accs["0"], accs["1"]))}
+    # a two-step chain over ragged card chunks: CUDA graphs per bucket
+    rng = np.random.default_rng(5)
+    parts = [torch.from_numpy(rng.standard_normal((r, 16)).astype(np.float32)).to(dev)
+             for r in RAGGED_ROWS]
+    outs, captures = {}, {}
+    for buckets in ("0", "1"):
+        fresh_env()
+        ds = ChunkedDataset.from_chunk_fn(lambda i: parts[i], len(parts), sum(RAGGED_ROWS))
+        pipe = FunctionNode(batch_fn=lambda x: x * 2.0).and_then(
+            FunctionNode(batch_fn=lambda x: x + 1.0))
+        outs[buckets] = with_env("KEYSTONE_CHUNK_BUCKETS", buckets,
+                                 lambda: pipe.apply(ds).get().to_array())
+        captures[buckets] = sum(len(c) for c in fusion._FUSED_GRAPHS.values())
+    ladder = bucket_ladder(RAGGED_ROWS[0])
+    ragged_dev = ((outs["1"] - outs["0"]).abs() / outs["0"].abs().clamp_min(1e-30)).max().item()
+    finish(name, t0, {
+        "chunks": OVERLAP_CHUNKS, "rows": OVERLAP_ROWS, "tail_rows": OVERLAP_TAIL,
+        "d": OVERLAP_D, "features": OVERLAP_WIDTH, "turns": OVERLAP_TURNS,
+        "consumers": overlap_rows, "ragged_rows": RAGGED_ROWS, "bucket_ladder": list(ladder),
+        "graph_captures": captures, "ragged_max_rel_dev": ragged_dev})
+    waiting = overlap_rows["waiting_step"]
+    check(waiting["overlap_fraction"] > 0,
+          f"no overlap: serial {waiting['seconds_serial_scan']} s, "
+          f"pipelined {waiting['seconds_pipelined_scan']} s")
+    check(all(r["bit_equal"] for r in overlap_rows.values()),
+          "the pipelined scan's result differs from the serial scan's")
+    check(captures["1"] <= len(ladder), f"{captures['1']} graph captures, ladder {ladder}")
+    check(ragged_dev <= 1e-6, f"bucketed chain {ragged_dev} off the unbucketed one")
+    del parts, outs
+
+    # -- block_stream_full_n: bench.py's streamed BCD at TIMIT's row count
+    name, t0 = start("block_stream_full_n")
+    d, bs, k, rows, n_chunks = (BLOCK_STREAM[key] for key in ("d", "block", "k", "rows", "chunks"))
+    n = rows * n_chunks
+    w_star, feat, labels_of = planted_stream(dev, rows, d, k, 29)
+    y = torch.cat([labels_of(i, feat(i)) for i in range(n_chunks)])
+    t_labels = clock() - t0
+    ds = ChunkedDataset.from_chunk_fn(feat, n_chunks, n, label="planted")
+    with ScanLog() as scans:
+        t1 = clock()
+        W = torch.cat(bcd.solve_blockwise_l2_streaming(
+            ds.raw_chunks, y, STREAM_LAMBDA, bs, 1, means=torch.zeros(d, device=dev)))
+        t_solve = clock() - t1
+    rel = (torch.linalg.norm(W - w_star) / torch.linalg.norm(w_star)).item()
+    analytic = STREAM_SIGMA * (d / (n - d)) ** 0.5
+    flops = 2.0 * n * bs * d + 3 * 2.0 * n * d * k + (d // bs) * bs ** 3 / 3
+    finish(name, t0, {
+        "n": n, "d": d, "block_size": bs, "k": k, "chunks": n_chunks,
+        "design_matrix_gb": n * d * 4 / 1e9, "labels_seconds": t_labels,
+        "solve_seconds": t_solve, "solve_flops": flops, "fp32_bound_seconds": flops / FP32_FLOPS,
+        "share_of_fp32_bound": flops / FP32_FLOPS / t_solve,
+        "scans": [[s.label, s.chunks] for s in scans], "stalls": stall_totals(scans),
+        "model_rel_err": rel, "model_rel_err_analytic": analytic})
+    check(0.5 * analytic < rel < 2.0 * analytic,
+          f"model error {rel} outside [0.5, 2] × the analytic {analytic}")
+    check(len(scans) == d // bs and all(s.chunks == n_chunks for s in scans),
+          f"scans {[(s.label, s.chunks) for s in scans]}")
+    del W, y, ds, w_star
+
+    # -- exact_stream_d8192: bench.py's streamed exact solve at that count
+    name, t0 = start("exact_stream_d8192")
+    d, k, rows, n_chunks = (EXACT_STREAM[key] for key in ("d", "k", "rows", "chunks"))
+    n = rows * n_chunks
+    w_star, feat, labels_of = planted_stream(dev, rows, d, k, 11)
+
+    def pair(i):
+        A = feat(i)
+        return A, labels_of(i, A)
+
+    t1 = clock()
+    W = normal_equations.solve_least_squares_streaming(
+        ChunkedDataset.from_chunk_fn(pair, n_chunks, n, label="planted").raw_chunks(),
+        reg=STREAM_LAMBDA, device=dev)
+    t_solve = clock() - t1
+    rel = (torch.linalg.norm(W - w_star) / torch.linalg.norm(w_star)).item()
+    analytic = STREAM_SIGMA * (d / (n - d)) ** 0.5
+    flops = 2.0 * n * d * d + 2.0 * n * d * k + d ** 3 / 3
+    finish(name, t0, {
+        "n": n, "d": d, "k": k, "chunks": n_chunks, "design_matrix_gb": n * d * 4 / 1e9,
+        "solve_seconds": t_solve, "solve_flops": flops, "fp32_bound_seconds": flops / FP32_FLOPS,
+        "share_of_fp32_bound": flops / FP32_FLOPS / t_solve,
+        "model_rel_err": rel, "model_rel_err_analytic": analytic})
+    check(0.5 * analytic < rel < 2.0 * analytic,
+          f"model error {rel} outside [0.5, 2] × the analytic {analytic}")
+    del W, w_star
+
+    # -- timit_out_of_core: the slice's main path at full width ----------
+    conf = timit.TimitConfig(num_cosines=OOC_COSINES)
+    t1 = time.perf_counter()
+    train = timit.synthetic_timit(OOC_ROWS, conf.num_classes, seed=1)
+    test = timit.synthetic_timit(OOC_TEST, conf.num_classes, seed=2)
+    host_draw = time.perf_counter() - t1
+    frames = train.data.to_array().to(dev)
+    train_labels = train.labels.to_array().numpy()
+    del train
+    name, t0 = start("timit_out_of_core")
+    steps0 = bcd.solve_blockwise_l2_streaming.block_steps
+    chunked = LabeledData(train_labels, ChunkedDataset.from_array(frames, OOC_CHUNK))
+    phases = {}
+    with Probe() as probe, ScanLog() as scans:
+        probe.watch_fit(Pipeline)
+        probe.watch(BlockLeastSquaresEstimator, "fit")
+        probe.watch(RuleExecutor, "execute")
+        scorer, tr_err, te_err, seconds = timit.run(chunked, test, conf, dev, phases)
+        fit_graph = probe.last["RuleExecutor.execute:fit"][0]
+        fitted = scorer.and_then(MaxClassifier()).fit()
+    peak = torch.cuda.max_memory_allocated()
+    steps = bcd.solve_blockwise_l2_streaming.block_steps - steps0
+    fit_scans = [s for s in scans if s.label in ("column_means", "bcd.stream")]
+    bcd_scans = [s for s in fit_scans if s.label == "bcd.stream"]
+    step_seconds = [b.start - a.start for a, b in zip(bcd_scans, bcd_scans[1:])]
+    fits = {k: v for k, v in probe.calls.items() if k.startswith("BlockLeast")}
+    full_steps = OOC_COSINES + 2
+    # the featurizer alone over the frames, one scan: its share of the solve
+    feat_only = timit.build_featurizer(conf, dev).apply(
+        ChunkedDataset.from_array(frames, OOC_CHUNK)).get()
+    t1 = clock()
+    for c in feat_only.chunks():
+        del c
+    featurize_scan = clock() - t1
+    finish("timit_out_of_core", t0, {
+        "rows": OOC_ROWS, "chunks": OOC_CHUNKS, "chunk_rows": OOC_CHUNK,
+        "num_cosines": OOC_COSINES, "d": OOC_COSINES * timit.NUM_COSINE_FEATURES,
+        "design_matrix_gb": OOC_ROWS * OOC_COSINES * timit.NUM_COSINE_FEATURES * 4 / 1e9,
+        "test_rows": OOC_TEST, "host_draw_seconds": host_draw,
+        "train_error": tr_err, "test_error": te_err, "run_seconds": seconds,
+        "phase_seconds": phases, "block_steps": steps,
+        "scans": {"column_means": [s.chunks for s in fit_scans if s.label == "column_means"],
+                  "bcd.stream": [s.chunks for s in bcd_scans]},
+        "means_scan_seconds": [s.end - s.start for s in fit_scans if s.label == "column_means"],
+        "block_step_seconds_first_epoch": step_seconds[:OOC_COSINES],
+        "block_step_seconds_later_epochs": step_seconds[OOC_COSINES:],
+        "featurize_scan_seconds": featurize_scan,
+        "featurize_share_of_solve": len(fit_scans) * featurize_scan / phases["solve"],
+        "stalls": stall_totals(fit_scans), "peak_run_gb": peak / 1e9,
+        "peak_limit_gb": OOC_PEAK_LIMIT / 1e9,
+        "estimator_fits": fits, "fitted_chain": chain(fitted),
+        "fitted_fused_steps": [len(g) for g in fused_steps(fitted.graph)],
+        "fit_graph_fused_steps": [len(g) for g in fused_steps(fit_graph)]})
+    check(steps == OOC_STEPS, f"{steps} streamed block steps, want {OOC_STEPS}")
+    check([s.label for s in fit_scans] == ["column_means"] + ["bcd.stream"] * OOC_STEPS
+          and all(s.chunks == OOC_CHUNKS for s in fit_scans),
+          f"fit scans {[(s.label, s.chunks) for s in fit_scans]}")
+    check(peak < OOC_PEAK_LIMIT, f"peak memory {peak} B is not below {OOC_PEAK_LIMIT} B")
+    check(te_err < 0.2, f"test error {te_err} is not below 0.2")
+    check(fits == {"BlockLeastSquaresEstimator.fit:fit": 1},
+          f"the BCD estimator must fit once, in fit(): {fits}")
+    check(chain(fitted) == ["FusedTransformerOperator", "BlockLinearMapper", "MaxClassifier"],
+          f"fitted chain {chain(fitted)}")
+    check([len(g) for g in fused_steps(fit_graph)] == [full_steps, full_steps],
+          f"fit-graph fused groups {[len(g) for g in fused_steps(fit_graph)]}")
+    del scorer, fitted, fit_graph, feat_only, probe, chunked
+
+    # -- ls_chunked: the least-squares family on the chunked frames ------
+    name, t0 = start("ls_chunked")
+    Y = ClassLabelIndicators(conf.num_classes).forward(torch.from_numpy(train_labels).to(dev))
+    raw = ChunkedDataset.from_array(frames, OOC_CHUNK)
+    with Probe() as probe:
+        for cls in (LinearMapEstimator, BlockLeastSquaresEstimator, TSQRLeastSquaresEstimator):
+            probe.watch(cls, "_fit_streaming")
+        t1 = clock()
+        raw_model = LeastSquaresEstimator().fit(raw, Dataset.of(Y))
+        raw_seconds = clock() - t1
+    raw_fits = dict(probe.calls)
+    W_mem = LinearMapEstimator(0.0).fit(Dataset.of(frames), Dataset.of(Y)).W
+    raw_rel = (torch.linalg.norm(raw_model.W - W_mem) / torch.linalg.norm(W_mem)).item()
+    del W_mem
+    # planned in a graph on the chunked 16,384-wide features
+    pipe = timit.build_featurizer(conf, dev).and_then(LeastSquaresEstimator(), raw, Y)
+    graph, _ = PipelineEnv.get_or_create().optimizer.execute(pipe.graph)
+    (planned,) = [op for op in graph.operators.values()
+                  if type(op).__name__.endswith("Estimator")]
+    d_feat = OOC_COSINES * timit.NUM_COSINE_FEATURES
+    choice = LeastSquaresEstimator().choose_solver(
+        cost.ShapeSignature(OOC_ROWS, d_feat, conf.num_classes, chunked=True))
+    del pipe, graph
+    # TSQR against the exact solve, both streamed, on one 4096-wide branch
+    branch = timit._cosine_branch(conf, 0, dev)
+    feats = branch.apply_batch(raw)
+    t1 = clock()
+    W_tsqr = TSQRLeastSquaresEstimator(0.0).fit(feats, Dataset.of(Y)).W
+    tsqr_seconds = clock() - t1
+    t1 = clock()
+    W_exact = LinearMapEstimator(0.0).fit(feats, Dataset.of(Y)).W
+    exact_seconds = clock() - t1
+    tsqr_rel = (torch.linalg.norm(W_tsqr - W_exact) / torch.linalg.norm(W_exact)).item()
+    finish(name, t0, {
+        "rows": OOC_ROWS, "raw_choice": type(raw_model).__name__, "raw_streaming_fits": raw_fits,
+        "raw_fit_seconds": raw_seconds, "raw_rel_dev_from_in_memory": raw_rel,
+        "features_plan": {"label": type(planned).__name__,
+                          "block_size": getattr(planned, "block_size", None),
+                          "num_iter": getattr(planned, "num_iter", None)},
+        "features_units": {k: r["units"] for k, r in choice.costs.items()},
+        "tsqr_fit_seconds": tsqr_seconds, "exact_fit_seconds": exact_seconds,
+        "tsqr_rel_dev_from_exact": tsqr_rel, "limit": 1e-3})
+    check(type(raw_model).__name__ == "LinearMapper"
+          and raw_fits == {"LinearMapEstimator._fit_streaming:apply": 1},
+          f"the chunked raw frames must stream LinearMapEstimator once: {raw_fits}")
+    check(raw_rel < 1e-3, f"the streamed exact solve is {raw_rel} off the in-memory one")
+    check(isinstance(planned, BlockLeastSquaresEstimator)
+          and (planned.block_size, planned.num_iter) == (1000, 3),
+          f"planned {type(planned).__name__} for the chunked features")
+    check(all(math.isinf(choice.costs[k]["units"])
+              for k in ("DenseLBFGSwithL2", "SparseLBFGSwithL2")),
+          f"the L-BFGS options on chunked input: {choice.costs}")
+    check(tsqr_rel < 1e-3, f"streamed TSQR's W is {tsqr_rel} off the streamed exact solve's")
+    del frames, raw, feats, Y, W_tsqr, W_exact, raw_model, branch
+
+    # -- timit_stream_vs_memory: the chunked fit against the in-memory one
+    name, t0 = start("timit_stream_vs_memory")
+    train = timit.synthetic_timit(OOC_MEMORY_ROWS, conf.num_classes, seed=3)
+    params = [(b.W.cpu().numpy(), b.b.cpu().numpy())
+              for b in (timit._cosine_branch(conf, i, "cpu") for i in range(OOC_COSINES))]
+    Xm = train.data.to_array().to(dev)
+    models, preds = {}, {}
+    Xt = test.data.to_array().to(dev)
+    for how, data in (("memory", Xm), ("chunked", ChunkedDataset.from_array(Xm, OOC_CHUNK))):
+        fresh_env()
+        scorer, _, _, _ = timit.run(LabeledData(train.labels.to_array().numpy(), data), test,
+                                    conf, dev, params=params)
+        scores = scorer.fit()
+        models[how] = next(op for op in scores.graph.operators.values()
+                           if isinstance(op, BlockLinearMapper))._W
+        preds[how] = scores.apply(Xt).to_array().argmax(dim=1)
+    excess = ((models["chunked"] - models["memory"]).abs()
+              - (2e-4 + 2e-3 * models["memory"].abs())).max().item()
+    w_rel = (torch.linalg.norm(models["chunked"] - models["memory"])
+             / torch.linalg.norm(models["memory"])).item()
+    preds_equal = bool(torch.equal(preds["chunked"], preds["memory"]))
+    finish(name, t0, {"rows": OOC_MEMORY_ROWS, "d": d_feat, "w_rel_dev": w_rel,
+                      "w_tolerance_excess": excess, "tolerance": {"rtol": 2e-3, "atol": 2e-4},
+                      "predictions_equal": preds_equal})
+    check(excess <= 0, f"the chunked fit's W is off the in-memory one beyond tolerance ({excess})")
+    check(preds_equal, "the chunked and in-memory fits predict differently")
+    del Xm, Xt, models, preds, train, test
+
+    # -- the scan's card tests ------------------------------------------
+    t1 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-p", "no:cacheprovider", "-q",
+         "tests/test_torch_cuda_streaming.py"], capture_output=True, text=True, timeout=900)
+    summary = (proc.stdout.strip().splitlines() or [""])[-1]
+    emit({"phase": "cuda_streaming_tests", "returncode": proc.returncode, "summary": summary,
+          "seconds": time.perf_counter() - t1})
+    check(proc.returncode == 0 and "passed" in summary and "skipped" not in summary,
+          f"the scan's card tests: {proc.stdout[-4000:]}{proc.stderr[-2000:]}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1672,6 +2127,7 @@ def main() -> int:
     voc_k1 = voc_phases(cli, dev, card)
     imagenet_k1 = imagenet_phases(cli, dev, card)
     text_k1 = text_phases(cli, dev, card)
+    ooc_k1 = out_of_core_phases(dev, card)
 
     emit({"phase": "total", "seconds": time.perf_counter() - started, "card": card})
     fit = timings["fit"]
@@ -1685,7 +2141,7 @@ def main() -> int:
         "launches_by_path": {"slice": launches, "compiled_cifar": compiled_launches,
                              "krr_family": krr_launches, "timit_full_width": timit_k1,
                              "cifar_family": cifar_family_k1, "voc": voc_k1, **imagenet_k1,
-                             **text_k1},
+                             **text_k1, **ooc_k1},
     }]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

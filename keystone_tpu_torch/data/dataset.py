@@ -95,6 +95,11 @@ class Dataset:
         return self._batched
 
     @property
+    def is_chunked(self) -> bool:
+        """True for an out-of-core :class:`~keystone_tpu_torch.data.chunked.ChunkedDataset`."""
+        return False
+
+    @property
     def payload(self) -> Any:
         return self._payload
 

@@ -1,6 +1,7 @@
-"""Least squares by normal equations (port of the in-memory solves of
-``keystone_tpu/linalg/normal_equations.py``; the streaming accumulator is
-not ported). The Gram and cross products run in FP32 (``row_matrix``)."""
+"""Least squares by normal equations (port of
+``keystone_tpu/linalg/normal_equations.py``). The Gram and cross products
+run in FP32 (``row_matrix``); the streaming solve accumulates them over
+row chunks, so only the (d, d) Gram and one chunk are on the card."""
 
 from __future__ import annotations
 
@@ -8,6 +9,7 @@ from typing import Tuple
 
 import torch
 
+from ..data.pipeline_scan import scan_pipeline
 from .row_matrix import cross, gram, solve_spd
 
 
@@ -45,3 +47,33 @@ def solve_least_squares_with_intercept(
     """Mean-centered least squares: returns (weights, intercept)."""
     W, a_mean, b_mean = solve_centered(A, b, reg)
     return W, b_mean - a_mean @ W
+
+
+def gram_accumulate(G: torch.Tensor, C: torch.Tensor, A_chunk: torch.Tensor,
+                    y_chunk: torch.Tensor) -> None:
+    """One streaming update, in place: G += AᵀA, C += Aᵀy."""
+    G.addmm_(A_chunk.T, A_chunk)
+    C.addmm_(A_chunk.T, y_chunk)
+
+
+def solve_least_squares_streaming(chunks, reg: float = 0.0, device=None) -> torch.Tensor:
+    """The exact ridge solve over an iterable of (A_chunk, y_chunk) row
+    chunks, through the pipelined scan (chunks produced elsewhere are
+    copied to ``device``); returns the (d, k) solution."""
+    G = C = None
+    for A_chunk, y_chunk in scan_pipeline(chunks, label="normal_eq", device=device):
+        A_chunk, y_chunk = A_chunk.float(), y_chunk.float()
+        if A_chunk.dim() != 2 or y_chunk.dim() != 2:
+            raise ValueError(f"chunks must be 2-D (A: {tuple(A_chunk.shape)}, "
+                             f"y: {tuple(y_chunk.shape)})")
+        if G is None:
+            d, k = A_chunk.shape[1], y_chunk.shape[1]
+            G = torch.zeros((d, d), dtype=torch.float32, device=A_chunk.device)
+            C = torch.zeros((d, k), dtype=torch.float32, device=A_chunk.device)
+        elif A_chunk.shape[1] != G.shape[0]:
+            raise ValueError(f"a chunk is {A_chunk.shape[1]} columns wide, the first "
+                             f"was {G.shape[0]}")
+        gram_accumulate(G, C, A_chunk, y_chunk)
+    if G is None:
+        raise ValueError("no chunks")
+    return solve_spd(G, C, reg)

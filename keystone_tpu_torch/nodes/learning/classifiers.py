@@ -246,12 +246,18 @@ class LeastSquaresEstimator(LabelEstimator, AutoSolverFrontDoor, CostModel, Opti
                               chunked=bool(chunked), machines=int(self.num_machines or 1))
 
     def optimize(self, sample: Dataset, sample_labels: Dataset,
-                 total_n: Optional[int] = None) -> LabelEstimator:
+                 total_n: Optional[int] = None, chunked: bool = False) -> LabelEstimator:
         """The solver for data of which ``sample`` is a part and ``total_n``
-        the size (the sample's own size when None)."""
+        the size (the sample's own size when None); ``chunked`` data
+        arrives as out-of-core chunks, which only a streaming solver takes."""
         n = total_n if total_n is not None else len(Dataset.of(sample))
-        return self.sample_optimize([sample, sample_labels], n)
+        return self.sample_optimize([sample, sample_labels], n, chunked=chunked)
 
     def fit(self, data: Dataset, labels: Dataset):
+        """Choose the solver, then fit it. A chunked ``data`` is planned from
+        its first 24 rows and handed to the chosen solver's streaming fit."""
         data, labels = Dataset.of(data), Dataset.of(labels)
-        return self.optimize(data, labels, total_n=len(data)).fit(data, labels)
+        chunked = data.is_chunked
+        sample = data.take(24) if chunked else data
+        solver = self.optimize(sample, labels, total_n=len(data), chunked=chunked)
+        return solver.fit(data, labels)

@@ -1,6 +1,5 @@
 """Linear solvers: exact normal equations, block coordinate descent and
-the augmented TSQR (port of the in-memory paths of
-``keystone_tpu/nodes/learning/linear.py``).
+the augmented TSQR (port of ``keystone_tpu/nodes/learning/linear.py``).
 
 Features and labels are mean-centered before solving; the label mean
 becomes the intercept, and the block estimator centers each feature block
@@ -10,9 +9,14 @@ by its own column means. The fitted models apply as one GEMM,
 Each solver prices itself with ``cost`` (the JAX package's analytic
 units), which the cost-model chooser of ``LeastSquaresEstimator`` ranks.
 
-Not ported: the snapshot, checkpoint and streaming fits and
-``fit_lambda_grid``; without a streaming fit no solver here sets
-``supports_streaming``.
+Each of the three fits an out-of-core
+:class:`~keystone_tpu_torch.data.chunked.ChunkedDataset` by streaming
+(``supports_streaming``): a scan for the column means, then the exact
+solve's Gram, the augmented TSQR's R factor, or one scan a BCD block step,
+so the design matrix is never whole. Not ported: the snapshot and
+checkpointed fits (``linalg/accumulators.py``, ``faults/checkpoint.py``)
+and ``fit_lambda_grid``, which ROADMAP Queue 1 item 11 leaves to a later
+slice; asking for a snapshot or a checkpoint raises.
 """
 
 from __future__ import annotations
@@ -24,8 +28,13 @@ import torch
 from ...data.dataset import Dataset
 from ...data.sparse import SparseRows
 from ...linalg import bcd, normal_equations, tsqr
-from ...linalg.bcd import _block_means, solve_blockwise_l2
-from ...linalg.normal_equations import solve_centered
+from ...linalg.bcd import (
+    _block_means,
+    solve_blockwise_l2,
+    solve_blockwise_l2_streaming,
+    stream_column_means,
+)
+from ...linalg.normal_equations import solve_centered, solve_least_squares_streaming
 from ...workflow.transformer import LabelEstimator, Transformer
 from .cost import CostModel, combine_cost
 
@@ -50,17 +59,71 @@ class LinearMapper(Transformer):
         return out
 
 
-class LinearMapEstimator(LabelEstimator, CostModel):
-    """Exact ridge regression by normal equations on centered data."""
+def _later_slice(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet: it comes with linalg/accumulators.py and "
+        "faults/checkpoint.py in a later slice (ROADMAP Queue 1, item 11)")
 
-    def __init__(self, lam: Optional[float] = None):
+
+def _streaming_labels(data, labels: Dataset):
+    """The labels of a streaming fit as float32, and the column means and
+    row count of ``data``'s chunks (one scan, the chunks copied to the
+    labels' device)."""
+    y = Dataset.of(labels).to_array().float()
+    mean, n = stream_column_means(data.raw_chunks, device=y.device)
+    if n != y.shape[0]:
+        raise ValueError(f"chunked features have {n} rows, labels {y.shape[0]}")
+    return y, mean
+
+
+def _with_labels(data, y: torch.Tensor, d: int, fn):
+    """A chunk source for one scan of ``data``: each chunk, which must be
+    ``d`` wide, passed to ``fn(chunk, its rows of y)`` on the scan's
+    consumer."""
+    offset = [0]
+
+    def step(chunk):
+        chunk = chunk.float()
+        if chunk.shape[1] != d:
+            raise ValueError(f"the chunks are {chunk.shape[1]} columns wide, the fit "
+                             f"expects d = {d}")
+        o = offset[0]
+        offset[0] = o + chunk.shape[0]
+        return fn(chunk, y[o:offset[0]])
+
+    return data.raw_chunks().then(step)
+
+
+class LinearMapEstimator(LabelEstimator, CostModel):
+    """Exact ridge regression by normal equations on centered data. A
+    chunked input streams: a scan for the column means, then one scan of
+    centered (A, y) chunks into the Gram and cross products."""
+
+    supports_streaming = True
+
+    def __init__(self, lam: Optional[float] = None, snapshot: bool = False,
+                 checkpoint: Optional[str] = None):
+        if snapshot:
+            raise _later_slice("LinearMapEstimator(snapshot=True)")
+        if checkpoint is not None:
+            raise _later_slice("LinearMapEstimator(checkpoint=...)")
         self.lam = lam
 
     def fit(self, data: Dataset, labels: Dataset) -> LinearMapper:
+        if getattr(data, "is_chunked", False):
+            return self._fit_streaming(data, labels)
         A = Dataset.of(data).to_array()
         b = Dataset.of(labels).to_array().to(A.device)
         W, a_mean, b_mean = solve_centered(A, b, reg=self.lam or 0.0)
         return LinearMapper(W, b=b_mean, feature_mean=a_mean)
+
+    def _fit_streaming(self, data, labels: Dataset) -> LinearMapper:
+        y, a_mean = _streaming_labels(data, labels)
+        y_mean = y.mean(dim=0)
+        centered = _with_labels(data, y, a_mean.shape[0],
+                                lambda A, yc: (A - a_mean, yc - y_mean))
+        W = solve_least_squares_streaming(centered, reg=self.lam or 0.0, device=y.device)
+        return LinearMapper(W, b=y_mean, feature_mean=a_mean)
 
     def cost(self, n, d, k, sparsity, num_machines,
              cpu_weight, mem_weight, network_weight):
@@ -107,10 +170,19 @@ class BlockLinearMapper(Transformer):
 
 class BlockLeastSquaresEstimator(LabelEstimator, CostModel):
     """Block-coordinate-descent least squares, ``num_iter`` passes over
-    column blocks of ``block_size`` with ridge ``lam``."""
+    column blocks of ``block_size`` with ridge ``lam``. A chunked input
+    streams: one scan for the column means, then one scan a block step
+    (``num_iter`` × nblocks + 1 scans in all)."""
+
+    supports_streaming = True
 
     def __init__(self, block_size: int, num_iter: int, lam: float = 0.0,
-                 num_features: Optional[int] = None):
+                 num_features: Optional[int] = None, snapshot: bool = False):
+        if snapshot:
+            raise ValueError(
+                "block-coordinate descent has no state to snapshot: its iterates depend "
+                "on the order it visits the blocks, so appended chunks cannot be folded "
+                "in after the fit")
         self.block_size = block_size
         self.num_iter = num_iter
         self.lam = lam
@@ -132,6 +204,8 @@ class BlockLeastSquaresEstimator(LabelEstimator, CostModel):
         is a tuple of column blocks, or a list or tuple of blocks. A whole
         matrix is read as column views of ``block_size`` (the last one may
         be narrower), so the solve never copies it."""
+        if getattr(data, "is_chunked", False):
+            return self._fit_streaming(data, labels)
         payload = data if isinstance(data, (list, tuple)) else Dataset.of(data).payload
         if isinstance(payload, (list, tuple)):
             blocks = [Dataset.of(b).to_array().float() for b in payload]
@@ -146,16 +220,43 @@ class BlockLeastSquaresEstimator(LabelEstimator, CostModel):
                                 num_iter=self.num_iter, means=means)
         return BlockLinearMapper(ws, self.block_size, b=y_mean, feature_means=means)
 
+    def _fit_streaming(self, data, labels: Dataset) -> BlockLinearMapper:
+        """The out-of-core fit: the featurized design matrix is never
+        whole; each scan recomputes the chunks from the source."""
+        if self.num_features is not None:
+            d = self.num_features
+
+            def chunk_scan():
+                return data.raw_chunks().then(lambda c: c[..., :d])
+        else:
+            chunk_scan = data.raw_chunks
+        y = Dataset.of(labels).to_array().float()
+        mean_vec, n = stream_column_means(chunk_scan, device=y.device)
+        if n != y.shape[0]:
+            raise ValueError(f"chunked features have {n} rows, labels {y.shape[0]}")
+        y_mean = y.mean(dim=0)
+        ws = solve_blockwise_l2_streaming(chunk_scan, y - y_mean, reg=self.lam,
+                                          block_size=self.block_size,
+                                          num_iter=self.num_iter, means=mean_vec)
+        d = int(mean_vec.shape[0])
+        means = [mean_vec[i:min(i + self.block_size, d)] for i in range(0, d, self.block_size)]
+        return BlockLinearMapper(ws, self.block_size, b=y_mean, feature_means=means)
+
 
 class TSQRLeastSquaresEstimator(LabelEstimator, CostModel):
     """Exact least squares by one QR of the augmented, centered design
     matrix ``[A − μ | y − ν ; √λ·I | 0]``: its R factor's blocks satisfy
     R₁₁ᵀR₁₁ = ÃᵀÃ + λI and R₁₁ᵀR₁₂ = Ãᵀỹ, so W = R₁₁⁻¹R₁₂ is one triangular
     solve and no Gram matrix forms (the Gram route squares the condition
-    number). About twice the Gram route's flops, as ``cost`` says. Only
-    the in-memory fit is ported."""
+    number). About twice the Gram route's flops, as ``cost`` says. A
+    chunked input streams: a scan for the column means, then one scan
+    folding the centered augmented chunks into R, the √λ·I rows last."""
 
-    def __init__(self, lam: float = 0.0):
+    supports_streaming = True
+
+    def __init__(self, lam: float = 0.0, checkpoint: Optional[str] = None):
+        if checkpoint is not None:
+            raise _later_slice("TSQRLeastSquaresEstimator(checkpoint=...)")
         self.lam = lam
 
     @staticmethod
@@ -172,6 +273,8 @@ class TSQRLeastSquaresEstimator(LabelEstimator, CostModel):
         return rows
 
     def fit(self, data: Dataset, labels: Dataset) -> LinearMapper:
+        if getattr(data, "is_chunked", False):
+            return self._fit_streaming(data, labels)
         A = Dataset.of(data).to_array().float()
         y = Dataset.of(labels).to_array().to(A.device, torch.float32)
         a_mean, y_mean = A.mean(dim=0), y.mean(dim=0)
@@ -182,6 +285,19 @@ class TSQRLeastSquaresEstimator(LabelEstimator, CostModel):
             aug = torch.cat([aug, reg], dim=0)
         W = self._solve_from_r(tsqr.tsqr_r(aug), d)
         return LinearMapper(W, b=y_mean, feature_mean=a_mean)
+
+    def _fit_streaming(self, data, labels: Dataset) -> LinearMapper:
+        y, a_mean = _streaming_labels(data, labels)
+        y_mean = y.mean(dim=0)
+        d, k = int(a_mean.shape[0]), y.shape[1]
+
+        def augmented():
+            return _with_labels(data, y, d,
+                                lambda A, yc: torch.cat([A - a_mean, yc - y_mean], dim=1))
+
+        R = tsqr.tsqr_r_streaming(augmented, device=y.device,
+                                  tail=self._reg_rows(d, k, y.device))
+        return LinearMapper(self._solve_from_r(R, d), b=y_mean, feature_mean=a_mean)
 
     def cost(self, n, d, k, sparsity, num_machines,
              cpu_weight, mem_weight, network_weight):

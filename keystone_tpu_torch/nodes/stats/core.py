@@ -1,10 +1,10 @@
 """Stats nodes (port of ``PaddedFFT``, ``RandomSignNode``,
 ``LinearRectifier``, ``NormalizeRows``, ``SignedHellingerMapper``,
-``TermFrequency``, ``CosineRandomFeatures``, the in-memory ``StandardScaler`` and ``Sampler``
-and the in-memory ``ColumnSampler`` of ``keystone_tpu/nodes/stats/core.py``).
+``TermFrequency``, ``CosineRandomFeatures``, ``StandardScaler``, ``Sampler``
+and ``ColumnSampler`` of ``keystone_tpu/nodes/stats/core.py``).
 
-``ColumnSampler``'s ``ChunkedDataset`` branch waits for the out-of-core
-datasets; ``sample_chunk`` is ported, so a chunked scan can call it."""
+On an out-of-core ``ChunkedDataset``, StandardScaler fits in one scan and
+ColumnSampler samples each chunk lazily, its columns drawn by chunk index."""
 
 from __future__ import annotations
 
@@ -158,23 +158,59 @@ class StandardScalerModel(Transformer):
         return out
 
 
+def _chunk_center_stats(X: torch.Tensor):
+    """One chunk's column mean and centered sum of squares."""
+    mean = X.mean(dim=0)
+    diff = X - mean
+    return mean, (diff * diff).sum(dim=0)
+
+
+def _chan_merge(a, b):
+    """Chan/Welford merge of two (n, mean, M2) column-stat triples."""
+    na, ma, sa = a
+    nb, mb, sb = b
+    tot = na + nb
+    delta = mb - ma
+    return tot, ma + delta * (nb / tot), sa + sb + delta * delta * (na * nb / tot)
+
+
 class StandardScaler(Estimator):
     """Fit column mean and std (ddof=1); a degenerate std (0, NaN or inf)
-    becomes 1.0."""
+    becomes 1.0. A chunked input fits in one scan: per-chunk centered
+    statistics merged Chan/Welford-style (the raw sum-of-squares form
+    cancels in float32 when |mean| ≫ std)."""
 
     def __init__(self, normalize_std_dev: bool = True, eps: float = 1e-12):
         self.normalize_std_dev = normalize_std_dev
         self.eps = eps
 
     def fit(self, data: Dataset) -> StandardScalerModel:
-        X = Dataset.of(data).to_array()
-        mean = X.mean(dim=0)
+        data = Dataset.of(data)
+        if data.is_chunked:
+            mean, var = self._streaming_stats(data)
+        else:
+            X = data.to_array()
+            mean, var = X.mean(dim=0), X.var(dim=0, correction=1)
         if not self.normalize_std_dev:
             return StandardScalerModel(mean, None)
-        std = torch.sqrt(X.var(dim=0, correction=1))
+        std = torch.sqrt(var)
         bad = torch.isnan(std) | torch.isinf(std) | (std.abs() < self.eps)
         std = torch.where(bad, torch.ones_like(std), std)
         return StandardScalerModel(mean, std)
+
+    @staticmethod
+    def _streaming_stats(data):
+        """Column mean and variance (ddof=1) of a chunked set in one scan."""
+        acc = None
+        for chunk in data.chunks():
+            X = chunk.float()
+            part = (int(X.shape[0]),) + _chunk_center_stats(X)
+            acc = part if acc is None else _chan_merge(acc, part)
+        if acc is None:
+            raise ValueError("empty chunked dataset")
+        n, mean, m2 = acc
+        # n == 1 leaves m2 zero, whose std the degenerate guard maps to 1.0
+        return mean, m2 / max(n - 1, 1)
 
 
 class Sampler(Transformer):
@@ -217,12 +253,25 @@ class ColumnSampler(Transformer):
         data = Dataset.of(data)
         if not data.is_batched:
             return data.map(self.apply)
+        if data.is_chunked:
+            # lazily, a gather per chunk: the sample is small and is
+            # materialized by its consumer, the descriptor stack never is
+            from ...data.chunked import ChunkedDataset
+
+            parent = data.raw_chunks
+
+            def factory():
+                for i, chunk in enumerate(parent()):
+                    yield self.sample_chunk(chunk, i)
+
+            return ChunkedDataset(factory, len(data), label="col_sample")
         return Dataset(self._sample_batch(data.to_array()))
 
     def sample_chunk(self, X: torch.Tensor, chunk_index: int) -> torch.Tensor:
         """Sample one chunk of a chunked scan, keyed by (seed, chunk index)
         so that a scan run again draws the same columns."""
-        return self._sample_batch(X, np.random.default_rng((self.seed, chunk_index)))
+        return self._sample_batch(torch.as_tensor(X),
+                                  np.random.default_rng((self.seed, chunk_index)))
 
     def _sample_batch(self, X: torch.Tensor, rng=None) -> torch.Tensor:
         rng = self._rng if rng is None else rng

@@ -28,9 +28,16 @@ def fit_and_score(featurizer: Callable[[], Pipeline], estimator: BlockLeastSquar
     given, receives the seconds of each phase: data (to the device),
     optimize (the rule stack of the fit), featurize (fit data), solve (the
     block fit), executor (the fit's graph bookkeeping) and apply (train and
-    test)."""
+    test).
+
+    A chunked ``train.data`` (a ``ChunkedDataset`` whose chunks are made on
+    ``device``) goes to the fit as it is: the estimator streams it, so the
+    featurized training set is never whole, featurizing happens inside
+    the solve's scans, and the train error is one more scan."""
     start = time.perf_counter()
-    X_train = train.data.to_array().to(device, torch.float32)
+    X_train = train.data
+    if not X_train.is_chunked:
+        X_train = X_train.to_array().to(device, torch.float32)
     X_test = test.data.to_array().to(device, torch.float32)
     labels = ClassLabelIndicators(num_classes).forward(train.labels.to_array().to(device))
     t_data = clock()

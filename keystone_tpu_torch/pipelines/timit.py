@@ -10,6 +10,7 @@ chunk of the (n, numCosines · 4096) feature matrix into one preallocated
 output, so no branch output is ever whole; at the CLI's width (50
 branches, d = 204,800) the 50000-row training matrix is 40.96 GB, held
 once. The block solve sweeps its 50 column blocks ``numEpochs`` times.
+A chunked training set is fitted out of core instead (:func:`run`).
 """
 
 from __future__ import annotations
@@ -83,7 +84,10 @@ def run(train: LabeledData, test: LabeledData, conf: TimitConfig,
     """Fit on ``train`` and score both sets; returns (scorer, train_err,
     test_err, seconds) and fills ``timings`` as
     :func:`~keystone_tpu_torch.pipelines.block_app.fit_and_score` says.
-    ``params`` as for :func:`build_featurizer`."""
+    ``params`` as for :func:`build_featurizer`. ``train.data`` may be a
+    ``ChunkedDataset`` (the JAX ``run`` takes one too): the block solve
+    then streams it, one scan a block step, and the (n, numCosines · 4096)
+    features are never whole."""
     dev = device if device is not None else pick_device()
     return fit_and_score(
         lambda: build_featurizer(conf, dev, params),

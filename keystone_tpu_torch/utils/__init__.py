@@ -1,5 +1,6 @@
 """Shared helpers: the readers of the ``KEYSTONE_*`` switches (the port's
-copy of ``keystone_tpu/utils/__init__.py::env_flag`` and ``env_int``)."""
+copy of ``keystone_tpu/utils/__init__.py::env_flag``, ``env_int`` and
+``env_float``)."""
 
 from __future__ import annotations
 
@@ -33,4 +34,19 @@ def env_int(name: str, default: int, minimum: int = 1) -> int:
             if (name, raw) not in _warned_env:
                 _warned_env.add((name, raw))
                 logger.warning("%s=%r is not an integer; using %d", name, raw, default)
+    return default
+
+
+def env_float(name: str, default: float, minimum: float = 0.0) -> float:
+    """A ``KEYSTONE_*`` float: unset or unparsable gives ``default`` (an
+    unparsable value is warned about once); a parsed value is clamped to
+    ``minimum``."""
+    raw = os.environ.get(name)
+    if raw is not None:
+        try:
+            return max(minimum, float(raw))
+        except ValueError:
+            if (name, raw) not in _warned_env:
+                _warned_env.add((name, raw))
+                logger.warning("%s=%r is not a number; using %s", name, raw, default)
     return default

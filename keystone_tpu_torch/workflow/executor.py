@@ -23,6 +23,12 @@ all of its dependencies. A strict chain never pays for a pool.
 wins: no further node is started, running ones drain, and the exception
 propagates with its traceback.
 
+An out-of-core ``ChunkedDataset`` flowing between nodes stays a lazy scan:
+every transform of a chunked input returns a chunked dataset without
+producing a chunk, so forcing a branch on the pool builds its chain and
+runs none of its scan; the chunks are produced when a consumer (an
+estimator's streaming fit, ``to_array``) scans them.
+
 Not ported: segment dispatch and trace spans.
 """
 

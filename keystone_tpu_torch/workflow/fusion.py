@@ -17,6 +17,13 @@ is one replay of a CUDA graph captured per input signature
 (``cuda_graph.py``), as XLA compiles one program per shape; on the CPU the
 steps run eagerly.
 
+On an out-of-core ``ChunkedDataset`` a fused group runs lazily, chunk by
+chunk, on the scan's consumer: a ragged chunk is padded up to one of a
+few row buckets (``pipeline_scan.ChunkPadder``), so a scan replays at most
+``len(bucket_ladder(lead rows))`` graphs of chunk shape, and several
+inputs are zipped per chunk (``chunked.align_and_zip``). A group with a
+batch-coupled step refuses chunked input.
+
 A node is traceable here when it is a ``TransformerOperator`` with a
 ``forward`` and no ``no_fuse`` mark, or a gather.
 """
@@ -28,7 +35,9 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from ..data.chunked import align_and_zip
 from ..data.dataset import Dataset, Payload, first_leaf, map_leaves
+from ..data.pipeline_scan import ChunkPadder
 from ..data.sparse import SparseRows
 from . import analysis
 from .cuda_graph import GraphCache, leaves, signature
@@ -241,27 +250,41 @@ class FusedTransformerOperator(TransformerOperator):
 
     # -- operator glue --------------------------------------------------
 
+    def _transform_arrays(self, arrays: Sequence[Payload]) -> Payload:
+        """The group on batched payloads: in row chunks when row-local, as
+        CUDA-graph replays on the card."""
+        n = int(first_leaf(arrays[0]).shape[0])
+        rows = n
+        if self.row_local and all(int(first_leaf(a).shape[0]) == n for a in arrays):
+            rows = self.chunk_rows(arrays)
+        chunked = n > rows
+        lead = first_leaf(arrays[0])
+        if lead.is_cuda:
+            graphs = self.graphs(lead.device)
+            # the graphs' static output is overwritten by the next replay:
+            # it is copied out before another thread replays
+            with graphs.lock:
+                if chunked:
+                    return forward_in_row_chunks(graphs, arrays, n, rows)
+                return map_leaves(torch.clone, graphs(*arrays))
+        if chunked:
+            return forward_in_row_chunks(self.forward, arrays, n, rows)
+        return self.forward(*arrays)
+
     def batch_transform(self, inputs: Sequence[DatasetExpression]) -> Dataset:
         datasets = [d.get() for d in inputs]
+        if any(ds.is_chunked for ds in datasets):
+            if self.batch_coupled:
+                coupled = [op.label for op, _ in self.steps if getattr(op, "batch_coupled", False)]
+                raise ValueError(f"batch-coupled node(s) {coupled} cannot run per chunk: "
+                                 "their batch statistics would be a chunk's; materialize "
+                                 "the dataset first")
+            if len(datasets) == 1:
+                return datasets[0].map_batch(ChunkPadder(lambda c: self._transform_arrays([c])))
+            return align_and_zip(datasets).map_batch(
+                ChunkPadder(lambda t: self._transform_arrays(list(t))))
         if all(ds.is_batched and not isinstance(ds.payload, SparseRows) for ds in datasets):
-            arrays = [ds.payload for ds in datasets]
-            n = len(datasets[0])
-            rows = n
-            if self.row_local and all(len(ds) == n for ds in datasets):
-                rows = self.chunk_rows(arrays)
-            chunked = n > rows
-            lead = first_leaf(arrays[0])
-            if lead.is_cuda:
-                graphs = self.graphs(lead.device)
-                # the graphs' static output is overwritten by the next
-                # replay: it is copied out before another thread replays
-                with graphs.lock:
-                    if chunked:
-                        return Dataset(forward_in_row_chunks(graphs, arrays, n, rows))
-                    return Dataset(map_leaves(torch.clone, graphs(*arrays)))
-            if chunked:
-                return Dataset(forward_in_row_chunks(self.forward, arrays, n, rows))
-            return Dataset(self.forward(*arrays))
+            return Dataset(self._transform_arrays([ds.payload for ds in datasets]))
         # item-list or sparse-row inputs: the per-op Dataset semantics the
         # unfused graph would have used (a SparseRows batch has no rows to
         # chunk into a CUDA graph; each step's own apply_batch reads it)

@@ -44,7 +44,7 @@ class Optimizable:
 
 def _sampled_graph(graph: Graph, sample_size: int) -> Graph:
     """``graph`` with every leaf dataset cut to its first ``sample_size``
-    items."""
+    items (a chunked leaf pays for its leading chunks only)."""
     for node in graph.nodes:
         op = graph.get_operator(node)
         if isinstance(op, DatasetOperator):
@@ -63,6 +63,21 @@ def _total_items(graph: Graph, node: NodeId) -> int:
             if isinstance(op, DatasetOperator):
                 n = max(n, len(op.dataset))
     return n
+
+
+def _chunked_input(graph: Graph, node: NodeId) -> bool:
+    """True when the node's data input (its first dependency) flows from an
+    out-of-core chunked leaf: only streaming solvers can take it."""
+    deps = graph.get_dependencies(node)
+    if not deps:
+        return False
+    data_dep = deps[0]
+    for anc in analysis.get_ancestors(graph, data_dep) | {data_dep}:
+        if isinstance(anc, NodeId):
+            op = graph.get_operator(anc)
+            if isinstance(op, DatasetOperator) and op.dataset.is_chunked:
+                return True
+    return False
 
 
 class _SamplingFailed(Exception):
@@ -111,7 +126,8 @@ class NodeOptimizationRule(Rule):
             # choice itself propagates
             try:
                 if cost_protocol:
-                    chosen = self._choose_with_cost_model(op, node, num_items, sampled_deps)
+                    chosen = self._choose_with_cost_model(op, graph, node, num_items,
+                                                          sampled_deps)
                 else:
                     chosen = op.sample_optimize(sampled_deps(node), num_items)
             except _SamplingFailed as e:
@@ -123,8 +139,9 @@ class NodeOptimizationRule(Rule):
         return graph, annotations
 
     @staticmethod
-    def _choose_with_cost_model(op, node: NodeId, num_items: int, sampled_deps):
-        """Plan one cost-protocol node from its sampled shape. Its input is
-        never out-of-core chunks in the port yet, so ``chunked`` is False."""
-        shape = op.shape_from_samples(sampled_deps(node), num_items, chunked=False)
+    def _choose_with_cost_model(op, graph: Graph, node: NodeId, num_items: int, sampled_deps):
+        """Plan one cost-protocol node from its sampled shape, ``chunked``
+        when its data input is out-of-core."""
+        shape = op.shape_from_samples(sampled_deps(node), num_items,
+                                      chunked=_chunked_input(graph, node))
         return op.choose_solver(shape).chosen

@@ -248,6 +248,12 @@ class GatherTransformerOperator(TransformerOperator):
 
     def batch_transform(self, inputs: Sequence[DatasetExpression]) -> Dataset:
         datasets = [d.get() for d in inputs]
+        if any(ds.is_chunked for ds in datasets):
+            # chunked branches zip per chunk and stay lazy; a materialized
+            # branch is sliced at the chunk bounds as the scan runs
+            from ..data.chunked import align_and_zip
+
+            return align_and_zip(datasets)
         if all(ds.is_batched for ds in datasets):
             return Dataset(tuple(ds.payload for ds in datasets))
         first, *rest = datasets

@@ -54,6 +54,10 @@ class Transformer(Chainable, TransformerOperator):
     #: output row i depends on input row i alone
     row_local: bool = False
 
+    #: ``forward`` couples rows (batch statistics): such a node refuses a
+    #: chunked input, whose chunks would each get their own statistics
+    batch_coupled: bool = False
+
     def row_work_bytes(self, *rows: Any) -> int:
         """Bytes that ``forward`` allocates for one row (``rows``: each
         input cut to its first row): its output and its temporaries. 0, the
@@ -69,21 +73,32 @@ class Transformer(Chainable, TransformerOperator):
 
     def apply_batch(self, data: Any) -> Dataset:
         data = Dataset.of(data)
+        if data.is_chunked:
+            # out-of-core: lazily, chunk by chunk
+            if self.batch_coupled:
+                raise ValueError(
+                    f"{type(self).__name__} is batch-coupled: run per chunk it would "
+                    "compute its batch statistics per chunk; materialize the dataset "
+                    "(e.g. .cache()) first")
+            if self.forward is not None:
+                return data.map_batch(self._forward_rows)
+            return data.map(self.apply)
         if self.forward is not None and data.is_batched:
-            # A row-local node that no fused group took (one fit after
-            # fusion, such as the linear model after the featurizer) runs
-            # in row chunks as a fused group would: its whole-batch
-            # temporaries (X − μ of a 24.6 GB feature matrix) never exist.
-            if self.row_local:
-                X = data.payload
-                one = map_leaves(lambda t: t[:1], X)
-                rows = fusion.chunk_rows(fusion.payload_bytes([one])
-                                         + self.row_work_bytes(one))
-                if len(data) > rows:
-                    return Dataset(fusion.forward_in_row_chunks(
-                        self.forward, [X], len(data), rows))
-            return data.map_batch(self.forward)
+            return Dataset(self._forward_rows(data.payload))
         return data.map(self.apply)
+
+    def _forward_rows(self, X: Any) -> Any:
+        """``forward(X)``. A row-local node that no fused group took (one
+        fit after fusion, such as the linear model after the featurizer)
+        runs in row chunks as a fused group would: its whole-batch
+        temporaries (X − μ of a 24.6 GB feature matrix) never exist."""
+        if self.row_local:
+            one = map_leaves(lambda t: t[:1], X)
+            rows = fusion.chunk_rows(fusion.payload_bytes([one]) + self.row_work_bytes(one))
+            n = int(fusion.first_leaf(X).shape[0])
+            if n > rows:
+                return fusion.forward_in_row_chunks(self.forward, [X], n, rows)
+        return self.forward(X)
 
     # -- operator-level glue -------------------------------------------
 
