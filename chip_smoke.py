@@ -58,15 +58,29 @@ at TIMIT's 2,228,224 rows (d 16,384 and 8,192, drawn on the card chunk by
 chunk, against their planted models); TimitPipeline fitted over all
 2,228,224 synthetic frames at d = 16,384 (4 cosine branches), the 146 GB
 design matrix never whole (20 block steps, 21 scans of 34 chunks, peak
-below 32 GB); the least-squares family on the chunked frames; the chunked
-fit against the in-memory one at 200,000 frames; and the scan's card tests.
-Each phase prints one JSON line; any failure raises and exits non-zero. The last line is
+below 32 GB); a snapshot fit on 16 chunks of those frames with 2 more
+absorbed, against a fit on all 18; the least-squares family on the chunked
+frames; the chunked fit against the in-memory one at 200,000 frames; and the
+scan's card tests. Last, the out-of-core weighted fit: ImageNetSiftLcsFV at
+the reference's widths on 20,480 synthetic 256² images drawn on the card
+chunk by chunk (their descriptor stacks never whole, 3 featurize scans); the
+weighted solver streamed at ImageNet's 1,281,167 training rows of a planted
+class-mean model (126 scans), each held against a float64 per-class solve
+(argmax agreement and the scores' deviation, each gated);
+the same draw at 100,000 rows streamed against in memory; and the slice's
+card tests. Each phase prints one JSON line; any failure raises and exits non-zero. The last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card it exits non-zero
 and prints no result.
+
+``python3 chip_smoke.py --solve-check-controls`` runs only the controls of
+the float64 solve checks' deviation limits: those checks on fits made
+faulty on purpose (TF32 products; a planted source that breaks lineage),
+each of which must exceed its limit.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -150,6 +164,11 @@ IN_QUALITY = dict(num_classes=100, size=224, theta_sigma=0.09, logf_sigma=0.030,
                   f_range=(0.06, 0.45))
 IN_QUALITY_TRAIN, IN_QUALITY_TEST = 1000, 1000
 SOLVE_CHECK_CLASSES, SOLVE_CHECK_AGREEMENT = 8, 0.95
+# the largest deviation of the fitted scores from the float64 solve's,
+# relative to their largest magnitude, on ImageNet's Fisher vectors; each
+# limit lies between the sound fits' readings and those of the faulty fits
+# that ``--solve-check-controls`` runs (PERF.md, section 2)
+SOLVE_CHECK_DEV_LIMIT = 1e-3
 
 
 def emit(obj: dict) -> None:
@@ -289,6 +308,49 @@ def fresh_env():
 
     PipelineEnv.get_or_create().reset()
     fusion.clear_graph_cache()
+
+
+def phase_group(card):
+    """(start, finish, the launches by phase) of a group of phases: each
+    starts from a fresh fit-once state, a zero K1 count and a reset peak;
+    its row gains the seconds, the peak, the K1 launches and the card, is
+    printed, and fails on any K1 launch."""
+    from keystone_tpu_torch.ops import gaussian_kernel as gk
+    from keystone_tpu_torch.workflow.pipeline import clock
+
+    launches = {}
+
+    def start(name):
+        fresh_env()
+        gk.gaussian_kernel_block.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        return name, clock()
+
+    def finish(name, t0, row):
+        launches[name] = gk.gaussian_kernel_block.launches
+        row.update(phase=name, seconds=clock() - t0,
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   k1_launches=launches[name], card=card)
+        emit(row)
+        check(launches[name] == 0, f"{name} launched K1 {launches[name]} times")
+        return row
+
+    return start, finish, launches
+
+
+def with_env(name, value, fn):
+    """``fn()`` with the environment variable ``name`` set to ``value``
+    (unset when None), restored after."""
+    prior = os.environ.pop(name, None)
+    if value is not None:
+        os.environ[name] = value
+    try:
+        return fn()
+    finally:
+        os.environ.pop(name, None)
+        if prior is not None:
+            os.environ[name] = prior
 
 
 def cli_run(cli, bcd, args) -> dict:
@@ -707,42 +769,48 @@ def _top5_rows(scores):
 
 def weighted_solve_check(fitted, X_train, labels, X_test, scores, conf, label, card) -> None:
     """The exact per-class weighted ridge in float64 on the card for the
-    first classes, from the fit's own training Fisher vectors (with one block
-    and one iteration the block update is that system), against the fitted
-    scores of the test images: argmax agreement over those classes and the
-    largest deviation of the scores relative to their largest magnitude."""
-    from keystone_tpu_torch.nodes.learning import weighted
+    first classes (:func:`weighted_f64_scores`), from the fit's own training
+    Fisher vectors (with one block and one iteration the block update is that
+    system), against the fitted scores of the test images: argmax agreement
+    over those classes and the largest deviation of the scores relative to
+    their largest magnitude, each gated."""
+    row = fv_solve_deviation(fitted, X_train, labels, X_test, scores, conf)
+    agreement, deviation = row["argmax_agreement"], row["max_rel_dev"]
+    emit({"phase": "imagenet_solve_check", "run": label, "classes": SOLVE_CHECK_CLASSES,
+          **row, "agreement_limit": SOLVE_CHECK_AGREEMENT,
+          "deviation_limit": SOLVE_CHECK_DEV_LIMIT, "card": card})
+    check(agreement >= SOLVE_CHECK_AGREEMENT,
+          f"{label}: argmax agreement {agreement} with the float64 per-class solve")
+    check(deviation <= SOLVE_CHECK_DEV_LIMIT,
+          f"{label}: scores {deviation} (relative) off the float64 per-class solve")
+
+
+def fv_solve_deviation(fitted, X_train, labels, X_test, scores, conf) -> dict:
+    """The row of :func:`weighted_solve_check`, ungated."""
     from keystone_tpu_torch.pipelines import imagenet_sift_lcs_fv as imagenet
 
     featurizer = imagenet.featurizer_of(fitted)
-    F_train = featurizer.apply(X_train).to_array().double()
-    F_test = featurizer.apply(X_test).to_array().double()
-    k, w = conf.num_classes, conf.mixture_weight
-    Y = 2.0 * torch.nn.functional.one_hot(torch.as_tensor(labels, device=F_train.device).long(),
-                                          k).double() - 1.0
+    F_train = featurizer.apply(X_train).to_array()
+    F_test = featurizer.apply(X_test).to_array()
+    y = torch.as_tensor(labels, device=F_train.device).long()
     n = F_train.shape[0]
-    y_idx, counts, label_mean, means = weighted._joint_weighted_stats(F_train, Y, w)
-    eye = torch.eye(F_train.shape[1], dtype=torch.float64, device=F_train.device)
-    cols = []
     t0 = time.perf_counter()
-    for c in range(SOLVE_CHECK_CLASSES):
-        b = weighted._class_sample_weights(y_idx, counts, c, w, n)
-        Xc = F_train - means[c]
-        cols.append(torch.linalg.solve(Xc.T @ (Xc * b[:, None]) + conf.lam * eye,
-                                       Xc.T @ ((Y[:, c] - label_mean[c]) * b)))
-    W = torch.stack(cols, dim=1)
-    exact = F_test @ W + (label_mean[:SOLVE_CHECK_CLASSES]
-                          - torch.einsum("cd,dc->c", means[:SOLVE_CHECK_CLASSES], W))
+    exact = weighted_f64_scores([(F_train, y)], n, conf.mixture_weight, conf.lam, F_test,
+                                SOLVE_CHECK_CLASSES)
     torch.cuda.synchronize()
+    agreement, deviation = f64_agreement(scores, exact)
+    return {"train": n, "test": F_test.shape[0], "fv_width": F_train.shape[1],
+            "argmax_agreement": agreement, "max_rel_dev": deviation,
+            "f64_seconds": time.perf_counter() - t0}
+
+
+def f64_agreement(scores, exact):
+    """(argmax agreement, largest deviation relative to the largest
+    magnitude) of the fitted scores of the first classes against the
+    float64 solve's."""
     got = scores[:, :SOLVE_CHECK_CLASSES].double()
-    agreement = (got.argmax(1) == exact.argmax(1)).double().mean().item()
-    deviation = ((got - exact).abs().max() / exact.abs().max()).item()
-    emit({"phase": "imagenet_solve_check", "run": label, "classes": SOLVE_CHECK_CLASSES,
-          "train": n, "test": F_test.shape[0], "fv_width": F_train.shape[1],
-          "argmax_agreement": agreement, "agreement_limit": SOLVE_CHECK_AGREEMENT,
-          "max_rel_dev": deviation, "f64_seconds": time.perf_counter() - t0, "card": card})
-    check(agreement >= SOLVE_CHECK_AGREEMENT,
-          f"{label}: argmax agreement {agreement} with the float64 per-class solve")
+    return ((got.argmax(1) == exact.argmax(1)).double().mean().item(),
+            ((got - exact).abs().max() / exact.abs().max()).item())
 
 
 def imagenet_phases(cli, dev, card) -> dict:
@@ -1276,6 +1344,9 @@ OVERLAP_CHUNKS, OVERLAP_ROWS, OVERLAP_D, OVERLAP_TAIL = 16, 4096, 256, 1500
 # takes the next, which only a producer thread can overlap
 OVERLAP_WIDTH, OVERLAP_TURNS = 4096, 6
 RAGGED_ROWS = [512, 480, 500, 300, 450, 200]
+# absorb (slice 11): a snapshot fit of the out-of-core featurizer on 16
+# chunks of the frames, 2 more absorbed; λ as TIMIT's fallback
+ABSORB_CHUNKS, ABSORB_APPENDED, ABSORB_LAMBDA = 16, 2, TIMIT_FALLBACK_LAMBDA
 
 
 class ScanLog:
@@ -1343,46 +1414,19 @@ def out_of_core_phases(dev, card) -> dict:
     from keystone_tpu_torch.loaders.csv_loader import LabeledData
     from keystone_tpu_torch.nodes.learning.classifiers import LeastSquaresEstimator
     from keystone_tpu_torch.nodes.learning.linear import (
-        BlockLeastSquaresEstimator, BlockLinearMapper, LinearMapEstimator,
+        BlockLeastSquaresEstimator, BlockLinearMapper, LinearMapEstimator, LinearMapper,
         TSQRLeastSquaresEstimator,
     )
     from keystone_tpu_torch.nodes.util import ClassLabelIndicators, MaxClassifier
-    from keystone_tpu_torch.ops import gaussian_kernel as gk
     from keystone_tpu_torch.pipelines import timit
+    from keystone_tpu_torch.utils import timing
     from keystone_tpu_torch.workflow import fusion
     from keystone_tpu_torch.workflow.env import PipelineEnv
     from keystone_tpu_torch.workflow.pipeline import Pipeline, clock
     from keystone_tpu_torch.workflow.rules import RuleExecutor
     from keystone_tpu_torch.workflow.transformer import FunctionNode
 
-    launches = {}
-
-    def start(name):
-        fresh_env()
-        gk.gaussian_kernel_block.launches = 0
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        return name, clock()
-
-    def finish(name, t0, row):
-        launches[name] = gk.gaussian_kernel_block.launches
-        row.update(phase=name, seconds=clock() - t0,
-                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-                   k1_launches=launches[name], card=card)
-        emit(row)
-        check(launches[name] == 0, f"{name} launched K1 {launches[name]} times")
-        return row
-
-    def with_env(name, value, fn):
-        prior = os.environ.get(name)
-        os.environ[name] = value
-        try:
-            return fn()
-        finally:
-            if prior is None:
-                del os.environ[name]
-            else:
-                os.environ[name] = prior
+    start, finish, launches = phase_group(card)
 
     # -- scan_overlap: host production against the card, serial and pipelined
     name, t0 = start("scan_overlap")
@@ -1602,6 +1646,74 @@ def out_of_core_phases(dev, card) -> dict:
           f"fit-graph fused groups {[len(g) for g in fused_steps(fit_graph)]}")
     del scorer, fitted, fit_graph, feat_only, probe, chunked
 
+    # -- absorb_timit: a snapshot fit on 16 chunks, 2 more absorbed ------
+    name, t0 = start("absorb_timit")
+    draws = Counter()
+
+    def frame_chunks(first, count):
+        def chunk_fn(i):
+            draws[first + i] += 1
+            return frames[(first + i) * OOC_CHUNK:(first + i + 1) * OOC_CHUNK]
+        return ChunkedDataset.from_chunk_fn(chunk_fn, count, count * OOC_CHUNK,
+                                            label=f"frames[{first}:{first + count}]")
+
+    total = ABSORB_CHUNKS + ABSORB_APPENDED
+    Y = ClassLabelIndicators(conf.num_classes).forward(
+        torch.from_numpy(train_labels[:total * OOC_CHUNK]).to(dev))
+    cut = ABSORB_CHUNKS * OOC_CHUNK
+    featurizer = timit.build_featurizer(conf, dev)
+    secs, state_phases = {}, {}
+
+    def timed(step, fn):
+        # each chunk's products and its host float64 fold, synchronized apart
+        timing.reset()
+        timing.enable()
+        try:
+            t1 = clock()
+            out = fn()
+            secs[step] = clock() - t1
+        finally:
+            timing.enable(False)
+        state_phases[step] = timing.snapshot("gram_state.")
+        return out
+
+    fitted = timed("snapshot_fit", lambda: featurizer.and_then(
+        LinearMapEstimator(ABSORB_LAMBDA, snapshot=True), frame_chunks(0, ABSORB_CHUNKS),
+        Dataset.of(Y[:cut])).fit())
+    fit_draws, draws = dict(draws), Counter()
+    updated = timed("absorb", lambda: fitted.absorb(
+        frame_chunks(ABSORB_CHUNKS, ABSORB_APPENDED), Dataset.of(Y[cut:])))
+    absorb_draws, draws = dict(draws), Counter()
+    fresh_env()
+    scratch = timed("scratch_fit", lambda: featurizer.and_then(
+        LinearMapEstimator(ABSORB_LAMBDA, snapshot=True), frame_chunks(0, total),
+        Dataset.of(Y)).fit())
+    models = {k: next(op for op in f.graph.operators.values() if isinstance(op, LinearMapper))
+              for k, f in (("fitted", fitted), ("absorbed", updated), ("scratch", scratch))}
+    devs = {p: (getattr(models["absorbed"], p) - getattr(models["scratch"], p)).abs().max().item()
+            for p in ("W", "b", "feature_mean")}
+    Xt = test.data.to_array().to(dev)
+    preds_equal = bool(torch.equal(updated.apply(Xt).to_array().argmax(1),
+                                   scratch.apply(Xt).to_array().argmax(1)))
+    moved = (models["absorbed"].W - models["fitted"].W).abs().max().item()
+    state = models["absorbed"].solver_state
+    finish(name, t0, {
+        "chunks": ABSORB_CHUNKS, "appended_chunks": ABSORB_APPENDED, "chunk_rows": OOC_CHUNK,
+        "d": OOC_COSINES * timit.NUM_COSINE_FEATURES, "lambda": ABSORB_LAMBDA,
+        "seconds_by_step": secs, "state_phases_by_step": state_phases,
+        "chunk_draws_fit": fit_draws, "chunk_draws_absorb": absorb_draws,
+        "absorbed_vs_scratch_max_abs_dev": devs, "limit": 1e-6,
+        "moved_from_the_16_chunk_fit": moved, "test_predictions_equal": preds_equal,
+        "state_rows": state.n, "host_gram_gb": state.gram.nbytes / 1e9})
+    check(fit_draws == {i: 1 for i in range(ABSORB_CHUNKS)},
+          f"the snapshot fit drew the chunks {fit_draws}")
+    check(absorb_draws == {ABSORB_CHUNKS + i: 1 for i in range(ABSORB_APPENDED)},
+          f"absorb drew the chunks {absorb_draws}; only the appended ones, once")
+    check(all(v <= 1e-6 for v in devs.values()), f"absorb is off the fit from scratch: {devs}")
+    check(preds_equal, "absorb and the fit from scratch predict differently")
+    check(state.n == total * OOC_CHUNK, f"the absorbed state holds {state.n} rows")
+    del fitted, updated, scratch, models, state, Y, featurizer, Xt
+
     # -- ls_chunked: the least-squares family on the chunked frames ------
     name, t0 = start("ls_chunked")
     Y = ClassLabelIndicators(conf.num_classes).forward(torch.from_numpy(train_labels).to(dev))
@@ -1698,6 +1810,340 @@ def out_of_core_phases(dev, card) -> dict:
     return launches
 
 
+# The out-of-core weighted fit (slice 11). ImageNetSiftLcsFV at the
+# reference's widths on 20,480 synthetic 256² images drawn on the card in
+# chunks of 64 (their SIFT and LCS stacks, ~165 GB, twice the card), 1e6
+# samples a codebook as the full-width ImageNet phase takes; the weighted
+# solver at ImageNet's training count over a planted class-mean model
+# (1,281,167 × 4096, 21 GB over the cache budget), streamed; and the same
+# draw at 100,000 rows streamed against in memory
+IN_OOC_TRAIN, IN_OOC_TEST, IN_OOC_CHUNK = 20480, 1000, 64
+IN_OOC_PEAK_LIMIT = 40e9
+WLS_N, WLS_D, WLS_K, WLS_CHUNK, WLS_TEST = 1_281_167, 4096, 1000, 65536, 10_000
+WLS_MEMORY_ROWS = 100_000
+WLS_SEPARATION = 8.0  # ‖μ_a − μ_b‖ of two class means, in noise standard deviations
+WLS_ACCURACY_LIMIT = 0.9
+WLS_DEV_LIMIT = 3e-5  # as SOLVE_CHECK_DEV_LIMIT, on the planted rows
+
+
+def planted_means(dev, d: int, k: int, seed: int) -> torch.Tensor:
+    """k class means s·N(0, I_d), s = WLS_SEPARATION / √(2d): two means are
+    about WLS_SEPARATION noise deviations apart."""
+    s = WLS_SEPARATION / math.sqrt(2 * d)
+    return s * torch.randn(k, d, device=dev, generator=torch.Generator(dev).manual_seed(seed))
+
+
+def planted_rows(dev, means: torch.Tensor, n: int, chunk_rows: int, seed: int,
+                 lineage: bool = True):
+    """Rows of the planted class-mean model drawn on the card chunk by chunk:
+    chunk i's labels (uniform over the classes) and noise N(0, I) from
+    generators seeded by (seed, i), made anew on every scan. Returns (the
+    labels, all drawn once, and the ChunkedDataset of the rows).
+    ``lineage=False`` is the fault the lineage contract forbids, as a
+    control: the noise comes from one generator made once for the dataset,
+    so every scan sees other rows under the same labels."""
+    from keystone_tpu_torch.data.chunked import ChunkedDataset
+    from keystone_tpu_torch.pipelines.imagenet_sift_lcs_fv import _chunk_generator
+
+    k, d = means.shape
+    n_chunks = -(-n // chunk_rows)
+    shared = None if lineage else _chunk_generator(dev, seed, 0, 1)
+
+    def chunk_labels(i):
+        rows = min(chunk_rows, n - i * chunk_rows)
+        return torch.randint(0, k, (rows,), device=dev, generator=_chunk_generator(dev, seed, i, 0))
+
+    def chunk_fn(i):
+        lab = chunk_labels(i)
+        gen = _chunk_generator(dev, seed, i, 1) if shared is None else shared
+        X = torch.randn(lab.shape[0], d, device=dev, generator=gen)
+        return X.add_(means[lab])
+
+    labels = torch.cat([chunk_labels(i) for i in range(n_chunks)])
+    return labels, ChunkedDataset.from_chunk_fn(chunk_fn, n_chunks, n,
+                                                label=f"planted_classes[{n}]")
+
+
+def weighted_f64_scores(chunks, n: int, w: float, lam: float, X_test, classes: int):
+    """The exact per-class weighted ridge of the first ``classes`` classes
+    in float64 on the card, from one scan of (rows, labels) chunks: the
+    population and class sums, then per class G_c = Σᵢ bᵢ(xᵢ−μ_c)(xᵢ−μ_c)ᵀ
+    and rhs_c = Σᵢ bᵢ(xᵢ−μ_c)(y_ic − m_c) (bᵢ = (1−w)/n + w·1[i∈c]/n_c), solved;
+    returns the test rows' scores for those classes, (rows, classes)."""
+    G = sx = None
+    for X, lab in chunks:
+        X = X.double()
+        if G is None:
+            d = X.shape[1]
+            G = torch.zeros(d, d, dtype=torch.float64, device=X.device)
+            sx = torch.zeros(d, dtype=torch.float64, device=X.device)
+            Gc = torch.zeros(classes, d, d, dtype=torch.float64, device=X.device)
+            sc = torch.zeros(classes, d, dtype=torch.float64, device=X.device)
+            nc = torch.zeros(classes, dtype=torch.float64, device=X.device)
+        G.addmm_(X.T, X)
+        sx += X.sum(0)
+        for c in range(classes):
+            rows = X[lab == c]
+            Gc[c].addmm_(rows.T, rows)
+            sc[c] += rows.sum(0)
+            nc[c] += rows.shape[0]
+    eye = torch.eye(G.shape[0], dtype=torch.float64, device=G.device)
+    pop_mean = sx / n
+    W, b = [], []
+    for c in range(classes):
+        mu = w * sc[c] / nc[c] + (1 - w) * pop_mean
+        m = 2 * w + 2 * (1 - w) * nc[c] / n - 1
+        Gm = ((1 - w) / n * (G - torch.outer(sx, mu) - torch.outer(mu, sx)
+                             + n * torch.outer(mu, mu))
+              + w / nc[c] * (Gc[c] - torch.outer(sc[c], mu) - torch.outer(mu, sc[c])
+                             + nc[c] * torch.outer(mu, mu)))
+        rhs = ((1 - w) / n * (2 * sc[c] - sx - m * sx - mu * (2 * nc[c] - n) + n * m * mu)
+               + w / nc[c] * (1 - m) * (sc[c] - nc[c] * mu))
+        W.append(torch.linalg.solve(Gm + lam * eye, rhs))
+        b.append(m - mu @ W[-1])
+    return X_test.double() @ torch.stack(W, 1) + torch.stack(b)
+
+
+def planted_solve_check(rows, labels, chunk_rows: int, w: float, lam: float, Xt, scores):
+    """(argmax agreement, deviation, seconds) of a fit's scores of ``Xt``
+    against the float64 per-class solve from one more scan of ``rows``."""
+    from keystone_tpu_torch.workflow.pipeline import clock
+
+    t0 = clock()
+    exact = weighted_f64_scores(zip(rows.chunks(), labels.split(chunk_rows)), len(labels),
+                                w, lam, Xt, SOLVE_CHECK_CLASSES)
+    return (*f64_agreement(scores, exact), clock() - t0)
+
+
+@contextlib.contextmanager
+def tf32_products():
+    """TF32 matrix products inside the block (the port keeps them off)."""
+    prior = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prior
+
+
+def solve_check_controls(dev, card) -> None:
+    """Controls of the float64 solve checks' deviation limits: the checks of
+    wls_stream_full_n and imagenet_out_of_core, run as in those phases on
+    fits made faulty on purpose. The faults: TF32 products in the fit
+    (both), and the planted rows' noise drawn from one generator made once
+    for the dataset, so that every scan sees other rows (the lineage fault,
+    which raises nothing). Each row prints its deviation; a control whose
+    deviation stays within its limit fails the run."""
+    from keystone_tpu_torch.data.dataset import Dataset
+    from keystone_tpu_torch.nodes.learning.weighted import BlockWeightedLeastSquaresEstimator
+    from keystone_tpu_torch.nodes.util import ClassLabelIndicators
+    from keystone_tpu_torch.pipelines import imagenet_sift_lcs_fv as imagenet
+    from keystone_tpu_torch.workflow.pipeline import clock
+
+    start, finish, _ = phase_group(card)
+    w, lam = 0.25, 6e-5
+    means = planted_means(dev, WLS_D, WLS_K, 40)
+    test_labels, test_rows = planted_rows(dev, means, WLS_TEST, WLS_TEST, 42)
+    Xt = test_rows.to_array()
+    for fault in ("tf32", "lineage"):
+        name, t0 = start(f"control_wls_stream_full_n_{fault}")
+        labels, rows = planted_rows(dev, means, WLS_N, WLS_CHUNK, 41, lineage=fault != "lineage")
+        Y = ClassLabelIndicators(WLS_K).forward(labels)
+        t1 = clock()
+        with (tf32_products() if fault == "tf32" else contextlib.nullcontext()):
+            mapper = BlockWeightedLeastSquaresEstimator(WLS_D, 1, lam, w).fit(rows, Dataset.of(Y))
+        fit_seconds = clock() - t1
+        scores = mapper.forward(Xt)
+        agreement, deviation, f64_seconds = planted_solve_check(rows, labels, WLS_CHUNK, w, lam,
+                                                                Xt, scores)
+        accuracy = (scores.argmax(1) == test_labels).double().mean().item()
+        finish(name, t0, {"fault": fault, "fit_seconds": fit_seconds,
+                          "f64_argmax_agreement": agreement, "f64_max_rel_dev": deviation,
+                          "deviation_limit": WLS_DEV_LIMIT, "f64_seconds": f64_seconds,
+                          "test_accuracy": accuracy})
+        check(deviation > WLS_DEV_LIMIT, f"the {fault} control is {deviation} off, within "
+              f"the limit {WLS_DEV_LIMIT}: the gate cannot see it")
+        del mapper, Y, labels, rows, scores
+
+    name, t0 = start("control_imagenet_out_of_core_tf32")
+    train, tr_l = imagenet.synthetic_imagenet_device(IN_OOC_TRAIN, IN_CLASSES, size=IN_SIZE,
+                                                     chunk_rows=IN_OOC_CHUNK, seed=1, device=dev)
+    test, te_l = imagenet.synthetic_imagenet_device(IN_OOC_TEST, IN_CLASSES, size=IN_SIZE,
+                                                    chunk_rows=IN_OOC_CHUNK, seed=2, device=dev)
+    te_i = test.to_array()
+    conf = imagenet.ImageNetSiftLcsFVConfig(num_pca_samples=1_000_000,
+                                            num_gmm_samples=1_000_000, num_classes=IN_CLASSES)
+    details = {}
+    with tf32_products():
+        fitted, top5_err, _ = imagenet.run(train, tr_l, te_i, te_l, conf, dev, details)
+    row = fv_solve_deviation(fitted, train, tr_l, te_i, details["scores"], conf)
+    finish(name, t0, {"fault": "tf32", **row, "deviation_limit": SOLVE_CHECK_DEV_LIMIT,
+                      "top5_error": top5_err})
+    check(row["max_rel_dev"] > SOLVE_CHECK_DEV_LIMIT,
+          f"the tf32 control is {row['max_rel_dev']} off, within the limit "
+          f"{SOLVE_CHECK_DEV_LIMIT}: the gate cannot see it")
+
+
+def weighted_out_of_core_phases(dev, card) -> dict:
+    """The out-of-core weighted fit: ImageNetSiftLcsFV at the reference's
+    widths on 20,480 card-drawn training images that are never whole as
+    descriptors; the weighted solver at ImageNet's training count, streamed;
+    the same draw at 100,000 rows streamed against in memory; the slice's
+    card tests. Returns the K1 launches of each path (none reaches K1)."""
+    from keystone_tpu_torch.data.dataset import Dataset
+    from keystone_tpu_torch.linalg.weighted import class_chunk_size
+    from keystone_tpu_torch.nodes.learning.weighted import BlockWeightedLeastSquaresEstimator
+    from keystone_tpu_torch.nodes.util import ClassLabelIndicators
+    from keystone_tpu_torch.pipelines import imagenet_sift_lcs_fv as imagenet
+    from keystone_tpu_torch.utils import timing
+    from keystone_tpu_torch.workflow.pipeline import clock
+
+    start, finish, launches = phase_group(card)
+
+    # -- imagenet_out_of_core: the application on card-drawn chunks -------
+    name, t0 = start("imagenet_out_of_core")
+    train, tr_l = imagenet.synthetic_imagenet_device(IN_OOC_TRAIN, IN_CLASSES, size=IN_SIZE,
+                                                     chunk_rows=IN_OOC_CHUNK, seed=1, device=dev)
+    test, te_l = imagenet.synthetic_imagenet_device(IN_OOC_TEST, IN_CLASSES, size=IN_SIZE,
+                                                    chunk_rows=IN_OOC_CHUNK, seed=2, device=dev)
+    te_i = test.to_array()
+    train_chunks = -(-IN_OOC_TRAIN // IN_OOC_CHUNK)
+    conf = imagenet.ImageNetSiftLcsFVConfig(num_pca_samples=1_000_000,
+                                            num_gmm_samples=1_000_000, num_classes=IN_CLASSES)
+    details = {}
+    timing.reset()
+    timing.enable()
+    try:
+        with ScanLog() as scans:
+            fitted, top5_err, seconds = imagenet.run(train, tr_l, te_i, te_l, conf, dev, details)
+    finally:
+        timing.enable(False)
+    solver_phases = timing.snapshot("wls.")
+    peak = torch.cuda.max_memory_allocated()
+    train_scans = [s.label for s in scans if s.chunks == train_chunks]
+    seen = [next(iter(train.raw_chunks(skip=train_chunks // 2))) for _ in range(2)]
+    same_chunk = bool(torch.equal(seen[0], seen[1]))
+    stacks = IN_OOC_TRAIN * 4 * (128 * IN_SIFT + 96 * IN_LCS)
+    finish(name, t0, {
+        "train": IN_OOC_TRAIN, "test": IN_OOC_TEST, "chunk_rows": IN_OOC_CHUNK,
+        "size": IN_SIZE, "classes": IN_CLASSES, "desc_dim": conf.desc_dim,
+        "vocab_size": conf.vocab_size, "lambda": conf.lam,
+        "mixture_weight": conf.mixture_weight, "samples": 1_000_000,
+        "top5_error": top5_err, "top5_limit": IN_TOP5_LIMIT, "run_seconds": seconds,
+        "fit_seconds": details["fit_seconds"], "phase_seconds": details["phases"],
+        "solver_phases": solver_phases, "featurize_scans": train_scans,
+        "descriptors": details["descriptors"], "fv_width": details["fv_width"],
+        "solver_route": details["solver_route"], "solver_path": details["solver_path"],
+        "class_chunks": details["class_chunks"], "pca_choice": details["pca_choice"],
+        "em_iterations": details["em_iterations"], "peak_run_gb": peak / 1e9,
+        "peak_gb_by_phase_end": {k: v / 1e9 for k, v in details["peak_bytes"].items()},
+        "descriptor_stacks_gb": stacks / 1e9, "fv_cache_gb": IN_OOC_TRAIN * IN_FV * 4 / 1e9,
+        "peak_limit_gb": IN_OOC_PEAK_LIMIT / 1e9,
+        "middle_chunk_bit_equal_across_scans": same_chunk})
+    check(len(train_scans) == 3, f"featurize scans of the training chunks: {train_scans}, want "
+          "2 sampling scans and 1 cache scan")
+    check(details["descriptors"] == {"sift": IN_SIFT, "lcs": IN_LCS},
+          f"descriptors per image {details['descriptors']}")
+    check(details["fv_width"] == IN_FV, f"FV width {details['fv_width']}, want {IN_FV}")
+    check(details["solver_route"] == "in_memory" and details["solver_path"] == "dense",
+          f"the 336 MB of FVs took the {details['solver_route']} {details['solver_path']} route")
+    check(peak < IN_OOC_PEAK_LIMIT, f"peak memory {peak} B is not below {IN_OOC_PEAK_LIMIT} B")
+    check(top5_err < IN_TOP5_LIMIT, f"top-5 error {top5_err} % is not below {IN_TOP5_LIMIT} %")
+    check(same_chunk, "a training chunk drawn in two scans differs")
+    weighted_solve_check(fitted, train, tr_l, te_i, details["scores"], conf, "out_of_core", card)
+    del fitted, details, train, test, te_i, seen
+
+    # -- wls_stream_full_n: the weighted solver at ImageNet's training count
+    name, t0 = start("wls_stream_full_n")
+    w, lam = 0.25, 6e-5
+    means = planted_means(dev, WLS_D, WLS_K, 40)
+    labels, rows = planted_rows(dev, means, WLS_N, WLS_CHUNK, 41)
+    Y = ClassLabelIndicators(WLS_K).forward(labels)
+    t_labels = clock() - t0
+    C = class_chunk_size(WLS_K, WLS_D, 8)
+    want_scans = 1 * 1 * (1 + math.ceil(WLS_K / C))
+    est = BlockWeightedLeastSquaresEstimator(WLS_D, 1, lam, w)
+    timing.reset()
+    timing.enable()
+    try:
+        t1 = clock()
+        mapper = est.fit(rows, Dataset.of(Y))
+        fit_seconds = clock() - t1
+    finally:
+        timing.enable(False)
+    solver_phases = timing.snapshot("wls.")
+    peak = torch.cuda.max_memory_allocated()
+    test_labels, test_rows = planted_rows(dev, means, WLS_TEST, WLS_TEST, 42)
+    Xt = test_rows.to_array()
+    scores = mapper.forward(Xt)
+    accuracy = (scores.argmax(1) == test_labels).double().mean().item()
+    oracle = ((Xt @ means.T - 0.5 * (means * means).sum(1)).argmax(1)
+              == test_labels).double().mean().item()
+    agreement, deviation, f64_seconds = planted_solve_check(rows, labels, WLS_CHUNK, w, lam, Xt,
+                                                            scores)
+    info = mapper.fit_info
+    finish(name, t0, {
+        "n": WLS_N, "d": WLS_D, "k": WLS_K, "chunk_rows": WLS_CHUNK, "lambda": lam,
+        "mixture_weight": w, "separation": WLS_SEPARATION,
+        "design_matrix_gb": WLS_N * WLS_D * 4 / 1e9,
+        "labels_seconds": t_labels, "fit_seconds": fit_seconds, "solver_phases": solver_phases,
+        "class_chunk": C, "scans": info.get("scans"), "scans_expected": want_scans,
+        "class_chunks": info.get("class_chunks"), "peak_fit_gb": peak / 1e9,
+        "test_rows": WLS_TEST, "test_accuracy": accuracy, "accuracy_limit": WLS_ACCURACY_LIMIT,
+        "nearest_true_mean_accuracy": oracle, "f64_check_classes": SOLVE_CHECK_CLASSES,
+        "f64_argmax_agreement": agreement, "agreement_limit": SOLVE_CHECK_AGREEMENT,
+        "f64_max_rel_dev": deviation, "deviation_limit": WLS_DEV_LIMIT,
+        "f64_seconds": f64_seconds})
+    check(info.get("scans") == want_scans, f"{info.get('scans')} scans, want {want_scans}")
+    check(agreement >= SOLVE_CHECK_AGREEMENT,
+          f"argmax agreement {agreement} with the float64 per-class solve")
+    check(deviation <= WLS_DEV_LIMIT,
+          f"scores {deviation} (relative) off the float64 per-class solve")
+    check(accuracy >= WLS_ACCURACY_LIMIT, f"held-out accuracy {accuracy} of the planted model")
+    del mapper, Y, labels, rows, scores, Xt
+
+    # -- wls_stream_vs_memory: the same draw at 100,000 rows, both routes
+    name, t0 = start("wls_stream_vs_memory")
+    labels, rows = planted_rows(dev, means, WLS_MEMORY_ROWS, WLS_CHUNK, 43)
+    Y = ClassLabelIndicators(WLS_K).forward(labels)
+    test_labels, test_rows = planted_rows(dev, means, WLS_TEST, WLS_TEST, 44)
+    Xt = test_rows.to_array()
+    secs, preds, infos = {}, {}, {}
+    for route, budget in (("streamed", "1"), ("in_memory", None)):
+        fresh_env()
+        t1 = clock()
+        mapper = with_env("KEYSTONE_CHUNK_CACHE_BUDGET", budget,
+                          lambda: est.fit(rows, Dataset.of(Y)))
+        secs[route] = clock() - t1
+        preds[route], infos[route] = mapper.forward(Xt), mapper.fit_info
+        del mapper
+    excess = ((preds["streamed"] - preds["in_memory"]).abs()
+              - (5e-4 + 5e-3 * preds["in_memory"].abs())).max().item()
+    accuracy = {r: (p.argmax(1) == test_labels).double().mean().item() for r, p in preds.items()}
+    finish(name, t0, {
+        "n": WLS_MEMORY_ROWS, "d": WLS_D, "k": WLS_K, "fit_seconds": secs,
+        "scans": {r: i.get("scans", 0) for r, i in infos.items()},
+        "tolerance": {"rtol": 5e-3, "atol": 5e-4}, "tolerance_excess": excess,
+        "test_accuracy": accuracy})
+    check("scans" in infos["streamed"] and "scans" not in infos["in_memory"],
+          f"routes: {infos}")
+    check(excess <= 0, f"streamed predictions off the in-memory ones beyond tolerance ({excess})")
+    del Y, labels, rows, preds, Xt, means
+
+    # -- the slice's card tests -----------------------------------------
+    t1 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-p", "no:cacheprovider", "-q",
+         "tests/test_torch_cuda_weighted_streaming.py"], capture_output=True, text=True,
+        timeout=900)
+    summary = (proc.stdout.strip().splitlines() or [""])[-1]
+    emit({"phase": "cuda_weighted_streaming_tests", "returncode": proc.returncode,
+          "summary": summary, "seconds": time.perf_counter() - t1})
+    check(proc.returncode == 0 and "passed" in summary and "skipped" not in summary,
+          f"the slice's card tests: {proc.stdout[-4000:]}{proc.stderr[-2000:]}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1737,6 +2183,10 @@ def main() -> int:
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": card,
           "torch": torch.__version__, "cuda": torch.version.cuda})
+    if sys.argv[1:] == ["--solve-check-controls"]:
+        solve_check_controls(dev, card)
+        print(card, flush=True)
+        return 0
 
     t0 = time.perf_counter()
     _build.build("gaussian_kernel")
@@ -2128,6 +2578,7 @@ def main() -> int:
     imagenet_k1 = imagenet_phases(cli, dev, card)
     text_k1 = text_phases(cli, dev, card)
     ooc_k1 = out_of_core_phases(dev, card)
+    weighted_k1 = weighted_out_of_core_phases(dev, card)
 
     emit({"phase": "total", "seconds": time.perf_counter() - started, "card": card})
     fit = timings["fit"]
@@ -2141,7 +2592,7 @@ def main() -> int:
         "launches_by_path": {"slice": launches, "compiled_cifar": compiled_launches,
                              "krr_family": krr_launches, "timit_full_width": timit_k1,
                              "cifar_family": cifar_family_k1, "voc": voc_k1, **imagenet_k1,
-                             **text_k1, **ooc_k1},
+                             **text_k1, **ooc_k1, **weighted_k1},
     }]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

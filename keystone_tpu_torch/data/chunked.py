@@ -386,14 +386,21 @@ class ChunkedDataset(Dataset):
 
         def factory():
             iters = [iter(p()) for p in sources]
+            total = 0
             for chunks in zip(*iters):
                 rows = {payload_rows(c) for c in chunks}
                 if len(rows) != 1:
                     raise ValueError(f"zip_chunks: misaligned chunk boundaries {rows}")
+                total += rows.pop()
                 yield tuple(chunks)
             for it in iters:  # every branch must end together
                 if next(it, None) is not None:
                     raise ValueError("zip_chunks: branch chunk counts differ")
+            # zip() consumes and drops the extra chunk of an earlier branch
+            # that has one more than a later one; the row count sees it
+            if total != n:
+                raise ValueError(f"zip_chunks: the zipped chunks hold {total} rows, the "
+                                 f"branches {n}")
 
         return ChunkedDataset(factory, n, label="zip",
                               steps=_zip_steps([ds._steps for ds in datasets]))

@@ -13,10 +13,12 @@ Each of the three fits an out-of-core
 :class:`~keystone_tpu_torch.data.chunked.ChunkedDataset` by streaming
 (``supports_streaming``): a scan for the column means, then the exact
 solve's Gram, the augmented TSQR's R factor, or one scan a BCD block step,
-so the design matrix is never whole. Not ported: the snapshot and
-checkpointed fits (``linalg/accumulators.py``, ``faults/checkpoint.py``)
-and ``fit_lambda_grid``, which ROADMAP Queue 1 item 11 leaves to a later
-slice; asking for a snapshot or a checkpoint raises.
+so the design matrix is never whole. ``LinearMapEstimator(snapshot=True)``
+fits through :class:`~keystone_tpu_torch.linalg.accumulators.GramSolverState`
+(in memory or chunked) and carries the state on its mapper, for
+``FittedPipeline.absorb``. Not ported: the checkpointed fits
+(``faults/checkpoint.py``) and ``fit_lambda_grid``, which ROADMAP Queue 1
+items 11 and 12 leave to later slices; asking for a checkpoint raises.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import torch
 from ...data.dataset import Dataset
 from ...data.sparse import SparseRows
 from ...linalg import bcd, normal_equations, tsqr
+from ...linalg.accumulators import GramSolverState, NotAbsorbable, fold_into
 from ...linalg.bcd import (
     _block_means,
     solve_blockwise_l2,
@@ -40,15 +43,20 @@ from .cost import CostModel, combine_cost
 
 
 class LinearMapper(Transformer):
-    """out = (x − feature_mean) · W + b."""
+    """out = (x − feature_mean) · W + b. ``solver_state`` is the
+    snapshot-able :class:`~keystone_tpu_torch.linalg.accumulators.
+    GramSolverState` of a snapshot fit (None otherwise): what
+    ``FittedPipeline.absorb`` folds appended chunks into; the apply never
+    reads it."""
 
     row_local = True
 
     def __init__(self, W: torch.Tensor, b: Optional[torch.Tensor] = None,
-                 feature_mean: Optional[torch.Tensor] = None):
+                 feature_mean: Optional[torch.Tensor] = None, solver_state=None):
         self.W = W
         self.b = b
         self.feature_mean = feature_mean
+        self.solver_state = solver_state
 
     def forward(self, X: torch.Tensor) -> torch.Tensor:
         if self.feature_mean is not None:
@@ -61,8 +69,8 @@ class LinearMapper(Transformer):
 
 def _later_slice(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet: it comes with linalg/accumulators.py and "
-        "faults/checkpoint.py in a later slice (ROADMAP Queue 1, item 11)")
+        f"{what} is not ported yet: it comes with faults/checkpoint.py in a later slice "
+        "(ROADMAP Queue 1, item 11)")
 
 
 def _streaming_labels(data, labels: Dataset):
@@ -97,25 +105,42 @@ def _with_labels(data, y: torch.Tensor, d: int, fn):
 class LinearMapEstimator(LabelEstimator, CostModel):
     """Exact ridge regression by normal equations on centered data. A
     chunked input streams: a scan for the column means, then one scan of
-    centered (A, y) chunks into the Gram and cross products."""
+    centered (A, y) chunks into the Gram and cross products.
+
+    ``snapshot=True`` fits through the raw accumulators instead
+    (:class:`~keystone_tpu_torch.linalg.accumulators.GramSolverState`: ΣAᵀA
+    and ΣAᵀy in host float64, centered at the solve), one scan of a chunked
+    input, and carries the state on the fitted :class:`LinearMapper`, which
+    ``FittedPipeline.absorb`` then folds appended chunks into."""
 
     supports_streaming = True
 
     def __init__(self, lam: Optional[float] = None, snapshot: bool = False,
                  checkpoint: Optional[str] = None):
-        if snapshot:
-            raise _later_slice("LinearMapEstimator(snapshot=True)")
         if checkpoint is not None:
             raise _later_slice("LinearMapEstimator(checkpoint=...)")
         self.lam = lam
+        self.snapshot = snapshot
 
     def fit(self, data: Dataset, labels: Dataset) -> LinearMapper:
+        if self.snapshot:
+            return self._fit_snapshot(data, labels)
         if getattr(data, "is_chunked", False):
             return self._fit_streaming(data, labels)
         A = Dataset.of(data).to_array()
         b = Dataset.of(labels).to_array().to(A.device)
         W, a_mean, b_mean = solve_centered(A, b, reg=self.lam or 0.0)
         return LinearMapper(W, b=b_mean, feature_mean=a_mean)
+
+    def _fit_snapshot(self, data, labels: Dataset) -> LinearMapper:
+        """Fold the data (one scan of a chunked input) into a
+        GramSolverState, solve at λ on the labels' device, and carry the
+        state's snapshot, λ recorded."""
+        y = Dataset.of(labels).to_array().float()
+        state = fold_into(GramSolverState(lam=float(self.lam or 0.0)), data, y,
+                          label="gram_state")
+        W, b, mean = state.solve(state.lam, device=y.device)
+        return LinearMapper(W, b=b, feature_mean=mean, solver_state=state.snapshot())
 
     def _fit_streaming(self, data, labels: Dataset) -> LinearMapper:
         y, a_mean = _streaming_labels(data, labels)
@@ -139,7 +164,12 @@ class BlockLinearMapper(Transformer):
 
     def __init__(self, xs: Sequence[torch.Tensor], block_size: int,
                  b: Optional[torch.Tensor] = None,
-                 feature_means: Optional[Sequence[torch.Tensor]] = None):
+                 feature_means: Optional[Sequence[torch.Tensor]] = None,
+                 solver_state=None):
+        #: the snapshot-able WeightedSolverState of a per-class weighted
+        #: snapshot fit (None otherwise), what ``FittedPipeline.absorb``
+        #: folds appended chunks into
+        self.solver_state = solver_state
         self.xs = list(xs)
         self.block_size = block_size
         self.b = b
@@ -179,10 +209,10 @@ class BlockLeastSquaresEstimator(LabelEstimator, CostModel):
     def __init__(self, block_size: int, num_iter: int, lam: float = 0.0,
                  num_features: Optional[int] = None, snapshot: bool = False):
         if snapshot:
-            raise ValueError(
+            raise NotAbsorbable(
                 "block-coordinate descent has no state to snapshot: its iterates depend "
-                "on the order it visits the blocks, so appended chunks cannot be folded "
-                "in after the fit")
+                "on block visitation order, so appended chunks cannot be folded in after "
+                "the fit; fit with LinearMapEstimator(snapshot=True) for an absorbable model")
         self.block_size = block_size
         self.num_iter = num_iter
         self.lam = lam

@@ -14,8 +14,13 @@ switches TF32 off for the whole package (``keystone_tpu_torch/__init__.py``),
 the counterpart of the JAX package's "highest" matmul precision for this
 family; nothing here switches it back.
 
-Not ported: the streaming fit (``train_streaming``) and the snapshot
-state of the per-class estimator; both come with the out-of-core fit.
+Out of core: a ``ChunkedDataset`` input that fits the cache budget is
+materialized and solved in memory; a larger one streams
+(``train_streaming``, :func:`~keystone_tpu_torch.linalg.weighted.
+solve_weighted_streaming`). The per-class estimator's ``snapshot=True``
+fits through :class:`~keystone_tpu_torch.linalg.weighted.WeightedSolverState`
+and carries it on the fitted mapper for ``FittedPipeline.absorb``; the
+iterated families have no such state and raise ``NotAbsorbable``.
 """
 
 from __future__ import annotations
@@ -28,7 +33,15 @@ import torch.nn.functional as F
 
 from ...data.dataset import Dataset
 from ...linalg.row_matrix import solve_spd
-from ...linalg.weighted import _batched_solve, cost_signature, solve_each
+from ...linalg.accumulators import NotAbsorbable, fold_into
+from ...linalg.weighted import (
+    ClassRows,
+    WeightedSolverState,
+    _batched_solve,
+    cost_signature,
+    solve_each,
+    solve_weighted_streaming,
+)
 from ...utils.timing import phase
 from ...workflow.node_optimization import Optimizable
 from ...workflow.transformer import LabelEstimator
@@ -47,31 +60,6 @@ def _chunk_grams(A: torch.Tensor, mask_chunk: torch.Tensor) -> torch.Tensor:
     """The JAX package's masked Grams of a chunk of classes, (C, d, d):
     Σ_i mask[i, c] a_i a_iᵀ over all n rows for every class."""
     return torch.einsum("nd,nc,ne->cde", A, mask_chunk, A)
-
-
-class ClassRows:
-    """The rows of each class, for Grams formed from a class's own rows:
-    a stable sort of the rows by class and each class's first position in
-    it. The counts are read to the host once."""
-
-    def __init__(self, y_idx: torch.Tensor, k: int):
-        self.order = torch.argsort(y_idx, stable=True)
-        self.counts = np.bincount(y_idx.cpu().numpy(), minlength=k)
-        self.starts = np.concatenate([[0], np.cumsum(self.counts)[:-1]])
-
-    def grams(self, A: torch.Tensor, c0: int, c1: int) -> torch.Tensor:
-        """Σ_{i∈c} a_i a_iᵀ for the classes c0 ≤ c < c1, (C, d, d): each
-        class's rows gathered and padded with zero rows to the chunk's
-        largest class, then one batched GEMM. The same sums as
-        :func:`_chunk_grams` in another order, n/C times less work."""
-        counts = self.counts[c0:c1]
-        m = max(int(counts.max()), 1)
-        pos = np.arange(m)
-        idx = np.minimum(self.starts[c0:c1, None] + pos, len(self.order) - 1)
-        keep = torch.from_numpy(pos < counts[:, None]).to(A.device, A.dtype)
-        rows = A.index_select(0, self.order[torch.from_numpy(idx.reshape(-1)).to(A.device)])
-        rows = rows.reshape(c1 - c0, m, A.shape[1]) * keep[..., None]
-        return torch.bmm(rows.transpose(1, 2), rows)
 
 
 def _dual_solve_chunk(Q, R, dvec, pm_proj, mu_proj, s3, rhs, lam: float) -> torch.Tensor:
@@ -126,16 +114,19 @@ class BlockWeightedLeastSquaresEstimator(LabelEstimator, CostModel):
     class's own rows (:class:`ClassRows`), built ``class_chunk`` classes at
     a time, and one LU solve per class. The fitted mapper carries
     ``fit_info``: the path of each block, the class chunks and the block
-    steps."""
+    steps (and, streamed, the scans)."""
+
+    supports_streaming = True
 
     def __init__(self, block_size: int, num_iter: int, lam: float, mixture_weight: float,
                  num_features: Optional[int] = None, class_chunk: int = 8,
                  snapshot: bool = False):
         if snapshot:
-            raise ValueError(
-                "the block-weighted solver has no snapshot state: its iterates depend on "
-                "the order it visits the blocks in; PerClassWeightedLeastSquaresEstimator's "
-                "snapshot comes with the out-of-core fit")
+            raise NotAbsorbable(
+                "the block-weighted solver has no snapshot-able state: its iterates depend "
+                "on block visitation order, so appended chunks cannot be folded in after "
+                "the fit; fit with PerClassWeightedLeastSquaresEstimator(snapshot=True) for "
+                "an absorbable weighted model")
         self.block_size = block_size
         self.num_iter = num_iter
         self.lam = lam
@@ -156,14 +147,45 @@ class BlockWeightedLeastSquaresEstimator(LabelEstimator, CostModel):
             cpu_weight, mem_weight, network_weight)
 
     def fit(self, data, labels: Dataset) -> BlockLinearMapper:
+        """A ``ChunkedDataset`` is cached when the whole set fits
+        ``KEYSTONE_CHUNK_CACHE_BUDGET`` (one scan) and solved in memory;
+        a larger one streams (:meth:`train_streaming`). Either way the
+        featurizer upstream ran chunk by chunk."""
+        if getattr(data, "is_chunked", False):
+            cached = data.cache()
+            if cached.is_chunked:
+                return self.train_streaming(cached, Dataset.of(labels).to_array())
+            data = cached
         blocks = _as_blocks(data, self.block_size, self.num_features)
         Y = Dataset.of(labels).to_array().to(blocks[0].device, torch.float32)
         return self.train_with_l2(blocks, Y)
 
-    def train_streaming(self, data, Y):
-        raise NotImplementedError(
-            "the streaming weighted solve needs the out-of-core fit (ChunkedDataset), "
-            "which the port does not have yet; fit in memory")
+    def train_streaming(self, data, Y: torch.Tensor) -> BlockLinearMapper:
+        """The out-of-core weighted solve over a chunked design matrix that
+        is never whole; each scan recomputes the chunks from their source
+        (:func:`~keystone_tpu_torch.linalg.weighted.solve_weighted_streaming`:
+        num_iter × nblocks × (1 + ⌈k/C⌉) scans, the class-chunked Gram scans
+        being the price of never holding the (k, bs, bs) class Grams).
+        Chunks are cut to ``num_features`` columns. Every block takes the
+        dense per-class systems, even where :meth:`train_with_l2` would take
+        the dual path, as the JAX package's streaming solve does."""
+        Y = torch.as_tensor(Y).float()
+        if len(data) != Y.shape[0]:
+            raise ValueError(f"chunked features have {len(data)} rows, labels {Y.shape[0]}")
+        if self.num_features is not None:
+            d = self.num_features
+
+            def chunk_scan():
+                return data.raw_chunks().then(lambda c: c[..., :d])
+        else:
+            chunk_scan = data.raw_chunks
+        info: dict = {}
+        Ws, b = solve_weighted_streaming(
+            chunk_scan, Y, block_size=self.block_size, num_iter=self.num_iter, lam=self.lam,
+            mixture_weight=self.mixture_weight, class_chunk=self.class_chunk, info=info)
+        mapper = BlockLinearMapper(Ws, self.block_size, b=b)
+        mapper.fit_info = info
+        return mapper
 
     def _chunk_size(self, n: int, k: int, dual: bool) -> int:
         if dual:
@@ -285,15 +307,18 @@ class PerClassWeightedLeastSquaresEstimator(LabelEstimator, CostModel):
     """The same objective solved exactly, a class at a time, as a dense
     weighted ridge: the reference's agreement oracle for the block solver.
     Exact when the whole feature matrix fits; for tests and small problems.
-    ``snapshot=True`` needs the out-of-core fit's solver state and is not
-    ported."""
+
+    ``snapshot=True`` fits through the per-class raw accumulators
+    (:class:`~keystone_tpu_torch.linalg.weighted.WeightedSolverState`: k
+    class Grams and the label cross terms, associative over row blocks),
+    in memory or over a ``ChunkedDataset``, and carries the state on the
+    fitted mapper, so that ``FittedPipeline.absorb`` folds appended chunks
+    into it. The exact per-class solve does not depend on the order of the
+    rows, which is why this family absorbs and the iterated ones do not.
+    The state solves in host float64; it is O(k·d²) on the host."""
 
     def __init__(self, block_size: int, num_iter: int, lam: float, mixture_weight: float,
                  num_features: Optional[int] = None, snapshot: bool = False):
-        if snapshot:
-            raise NotImplementedError(
-                "PerClassWeightedLeastSquaresEstimator(snapshot=True) needs the weighted "
-                "solver state of the out-of-core fit, which the port does not have yet")
         self.block_size = block_size
         self.num_iter = num_iter
         self.lam = lam
@@ -311,7 +336,23 @@ class PerClassWeightedLeastSquaresEstimator(LabelEstimator, CostModel):
              "network": d * (d + k), "passes": k},
             cpu_weight, mem_weight, network_weight)
 
+    def _fit_snapshot(self, data, labels: Dataset) -> BlockLinearMapper:
+        """Fold the data, chunked or not, into a WeightedSolverState, solve
+        from it and carry its snapshot on the mapper."""
+        state = WeightedSolverState(lam=float(self.lam), mixture_weight=float(self.mixture_weight),
+                                    block_size=int(self.block_size))
+        Y = Dataset.of(labels).to_array().float()
+        if self.num_features is not None:
+            d = self.num_features
+            data = Dataset.of(data).map_batch(lambda X: X[..., :d])
+        fold_into(state, data, Y, label="weighted_state")
+        W, b = state.solve(device=Y.device)
+        return BlockLinearMapper(_split(W, self.block_size), self.block_size, b=b,
+                                 solver_state=state.snapshot())
+
     def fit(self, data, labels: Dataset) -> BlockLinearMapper:
+        if self.snapshot:
+            return self._fit_snapshot(data, labels)
         X = Dataset.of(data).to_array().float()
         Y = Dataset.of(labels).to_array().to(X.device, torch.float32)
         w = self.mixture_weight
@@ -456,5 +497,9 @@ class WeightedLeastSquaresEstimator(LabelEstimator, AutoSolverFrontDoor, CostMod
             # pre-split blocks: only the block solver reads them
             return self.default.fit(data, labels)
         data = Dataset.of(data)
-        solver = self.sample_optimize([data, Dataset.of(labels)], len(data))
+        # a chunked input is planned from its first rows, among the solvers
+        # that stream (the block solver)
+        sample = data.take(24) if data.is_chunked else data
+        solver = self.sample_optimize([sample, Dataset.of(labels)], len(data),
+                                      chunked=data.is_chunked)
         return solver.fit(data, labels)

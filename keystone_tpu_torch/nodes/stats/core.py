@@ -230,6 +230,33 @@ class Sampler(Transformer):
         idx = torch.from_numpy(self.indices(X.shape[0])).to(X.device)
         return X[idx]
 
+    def apply_batch(self, data) -> Dataset:
+        """The sample of the whole dataset: a chunked one is indexed across
+        its chunks in one scan (each chunk keeps the sampled rows that fall
+        in it), an item list is sampled as one list; never chunk by chunk
+        or item by item."""
+        data = Dataset.of(data)
+        idx = self.indices(len(data))
+        if data.is_chunked:
+            from ...data.chunked import concat_chunks
+            from ...data.pipeline_scan import map_payload, payload_rows
+
+            parts, row0 = [], 0
+            for chunk in data.chunks():
+                rows = payload_rows(chunk)
+                lo, hi = np.searchsorted(idx, [row0, row0 + rows])
+                if hi > lo:
+                    local = torch.from_numpy(idx[lo:hi] - row0)
+                    parts.append(map_payload(lambda a: a[local.to(a.device)], chunk))
+                row0 += rows
+            if row0 != len(data):
+                raise ValueError(f"the chunks hold {row0} rows, the dataset {len(data)}")
+            return Dataset(concat_chunks(parts))
+        if data.is_batched:
+            return Dataset(self.forward(data.to_array()))
+        items = data.collect()
+        return Dataset.from_items([items[i] for i in idx])
+
 
 class ColumnSampler(Transformer):
     """Sample ``num_samples_per_matrix`` random columns of each (d, m)

@@ -132,6 +132,10 @@ class Shuffler(Transformer):
 
     def apply_batch(self, data) -> Dataset:
         data = Dataset.of(data)
+        if data.is_chunked:
+            raise ValueError(
+                "Shuffler permutes the whole dataset and cannot run per chunk; "
+                "materialize the dataset (e.g. .cache()) first")
         perm = np.random.default_rng(self.seed).permutation(len(data))
         if data.is_batched:
             return Dataset(map_leaves(lambda t: t[torch.from_numpy(perm).to(t.device)],

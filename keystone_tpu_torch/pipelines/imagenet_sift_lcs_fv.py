@@ -20,8 +20,13 @@ on the projection of the second. The descriptor stacks are then freed,
 and the predictor's branches are transformers only: the fit runs pixels
 to Fisher vectors as one fused group in row chunks cut to its bytes.
 
-The out-of-core form (``ChunkedDataset`` inputs, ``synthetic_imagenet_device``)
-is not ported; it comes with the out-of-core fit.
+Out of core, the training images are a ``ChunkedDataset`` (such as
+:func:`synthetic_imagenet_device`'s, drawn on the card chunk by chunk):
+each branch draws both its samples in one featurize scan, each chunk's
+columns keyed by (seed, chunk index), so the descriptor stacks of the
+training set are never whole; the fit then zips the branches' Fisher
+vectors per chunk, and the weighted solver caches them when they fit the
+budget (one more scan) or streams them.
 """
 
 from __future__ import annotations
@@ -35,6 +40,8 @@ import numpy as np
 import torch
 
 from .. import device as pick_device
+from ..data.chunked import ChunkedDataset
+from ..data.dataset import Dataset
 from ..nodes.images.core import GrayScaler, PixelScaler
 from ..nodes.images.fisher_vector import FisherVector, GMMFisherVectorEstimator
 from ..nodes.images.lcs import LCSExtractor
@@ -126,7 +133,15 @@ class _Phases:
         self.mark = now
 
 
-def compute_pca_fisher_branch(prefix: Pipeline, train_images: torch.Tensor, *,
+def _images(images, device: torch.device):
+    """Training or test images as the pipeline takes them: a chunked
+    dataset as it is, anything else a tensor on ``device``."""
+    if getattr(images, "is_chunked", False):
+        return images
+    return torch.as_tensor(images).to(device)
+
+
+def compute_pca_fisher_branch(prefix: Pipeline, train_images, *,
                               num_col_samples_per_image: int,
                               gmm_samples_per_image: Optional[int] = None,
                               desc_dim: int, vocab_size: int,
@@ -142,21 +157,47 @@ def compute_pca_fisher_branch(prefix: Pipeline, train_images: torch.Tensor, *,
     receives the seconds of ``name`` (the descriptors), ``samples``,
     ``pca_fit`` and ``gmm``; ``info`` the descriptors per image, the PCA
     estimator chosen, the EM iterations and the ``codebooks`` (the PCA
-    matrix and the GMM), keyed by ``name``."""
-    phases = phases if phases is not None else _Phases(train_images.device)
+    matrix and the GMM), keyed by ``name``.
+
+    ``train_images`` is an (n, X, Y, C) tensor or a ``ChunkedDataset`` of
+    such chunks. A chunked set draws both samples in one scan of its
+    descriptors, each chunk sampled by ``ColumnSampler.sample_chunk`` (the
+    PCA sample with ``seed``, the GMM sample with ``seed + 1``); the
+    descriptors of a chunk are freed before the next is made, so the
+    phases ``name`` and ``samples`` are one."""
+    if not getattr(train_images, "is_chunked", False):
+        dev = train_images.device
+    else:
+        dev = phases.device if phases is not None else pick_device()
+    phases = phases if phases is not None else _Phases(dev)
     info = info if info is not None else {}
-    dev = train_images.device
     pca_sample = desc_sample = None
     if not pca_file or not gmm_mean_file:
         gmm_per_img = gmm_samples_per_image or num_col_samples_per_image
         with phase("imagenet.descriptors+samples") as out:
             descs = prefix(train_images).get()
-            info.setdefault("descriptors", {})[name] = int(descs.to_array().shape[2])
-            phases.done(name)
-            if not pca_file:
-                pca_sample = ColumnSampler(num_col_samples_per_image, seed=seed).apply_batch(descs)
-            if not gmm_mean_file:
-                desc_sample = ColumnSampler(gmm_per_img, seed=seed + 1).apply_batch(descs)
+            if descs.is_chunked:
+                s_pca = ColumnSampler(num_col_samples_per_image, seed=seed)
+                s_gmm = ColumnSampler(gmm_per_img, seed=seed + 1)
+                pca_parts, gmm_parts = [], []
+                for i, chunk in enumerate(descs.chunks()):
+                    info.setdefault("descriptors", {})[name] = int(chunk.shape[2])
+                    if not pca_file:
+                        pca_parts.append(s_pca.sample_chunk(chunk, i))
+                    if not gmm_mean_file:
+                        gmm_parts.append(s_gmm.sample_chunk(chunk, i))
+                    del chunk
+                pca_sample = Dataset(torch.cat(pca_parts)) if pca_parts else None
+                desc_sample = Dataset(torch.cat(gmm_parts)) if gmm_parts else None
+                phases.done(name)
+            else:
+                info.setdefault("descriptors", {})[name] = int(descs.to_array().shape[2])
+                phases.done(name)
+                if not pca_file:
+                    pca_sample = ColumnSampler(num_col_samples_per_image,
+                                               seed=seed).apply_batch(descs)
+                if not gmm_mean_file:
+                    desc_sample = ColumnSampler(gmm_per_img, seed=seed + 1).apply_batch(descs)
             del descs
             out.append((pca_sample if pca_sample is not None else desc_sample).to_array())
             phases.done("samples")
@@ -197,10 +238,11 @@ def build_predictor(train_images, train_int_labels, conf: ImageNetSiftLcsFVConfi
                     phases: Optional[_Phases] = None, info: Optional[dict] = None) -> Pipeline:
     """The two-branch predictor, its weighted solver not yet fitted (its
     PCAs and GMMs are: see :func:`compute_pca_fisher_branch`). It ends at
-    ``TopKClassifier(5)``, or with ``classify`` False at the scores."""
+    ``TopKClassifier(5)``, or with ``classify`` False at the scores. The
+    training images may be a ``ChunkedDataset`` (out of core)."""
     dev = device if device is not None else pick_device()
-    X = torch.as_tensor(train_images).to(dev)
-    n_train = X.shape[0]
+    X = _images(train_images, dev)
+    n_train = len(X)
     per_img = max(1, conf.num_pca_samples // max(n_train, 1))
     per_img_gmm = max(1, conf.num_gmm_samples // max(n_train, 1))
     labels = ClassLabelIndicators(conf.num_classes).forward(
@@ -242,8 +284,9 @@ def run(train_images, train_labels, test_images, test_labels,
         conf: ImageNetSiftLcsFVConfig, device: Optional[torch.device] = None,
         details: Optional[dict] = None):
     """Fit on the training images (an (n, X, Y, C) batch, uint8 or float in
-    [0, 255]) and their int labels, and score the test images. Returns (the
-    fitted predictor, the top-5 test error in percent, the seconds).
+    [0, 255], or a ``ChunkedDataset`` of such chunks) and their int labels,
+    and score the test images. Returns (the fitted predictor, the top-5
+    test error in percent, the seconds).
 
     ``details``, when given, receives ``phases`` (seconds of data, sift,
     lcs, samples, pca_fit, gmm, optimize, featurize, solve, executor,
@@ -251,13 +294,15 @@ def run(train_images, train_labels, test_images, test_labels,
     ``peak_bytes`` (the peak device bytes so far at the end of each phase
     and of the ``fit``), ``descriptors`` per image of each branch,
     ``fv_width``, the weighted solver's ``solver_path`` ("dense" or
-    "dual"), its ``class_chunks`` and ``block_steps``, ``pca_choice`` and
+    "dual"), its ``class_chunks`` and ``block_steps``, its ``solver_route``
+    ("in_memory", or "streamed" for chunked features over the cache budget)
+    and ``solver_scans`` (0 in memory), ``pca_choice`` and
     ``em_iterations`` of each fitted branch, each branch's ``codebooks``,
     the ``fitted`` predictor, the test ``scores`` and their ``top5``."""
     dev = device if device is not None else pick_device()
     start = time.perf_counter()
-    X_train = torch.as_tensor(train_images).to(dev)
-    X_test = torch.as_tensor(test_images).to(dev)
+    X_train = _images(train_images, dev)
+    X_test = _images(test_images, dev)
     phases = _Phases(dev, start)
     phases.done("data")
     info: dict = {}
@@ -282,7 +327,8 @@ def run(train_images, train_labels, test_images, test_labels,
     info.update(phases=phases.seconds, peak_bytes=phases.peaks, fit_seconds=fit_seconds,
                 solver_path="+".join(sorted(set(fit_info["paths"]))),
                 class_chunks=fit_info["class_chunks"], block_steps=fit_info["block_steps"],
-                fitted=fitted, scores=scores, top5=top5)
+                solver_route="streamed" if "scans" in fit_info else "in_memory",
+                solver_scans=fit_info.get("scans", 0), fitted=fitted, scores=scores, top5=top5)
     if details is not None:
         details.update(info)
     return fitted, err, time.perf_counter() - start
@@ -417,6 +463,62 @@ def synthetic_imagenet(n: int, num_classes: int, size: int = 64, seed: int = 0):
         img = np.clip(base + wave * (0.5 + 0.5 * mask), 0, 255)
         images[i] = img[..., None].repeat(3, axis=-1)
     return images.astype(np.uint8), labels
+
+
+def _chunk_generator(device: torch.device, seed: int, chunk: int, stream: int) -> torch.Generator:
+    """A new generator for one (seed, chunk index, stream) on ``device``:
+    one shared across chunks, or made once a dataset, would advance between
+    scans, and a later scan would see other images."""
+    return torch.Generator(device).manual_seed((seed * 1_000_003 + chunk) * 2 + stream)
+
+
+def synthetic_imagenet_device(n: int, num_classes: int, size: int = 256, chunk_rows: int = 64,
+                              seed: int = 0, device=None):
+    """The out-of-core form of :func:`synthetic_imagenet`, drawn on
+    ``device`` (the card unless the CPU is named) chunk by chunk: returns (a
+    ``ChunkedDataset`` of uint8 (rows, size, size, 3) chunks, the int32
+    labels). Chunk i is drawn from generators seeded by (seed, i) and made
+    anew on every scan, so each scan sees the same images (the lineage
+    contract); the labels are drawn once, from the same per-chunk seeds.
+
+    The images follow the JAX package's device generator: an oriented
+    grating on a (frequency × orientation) class grid with a random phase,
+    over a gray field with pixel noise, its contrast raised inside a random
+    square. ``torch.Generator`` cannot draw ``jax.random``'s values, so the
+    two agree in distribution, not bit for bit."""
+    dev = pick_device(device)
+    n_freq = min(10, max(1, int(np.ceil(np.sqrt(num_classes)))))
+    n_theta = max(1, -(-num_classes // n_freq))
+    n_chunks = -(-n // chunk_rows)
+
+    def chunk_labels(i: int) -> torch.Tensor:
+        rows = min(chunk_rows, n - i * chunk_rows)
+        return torch.randint(0, num_classes, (rows,), device=dev,
+                             generator=_chunk_generator(dev, seed, i, 0))
+
+    coords = torch.arange(size, dtype=torch.float32)
+
+    def chunk_fn(i: int) -> torch.Tensor:
+        labels = chunk_labels(i)
+        rows = labels.shape[0]
+        gen = _chunk_generator(dev, seed, i, 1)
+        xx, yy = coords.to(dev)[:, None], coords.to(dev)[None, :]
+        freq = (0.08 + 0.035 * (labels % n_freq).float())[:, None, None]
+        theta = (np.pi * (labels // n_freq).float() / n_theta)[:, None, None]
+        phase_ = torch.rand((rows, 1, 1), device=dev, generator=gen) * (2 * np.pi)
+        wave = 80.0 * torch.sin(2 * np.pi * freq * (torch.cos(theta) * xx + torch.sin(theta) * yy)
+                                + phase_)
+        base = 64.0 + 8.0 * torch.randn((rows, size, size), device=dev, generator=gen)
+        x0 = torch.randint(0, size // 3, (rows, 1, 1), device=dev, generator=gen)
+        y0 = torch.randint(0, size // 3, (rows, 1, 1), device=dev, generator=gen)
+        mask = ((xx >= x0) & (xx < x0 + size // 2) & (yy >= y0) & (yy < y0 + size // 2)).float()
+        img = torch.clamp(base + wave * (0.5 + 0.5 * mask), 0, 255)
+        return img.to(torch.uint8)[..., None].expand(rows, size, size, 3).contiguous()
+
+    labels = torch.cat([chunk_labels(i) for i in range(n_chunks)]).cpu().numpy().astype(np.int32)
+    ds = ChunkedDataset.from_chunk_fn(chunk_fn, n_chunks, n,
+                                      label=f"imagenet_device[{n}x{size}px]")
+    return ds, labels
 
 
 # ---- CLI -----------------------------------------------------------------

@@ -20,10 +20,13 @@ one-program apply: ``compile``, ``apply_compiled``, ``apply_chunked``,
 with the traceability verdicts of ``check/lattice.py``). On CUDA a
 compiled chain is one CUDA graph per input signature (``cuda_graph.py``),
 the counterpart of the JAX package's one XLA program per shape.
-Left out, each with its own later item of work: the static checker
-(``check``, ``_static_check``), ``fit_instrumentation`` (tracing and the
-cost-model loop), the AOT cache of ``compile`` and the prefix absorption
-(``absorb``, ``prefix_features``) of the out-of-core tier.
+The incremental refit of the out-of-core tier is ported too:
+``FittedPipeline.absorb`` folds appended chunks, featurized through the
+frozen prefix, into a snapshot fit's solver state and solves again, and
+``prefix_features`` runs data through that prefix. Left out, each with its
+own later item of work: the static checker (``check``, ``_static_check``),
+``fit_instrumentation`` (tracing and the cost-model loop), the AOT cache
+of ``compile`` and absorb's checkpoints (``faults/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -583,6 +586,91 @@ class FittedPipeline(Chainable):
         state["_compiled_signatures"] = []
         return state
 
+    # -- incremental refit ----------------------------------------------
+
+    def absorbable_nodes(self) -> List[NodeId]:
+        """The nodes whose operator carries a snapshot-able solver state
+        (``linalg/accumulators.py``, ``linalg/weighted.py``): the models
+        :meth:`absorb` can fold appended chunks into."""
+        return [n for n in self._graph.nodes
+                if getattr(self._graph.get_operator(n), "solver_state", None) is not None]
+
+    def _absorb_node(self) -> Tuple[NodeId, Any]:
+        """The one solver-state node, and its operator; a typed refusal
+        when there is none, a ValueError when there are several."""
+        from ..linalg.accumulators import NotAbsorbable
+
+        nodes = self.absorbable_nodes()
+        if not nodes:
+            raise NotAbsorbable(
+                "absorb needs a model fitted with a snapshot-able solver state: fit with "
+                "LinearMapEstimator(snapshot=True) or PerClassWeightedLeastSquaresEstimator("
+                "snapshot=True) (the iterated block families have no associative state and "
+                "cannot absorb)")
+        if len(nodes) > 1:
+            labels = [self._graph.get_operator(n).label for n in nodes]
+            raise ValueError(f"absorb is ambiguous: {len(nodes)} solver-state nodes "
+                             f"({', '.join(labels)})")
+        (node,) = nodes
+        return node, self._graph.get_operator(node)
+
+    def _prefix_executor(self, node: NodeId, data: Any) -> Tuple[GraphExecutor, SinkId]:
+        """An executor of this pipeline's frozen prefix (everything upstream
+        of the model ``node``) fed ``data``, run without a new optimizer
+        pass, as :meth:`apply` runs: another partition into fused groups
+        could sum in another order than the fit's features did."""
+        deps = self._graph.get_dependencies(node)
+        if len(deps) != 1:
+            raise ValueError(f"absorb expects a single-input model node, got {len(deps)} inputs")
+        graph, sink = self._graph.add_sink(deps[0])
+        graph = _bind_source(graph, self._source, attach_data, data)
+        return GraphExecutor(graph, optimize=False), sink
+
+    def prefix_features(self, data: Any) -> Any:
+        """``data`` through the frozen featurizer prefix of the absorbable
+        model node: the features that node would see at fit time (a
+        ``ChunkedDataset`` stays lazy)."""
+        node, _ = self._absorb_node()
+        executor, sink = self._prefix_executor(node, data)
+        return executor.execute(sink).get()
+
+    def absorb(self, new_data: Any, new_labels: Any, *, checkpoint: Optional[str] = None,
+               checkpoint_key: Optional[str] = None,
+               on_chunk: Optional[Callable[[int, Any], None]] = None) -> "FittedPipeline":
+        """Fold appended training data into the fitted model without a fit
+        from scratch, and return a new FittedPipeline; this one is left as
+        it was.
+
+        The model must come from a snapshot fit
+        (``LinearMapEstimator(snapshot=True)``,
+        ``PerClassWeightedLeastSquaresEstimator(snapshot=True)``): its state
+        holds the raw sums of every row seen so far. The new data runs
+        through the frozen prefix (one scan of a ``ChunkedDataset``, the old
+        training data never read again), its chunks are folded into a copy
+        of the state, and the model is solved again at the recorded λ. The
+        upstream fitted transformers stay as they are: fitting them again
+        would change the features of every row already absorbed. A model
+        without such a state raises the typed ``NotAbsorbable``.
+
+        ``on_chunk(chunk_index, features)`` runs before each chunk is
+        folded. ``checkpoint`` and ``checkpoint_key`` (a resumable absorb)
+        raise: checkpoints come with ``faults/checkpoint.py`` in a later
+        slice (ROADMAP Queue 1, item 11)."""
+        if checkpoint is not None or checkpoint_key is not None:
+            raise NotImplementedError(
+                "absorb(checkpoint=...) is not ported yet: it comes with "
+                "faults/checkpoint.py in a later slice (ROADMAP Queue 1, item 11)")
+        from ..linalg.accumulators import fold_into
+
+        node, mapper = self._absorb_node()
+        executor, sink = self._prefix_executor(node, new_data)
+        device = _first_device(mapper) or torch.device("cpu")
+        y = Dataset.of(new_labels).to_array().float().to(device)
+        state = fold_into(mapper.solver_state.snapshot(), executor.execute(sink).get(), y,
+                          label="absorb", on_chunk=on_chunk)
+        return FittedPipeline(self._graph.set_operator(node, state.rebuild_mapper(mapper)),
+                              self._source, self._sink, self.seconds)
+
     # -- persistence ----------------------------------------------------
 
     def save(self, path: str) -> None:
@@ -635,30 +723,33 @@ class _Compiled:
         return res if take is _own else take(res)
 
 
+def _first_device(v: Any, depth: int = 4) -> Optional[torch.device]:
+    """The device of the first tensor found in ``v`` (its attributes and
+    containers, ``depth`` levels down), or None."""
+    if isinstance(v, torch.Tensor):
+        return v.device
+    if depth == 0:
+        return None
+    if isinstance(v, dict):
+        items = v.values()
+    elif isinstance(v, (list, tuple)):
+        items = v
+    elif hasattr(v, "__dict__") and not isinstance(v, type):
+        items = vars(v).values()
+    else:
+        return None
+    for item in items:
+        found = _first_device(item, depth - 1)
+        if found is not None:
+            return found
+    return None
+
+
 def _param_device(graph: Graph) -> torch.device:
     """Where a graph's parameters live (the first tensor found in its
     operators), the CPU when it holds none: where numpy input is sent."""
-    def find(v, depth):
-        if isinstance(v, torch.Tensor):
-            return v.device
-        if depth == 0:
-            return None
-        if isinstance(v, dict):
-            items = v.values()
-        elif isinstance(v, (list, tuple)):
-            items = v
-        elif hasattr(v, "__dict__") and not isinstance(v, type):
-            items = vars(v).values()
-        else:
-            return None
-        for item in items:
-            found = find(item, depth - 1)
-            if found is not None:
-                return found
-        return None
-
     for op in graph.operators.values():
-        found = find(op, 4)
+        found = _first_device(op)
         if found is not None:
             return found
     return torch.device("cpu")

@@ -123,6 +123,46 @@ def test_zip_chunks_aligned_and_misaligned_equal_jax():
         list(ChunkedDataset.zip_chunks([a, ChunkedDataset.from_array(Y, 7)]).chunks())
 
 
+@pytest.mark.parametrize("order", ["three_then_two", "two_then_three"])
+def test_zip_chunks_counts_rows_where_jax_drops_a_chunk(order):
+    """A deliberate divergence. Branches of 3 and 2 two-row chunks, both
+    declared at 6 rows: with the 3-chunk branch first, the JAX package's
+    zip() consumes its third chunk and drops it, and the scan yields 4 rows
+    with no error; in the other order it raises. The port counts the rows
+    it yields against the declared length and raises in both orders."""
+
+    def branches(cls, arr):
+        def make(k):
+            return cls(lambda: (arr[2 * i:2 * i + 2] for i in range(k)), 6, label=f"c{k}")
+        pair = [make(3), make(2)]
+        return pair if order == "three_then_two" else pair[::-1]
+
+    X = np.arange(12, dtype=np.float32).reshape(6, 2)
+    jzip = JChunked.zip_chunks(branches(JChunked, X))
+    if order == "three_then_two":
+        assert sum(int(c[0].shape[0]) for c in jzip.chunks()) == 4
+    else:
+        with pytest.raises(ValueError):
+            list(jzip.chunks())
+    with pytest.raises(ValueError, match="chunk"):
+        list(ChunkedDataset.zip_chunks(branches(ChunkedDataset, torch.from_numpy(X))).chunks())
+
+
+def test_shuffler_refuses_a_chunked_dataset_where_jax_fails():
+    """A deliberate divergence: both packages cannot shuffle a chunked
+    dataset, since it would permute across chunks. The JAX package fails
+    with a TypeError from indexing its chunk factory; the port raises a
+    clear ValueError, as its batch-coupled nodes do."""
+    from keystone_tpu.nodes.util import Shuffler as JShuffler
+    from keystone_tpu_torch.nodes.util import Shuffler
+
+    X, ds = _src()
+    with pytest.raises(TypeError):
+        JShuffler(3).apply_batch(JChunked.from_array(X, 8))
+    with pytest.raises(ValueError, match="per chunk"):
+        Shuffler(3).apply_batch(ds)
+
+
 def test_a_transformer_composes_per_chunk():
     X, ds = _src()
     out = FunctionNode(batch_fn=lambda x: x + 1.0).apply_batch(ds)

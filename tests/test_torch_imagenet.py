@@ -359,3 +359,121 @@ def test_cli_reads_a_tar_of_class_directories(tmp_path):
     assert tuple(details["scores"].shape) == (24, 20)
     assert bool(torch.isfinite(details["scores"]).all())
     assert 0.0 <= out["top5_error"] <= 100.0
+
+
+# ---- out of core: a ChunkedDataset of training images ------------------------
+
+
+def _record_sample_chunk(monkeypatch, cls, to_np):
+    """Every ``sample_chunk`` call of ``cls``: (seed, chunk index, input
+    chunk, sampled columns), as numpy."""
+    calls = []
+    orig = cls.sample_chunk
+
+    def record(self, X, i):
+        out = orig(self, X, i)
+        calls.append((self.seed, i, to_np(X), to_np(out)))
+        return out
+
+    monkeypatch.setattr(cls, "sample_chunk", record)
+    return calls
+
+
+def test_chunked_samples_are_jax_draws_bit_for_bit(monkeypatch):
+    """Each branch draws its PCA and GMM samples in one scan of its chunked
+    descriptors, every chunk's columns keyed by (seed, chunk index): the
+    port makes the same calls as the JAX package, and on JAX's descriptor
+    chunks draws the same values bit for bit."""
+    from keystone_tpu.data import ChunkedDataset as JChunked
+    from keystone_tpu_torch.data.chunked import ChunkedDataset
+    from keystone_tpu_torch.nodes.stats import ColumnSampler
+
+    tr_i, tr_l = jin.synthetic_imagenet(48, 8, size=SIZE, seed=1)
+    te_i, te_l = jin.synthetic_imagenet(24, 8, size=SIZE, seed=2)
+    kw = dict(desc_dim=8, vocab_size=4, num_pca_samples=SAMPLES, num_gmm_samples=SAMPLES,
+              num_classes=8, lam=1e-4)
+    port_calls = _record_sample_chunk(monkeypatch, ColumnSampler, lambda t: t.numpy())
+    jax_calls = _record_sample_chunk(monkeypatch, JSampler, np.asarray)
+    details = {}
+    _, err, _ = tin.run(ChunkedDataset.from_array(torch.from_numpy(tr_i), 13), tr_l, te_i,
+                        te_l, tin.ImageNetSiftLcsFVConfig(**kw), CPU, details)
+    _, jerr, _ = jin.run(JChunked.from_array(tr_i, 13), tr_l, te_i, te_l,
+                         jin.ImageNetSiftLcsFVConfig(**kw))
+    assert err < 40.0 and jerr < 40.0  # the JAX test's bound
+    # SIFT (seeds 0, 1) and LCS (17, 18): 4 chunks of 13, 13, 13, 9 rows each
+    assert [(s, i, c[0].shape) for s, i, c, _ in port_calls] == \
+        [(s, i, c[0].shape) for s, i, c, _ in jax_calls]
+    assert sorted({s for s, *_ in port_calls}) == [0, 1, 17, 18] and len(port_calls) == 16
+    per_img = {s: out.shape[2] for s, _, _, out in jax_calls}
+    for seed, i, chunk, want in jax_calls:
+        got = ColumnSampler(per_img[seed], seed=seed).sample_chunk(torch.from_numpy(np.array(chunk)), i)
+        np.testing.assert_array_equal(got.numpy(), want)
+    assert details["descriptors"] == {"sift": num_descriptors(SIZE, SIZE, scale_step=1),
+                                      "lcs": tin.LCSExtractor(4, 16, 6).num_descriptors(SIZE,
+                                                                                         SIZE)}
+
+
+def _jax_scores(tr, tr_l, te_i, conf):
+    fitted = jin.build_predictor(tr, tr_l, conf).fit()
+    return np.asarray(_cut(fitted, JFitted, "BlockLinearMapper", 0).apply(
+        JDataset.of(jnp.asarray(te_i))).to_array())
+
+
+@pytest.mark.parametrize("budget", [None, "1"], ids=["cached", "streamed"])
+def test_chunked_load_path_matches_jax(data, jax_fit, budget, monkeypatch):
+    """The chunked fit on ``ChunkedDataset.from_array(tr_i, 13)`` in both
+    packages, each branch's PCA and GMM loaded from the same CSV files:
+    under the default budget the Fisher vectors are cached and solved in
+    memory (the dual path), under budget 1 they stream (the dense per-class
+    LU). Scores within 1e-3 of their largest magnitude, top-5 equal where
+    the 5th and 6th scores are apart."""
+    from keystone_tpu.data import ChunkedDataset as JChunked
+    from keystone_tpu_torch.data.chunked import ChunkedDataset
+
+    if budget:
+        monkeypatch.setenv("KEYSTONE_CHUNK_CACHE_BUDGET", budget)
+    tr_i, tr_l, te_i, te_l = data
+    files = jax_fit["files"]
+    conf = tin.ImageNetSiftLcsFVConfig(desc_dim=DESC_DIM, vocab_size=VOCAB, num_classes=CLASSES,
+                                       lam=LAM, **files)
+    details = {}
+    _, err, _ = tin.run(ChunkedDataset.from_array(torch.from_numpy(tr_i), 13), tr_l, te_i, te_l,
+                        conf, CPU, details)
+    want = _jax_scores(JChunked.from_array(tr_i, 13), tr_l, te_i,
+                       jin.ImageNetSiftLcsFVConfig(desc_dim=DESC_DIM, vocab_size=VOCAB,
+                                                   num_classes=CLASSES, lam=LAM, **files))
+    assert details["solver_path"] == ("dense" if budget else "dual")
+    scores = details["scores"].numpy()
+    np.testing.assert_allclose(scores, want, rtol=0, atol=1e-3 * np.abs(want).max())
+    s = -np.sort(-want, axis=1)
+    rows = (s[:, 4] - s[:, 5]) > 1e-4 * np.abs(want).max()
+    assert rows.mean() > 0.9
+    np.testing.assert_array_equal(details["top5"].numpy()[rows],
+                                  np.argsort(-want, axis=1, kind="stable")[rows, :5])
+
+
+def test_device_generator_statistics_and_lineage():
+    """``synthetic_imagenet_device`` draws with ``torch.Generator``, not
+    ``jax.random``, so it is held by statistics against the numpy
+    generator of the same task: label frequencies near uniform, pixel mean
+    and std within 2 % and 3 %; and every scan sees the same chunks."""
+    n, k, size = 512, 8, 32
+    ds, labels = tin.synthetic_imagenet_device(n, k, size=size, chunk_rows=64, seed=5,
+                                               device="cpu")
+    ref, ref_labels = jin.synthetic_imagenet(n, k, size=size, seed=5)
+    first, second = list(ds.chunks()), list(ds.chunks())
+    assert len(first) == 8 and all(torch.equal(a, b) for a, b in zip(first, second))
+    imgs = torch.cat(first)
+    assert imgs.shape == (n, size, size, 3) and imgs.dtype == torch.uint8
+    assert labels.dtype == np.int32 and labels.shape == (n,)
+    freq = np.bincount(labels, minlength=k) / n
+    assert np.all(np.abs(freq - 1 / k) < 4 * np.sqrt((1 / k) * (1 - 1 / k) / n))
+    x, r = imgs.float().numpy(), ref.astype(np.float32)
+    assert abs(x.mean() - r.mean()) < 0.02 * r.mean(), (x.mean(), r.mean())
+    assert abs(x.std() - r.std()) < 0.03 * r.std(), (x.std(), r.std())
+    # gray images, as the numpy generator's: the three channels are equal
+    np.testing.assert_array_equal(x[..., 0], x[..., 2])
+    again, labels_again = tin.synthetic_imagenet_device(n, k, size=size, chunk_rows=64, seed=5,
+                                                        device="cpu")
+    np.testing.assert_array_equal(labels, labels_again)
+    assert torch.equal(next(iter(again.chunks())), first[0])

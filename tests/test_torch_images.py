@@ -94,6 +94,27 @@ def test_sampler_picks_the_jax_rows():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("form", ["chunked", "items"])
+def test_sampler_samples_the_whole_dataset(form):
+    """A chunked dataset or an item list is sampled as one dataset, as the
+    JAX package's apply_batch does: rows 3, 4, 6 and 9 of ten, not every
+    row of every 3-row chunk or one-row item."""
+    from keystone_tpu.data.chunked import ChunkedDataset as JChunked
+    from keystone_tpu_torch.data.chunked import ChunkedDataset
+
+    X = np.arange(20, dtype=np.float32).reshape(10, 2)
+    if form == "chunked":
+        j_in, t_in = JChunked.from_array(X, 3), ChunkedDataset.from_array(_t(X), 3)
+    else:
+        j_in = JDataset.from_items(list(X))
+        t_in = Dataset.from_items([_t(r) for r in X])
+    want = np.stack([np.asarray(r) for r in JSampler(4, seed=1).apply_batch(j_in)])
+    got = Sampler(4, seed=1).apply_batch(t_in)
+    got = np.stack([np.asarray(r) for r in got])
+    np.testing.assert_array_equal(want[:, 0], [6, 8, 12, 18])
+    np.testing.assert_array_equal(got, want)
+
+
 def test_zca_matches_jax():
     rng = np.random.default_rng(6)
     X = (rng.standard_normal((300, 12)) @ rng.standard_normal((12, 12))).astype(np.float32)

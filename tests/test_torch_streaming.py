@@ -278,7 +278,15 @@ def test_num_features_streams_the_leading_columns():
     lambda: LinearMapEstimator(snapshot=True), lambda: LinearMapEstimator(checkpoint="d"),
     lambda: TSQRLeastSquaresEstimator(checkpoint="d"),
 ], ids=["linear-snapshot", "linear-checkpoint", "tsqr-checkpoint"])
-def test_snapshots_and_checkpoints_wait_for_a_later_slice(make):
+def test_snapshots_and_checkpoints_wait_for_a_later_slice(make, request):
+    """The checkpoints wait for ``faults/checkpoint.py``; the snapshot fit
+    is ported (``tests/test_torch_absorb.py``) and carries its state."""
+    if request.node.callspec.id == "linear-snapshot":
+        A = np.random.default_rng(0).standard_normal((20, 3)).astype(np.float32)
+        fitted = make().fit(Dataset.of(torch.from_numpy(A)),
+                            Dataset.of(torch.from_numpy(A[:, :2])))
+        assert fitted.solver_state is not None and fitted.solver_state.n == 20
+        return
     with pytest.raises(NotImplementedError, match="later slice"):
         make()
 

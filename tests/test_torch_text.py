@@ -513,3 +513,57 @@ def test_packed_stupid_backoff_corners():
         StupidBackoffModel({}, {(5, 7): 4, (7,): 2}, {5: 3, 7: 6}, 11))
     with pytest.raises(ValueError, match="OOV"):
         oov.score_packed(NaiveBitPackIndexer.pack_batch(np.asarray([[-1, 5, 7]]), 3))
+
+
+# ---- CoreNLPFeatureExtractor (corenlp_lite): the five assertions of the
+# JAX package's tests/nodes/test_corenlp_lite.py, and output equality with
+# the JAX node (both are host Python: exact) ----
+
+
+def test_corenlp_lemmatization():
+    tokens = set(nlp.CoreNLPFeatureExtractor(range(1, 4)).apply(
+        "jumping snakes lakes oceans hunted"))
+    for lemma in ("jump", "snake", "lake", "ocean", "hunt"):
+        assert lemma in tokens
+    for raw in ("jumping", "snakes", "lakes", "oceans", "hunted"):
+        assert raw not in tokens
+
+
+def test_corenlp_entity_extraction():
+    tokens = set(nlp.CoreNLPFeatureExtractor(range(1, 4)).apply(
+        "John likes cake and he lives in Florida"))
+    assert "PERSON" in tokens and "LOCATION" in tokens
+    assert not {"John", "john", "Florida", "florida"} & tokens
+
+
+def test_corenlp_1_2_3_grams():
+    tokens = set(nlp.CoreNLPFeatureExtractor(range(1, 4)).apply("a b c d"))
+    assert {"a", "b", "c", "d"} <= tokens
+    assert {"a b", "b c", "c d"} <= tokens
+    assert {"a b c", "b c d"} <= tokens
+
+
+def test_corenlp_grams_respect_sentence_boundaries():
+    tokens = nlp.CoreNLPFeatureExtractor([2]).apply("a b. c d")
+    assert "b c" not in tokens
+    assert "a b" in tokens and "c d" in tokens
+
+
+def test_corenlp_lemmatizer_rules():
+    for word, lemma in (("running", "run"), ("making", "make"), ("cities", "city"),
+                        ("children", "child"), ("glasses", "glass"), ("sing", "sing")):
+        assert nlp.lemmatize(word) == lemma == jnlp.corenlp_lite.lemmatize(word)
+
+
+@pytest.mark.parametrize("orders", [[1], [2, 3], range(1, 4)])
+def test_corenlp_extractor_equals_jax_on_a_corpus(orders):
+    from keystone_tpu.nodes.nlp.corenlp_lite import CoreNLPFeatureExtractor as JCoreNLP
+
+    corpus = [
+        "Mary went to Paris. She was making plans! The children ran home?",
+        "John and Sarah stopped running in Texas; cities were buzzing... Hoped it rained.",
+        "Geese, mice and women said nothing. 42 glasses broke at 3pm in Boston!!",
+        "", "   ", "A b. C d. e",
+    ]
+    for doc in corpus:
+        assert nlp.CoreNLPFeatureExtractor(orders).apply(doc) == JCoreNLP(orders).apply(doc)
