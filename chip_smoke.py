@@ -60,16 +60,26 @@ chunk, against their planted models); TimitPipeline fitted over all
 design matrix never whole (20 block steps, 21 scans of 34 chunks, peak
 below 32 GB); a snapshot fit on 16 chunks of those frames with 2 more
 absorbed, against a fit on all 18; the least-squares family on the chunked
-frames; the chunked fit against the in-memory one at 200,000 frames; and the
-scan's card tests. Last, the out-of-core weighted fit: ImageNetSiftLcsFV at
+frames; and the chunked fit against the in-memory one at 200,000 frames.
+Then the out-of-core weighted fit: ImageNetSiftLcsFV at
 the reference's widths on 20,480 synthetic 256² images drawn on the card
 chunk by chunk (their descriptor stacks never whole, 3 featurize scans); the
 weighted solver streamed at ImageNet's 1,281,167 training rows of a planted
 class-mean model (126 scans), each held against a float64 per-class solve
 (argmax agreement and the scores' deviation, each gated);
-the same draw at 100,000 rows streamed against in memory; and the slice's
-card tests. Each phase prints one JSON line; any failure raises and exits non-zero. The last line is
-``{"ok": true, "device": {...}}``. Without a CUDA card it exits non-zero
+and the same draw at 100,000 rows streamed against in memory. Then
+resumable fits: the absorb phase's 16-chunk snapshot fit
+as a checkpointed λ grid, killed by a fault plan (transient chunk and
+staging faults, then a fatal one) and run again, bit-equal to the
+uninterrupted fit and drawing only the chunks after the last save; its
+absorb killed and resumed the same way, and an absorb of other data that
+starts fresh; the checkpointed TSQR on the raw frames killed and resumed,
+and its λ grid against independent fits; the card-drawn MNIST tasks
+against their card Monte-Carlo Bayes errors (bench.py's two gates); the
+warm-started BCD λ grid at 200 FFTs against cold fits. Last, the card
+tests of the scan, the weighted fit and the faults, in one pytest process.
+Each phase prints one JSON line; any failure raises and exits non-zero.
+The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card it exits non-zero
 and prints no result.
 
 ``python3 chip_smoke.py --solve-check-controls`` runs only the controls of
@@ -85,8 +95,10 @@ import functools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from collections import Counter
 
@@ -1347,6 +1359,64 @@ RAGGED_ROWS = [512, 480, 500, 300, 450, 200]
 # absorb (slice 11): a snapshot fit of the out-of-core featurizer on 16
 # chunks of the frames, 2 more absorbed; λ as TIMIT's fallback
 ABSORB_CHUNKS, ABSORB_APPENDED, ABSORB_LAMBDA = 16, 2, TIMIT_FALLBACK_LAMBDA
+# resumable fits (slice 12): the absorb phase's 16-chunk snapshot fit as a
+# checkpointed λ grid (λ 100 is absorb's), saved every 4 chunks, killed at
+# chunk 9's pull (after the save at 8) under transient chunk and staging
+# faults, then run again with the transients only; the fatal clause counts
+# the pulls the transient clause does not take, so its index is the chunk's
+RESUME_LAMBDAS, RESUME_EVERY, RESUME_KILL_CHUNK = (10.0, 100.0, 1000.0), 4, 9
+RESUME_TRANSIENTS = "scan.chunk=transient@2,5;scan.stage=transient@3"
+RESUME_RETRIES = "4"
+# the checkpointed TSQR on the raw frames: saved every 4 chunks, killed at
+# chunk 20's pull of the fold (after the means scan's 34 pulls and its end)
+TSQR_EVERY, TSQR_KILL_CHUNK, TSQR_LAMBDAS = 4, 20, (1e3, 1e4, 1e5)
+TSQR_GRID_LIMIT = 1e-5  # members against independent fits, relative to the largest entry
+
+
+class FaultLog:
+    """Records, while entered, each ``FitCheckpoint.save`` (chunk cursor,
+    seconds, bytes written) and each transient retry by site (the
+    ``RetryBudget.consume`` calls that granted one). Restored on exit."""
+
+    def __enter__(self) -> "FaultLog":
+        from keystone_tpu_torch.faults import FitCheckpoint, RetryBudget
+
+        self.saves, self.retries = [], Counter()
+        self._undo = [(FitCheckpoint, "save", FitCheckpoint.save),
+                      (RetryBudget, "consume", RetryBudget.consume)]
+        save, consume, log = FitCheckpoint.save, RetryBudget.consume, self
+
+        def timed_save(ck, state, chunk, rows):
+            t0 = time.perf_counter()
+            save(ck, state, chunk, rows)
+            log.saves.append({"chunk": chunk, "seconds": time.perf_counter() - t0,
+                              "bytes": os.path.getsize(ck.path)})
+
+        def counted_consume(budget, exc, site):
+            delay = consume(budget, exc, site)
+            if delay is not None:
+                log.retries[site] += 1
+            return delay
+
+        FitCheckpoint.save, RetryBudget.consume = timed_save, counted_consume
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for cls, name, orig in self._undo:
+            setattr(cls, name, orig)
+
+
+def transient_fired(plan) -> dict:
+    """The transient faults a plan injected, by site: what a scan retried."""
+    return {site: n for site, n in ((site, sum(s.fired for s in specs if s.kind == "transient"))
+                                    for site, specs in plan._by_site.items()) if n}
+
+
+def host_peak_gb() -> float:
+    """The process's peak resident host memory so far."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
 
 
 class ScanLog:
@@ -1402,8 +1472,8 @@ def out_of_core_phases(dev, card) -> dict:
     bench.py's streamed block and exact solves at TIMIT's full row count;
     TimitPipeline fitted over all 2,228,224 frames with the design matrix
     never whole; the least-squares family on chunked input; the chunked fit
-    against the in-memory one at 200,000 frames; the card tests of the
-    scan. Returns the K1 launches of each path (none reaches K1)."""
+    against the in-memory one at 200,000 frames. Returns the K1 launches of
+    each path (none reaches K1)."""
     import numpy as np
 
     from keystone_tpu_torch.data.chunked import ChunkedDataset
@@ -1417,6 +1487,7 @@ def out_of_core_phases(dev, card) -> dict:
         BlockLeastSquaresEstimator, BlockLinearMapper, LinearMapEstimator, LinearMapper,
         TSQRLeastSquaresEstimator,
     )
+    from keystone_tpu_torch import faults
     from keystone_tpu_torch.nodes.util import ClassLabelIndicators, MaxClassifier
     from keystone_tpu_torch.pipelines import timit
     from keystone_tpu_torch.utils import timing
@@ -1712,7 +1783,126 @@ def out_of_core_phases(dev, card) -> dict:
     check(all(v <= 1e-6 for v in devs.values()), f"absorb is off the fit from scratch: {devs}")
     check(preds_equal, "absorb and the fit from scratch predict differently")
     check(state.n == total * OOC_CHUNK, f"the absorbed state holds {state.n} rows")
-    del fitted, updated, scratch, models, state, Y, featurizer, Xt
+    del updated, scratch, state, Xt
+
+    # -- resume_timit: the 16-chunk snapshot fit as a checkpointed λ grid,
+    # killed under a fault plan and run again --------------------------
+    name, t0 = start("resume_timit")
+    feats = fitted.prefix_features(frame_chunks(0, ABSORB_CHUNKS))
+    ref_state = models["fitted"].solver_state
+    ckpt_dir = tempfile.mkdtemp(prefix="resume-timit-")
+    ests = [LinearMapEstimator(lam) for lam in RESUME_LAMBDAS]
+    runs, members = {}, None
+    for run, text in (("kill", f"{RESUME_TRANSIENTS};scan.chunk=fatal@{RESUME_KILL_CHUNK}"),
+                      ("resume", RESUME_TRANSIENTS)):
+        draws = Counter()
+        plan = faults.install(faults.parse_plan(text))
+        error = None
+        t1 = clock()
+        with FaultLog() as log:
+            try:
+                members = with_env("KEYSTONE_SCAN_RETRIES", RESUME_RETRIES,
+                                   lambda: LinearMapEstimator.fit_lambda_grid(
+                                       ests, feats, Dataset.of(Y[:cut]), checkpoint=ckpt_dir,
+                                       checkpoint_every=RESUME_EVERY))
+            except faults.FatalFaultInjected as e:
+                error = repr(e)
+            finally:
+                faults.clear()
+        runs[run] = {"seconds": clock() - t1, "error": error, "chunk_draws": dict(draws),
+                     "saves": log.saves, "retries_by_site": dict(log.retries),
+                     "injected": dict(plan.injected), "transients": transient_fired(plan),
+                     "checkpoint_files": len(os.listdir(ckpt_dir))}
+    got = members[RESUME_LAMBDAS.index(ABSORB_LAMBDA)]
+    state_equal = {a: bool(np.array_equal(getattr(got.solver_state, a), getattr(ref_state, a)))
+                   for a in ("gram", "cross", "sum_x", "sum_y", "shift", "shift_y")}
+    # λ 100 against the fit's own W; the others against the state's solves
+    others = [lam for lam in RESUME_LAMBDAS if lam != ABSORB_LAMBDA]
+    members_equal = {lam: bool(torch.equal(members[RESUME_LAMBDAS.index(lam)].W, W))
+                     for lam, (W, _, _) in zip(others, ref_state.solve_lambdas(others, dev))}
+    finish(name, t0, {
+        "chunks": ABSORB_CHUNKS, "d": OOC_COSINES * timit.NUM_COSINE_FEATURES,
+        "lambdas": RESUME_LAMBDAS, "checkpoint_every": RESUME_EVERY,
+        "kill_chunk": RESUME_KILL_CHUNK, "scan_retries": int(RESUME_RETRIES), "runs": runs,
+        "state_equal": state_equal,
+        "w_equal_to_the_16_chunk_fit": bool(torch.equal(got.W, models["fitted"].W)),
+        "members_equal_to_state_solve": members_equal,
+        "host_state_gb_per_member": ref_state.gram.nbytes / 1e9,
+        "disk_free_gb": shutil.disk_usage(ckpt_dir).free / 1e9,
+        "peak_host_gb": host_peak_gb()})
+    kill, resume = runs["kill"], runs["resume"]
+    check(kill["error"] is not None and "FatalFaultInjected" in kill["error"],
+          f"the kill run ended with {kill['error']}")
+    check([sv["chunk"] for sv in kill["saves"]] == [4, 8] and kill["checkpoint_files"] == 1,
+          f"the kill run saved at {[sv['chunk'] for sv in kill['saves']]}")
+    check(kill["chunk_draws"] == {i: 1 for i in range(RESUME_KILL_CHUNK)},
+          f"the kill run drew {kill['chunk_draws']}")
+    check(resume["chunk_draws"] == {i: 1 for i in range(8, ABSORB_CHUNKS)},
+          f"the resumed run drew {resume['chunk_draws']}; the 8 after the save at 8, once")
+    check([sv["chunk"] for sv in resume["saves"]] == [12],
+          f"the re-run saved at {[sv['chunk'] for sv in resume['saves']]}; at 12 only")
+    check(all(r["retries_by_site"] == r["transients"] for r in runs.values()),
+          f"retries by site against the plans' transients: {runs}")
+    check(resume["checkpoint_files"] == 0, "the completed grid left its checkpoint")
+    check(all(state_equal.values()), f"the resumed state differs from the fit's: {state_equal}")
+    check(torch.equal(got.W, models["fitted"].W), "the λ 100 member's W is not the fit's")
+    check(all(members_equal.values()), f"members against state.solve: {members_equal}")
+    del feats, members, got, ests
+
+    # -- absorb_resume_timit: absorb's 2 chunks, killed before the second;
+    # an absorb of 2 other chunks killed the same way starts at its own
+    # first chunk, where a resume of the first absorb's save would skip it
+    name, t0 = start("absorb_resume_timit")
+    ckpt_dir = tempfile.mkdtemp(prefix="absorb-resume-")
+    other = ClassLabelIndicators(conf.num_classes).forward(torch.from_numpy(
+        train_labels[total * OOC_CHUNK:(total + ABSORB_APPENDED) * OOC_CHUNK]).to(dev))
+    absorbs = {}
+    for run, first, labels, text in (("kill", ABSORB_CHUNKS, Y[cut:], "scan.chunk=fatal@1"),
+                                     ("other_data", total, other, "scan.chunk=fatal@1"),
+                                     ("resume", ABSORB_CHUNKS, Y[cut:], None)):
+        draws = Counter()
+        if text:
+            faults.install(faults.parse_plan(text))
+        error = out = None
+        t1 = clock()
+        with FaultLog() as log:
+            try:
+                out = fitted.absorb(frame_chunks(first, ABSORB_APPENDED), Dataset.of(labels),
+                                    checkpoint=ckpt_dir, checkpoint_every=1)
+            except faults.FatalFaultInjected as e:
+                error = repr(e)
+            finally:
+                faults.clear()
+        absorbs[run] = {"seconds": clock() - t1, "error": error, "chunk_draws": dict(draws),
+                        "saves": log.saves, "checkpoint_files": sorted(os.listdir(ckpt_dir)),
+                        "model": out and next(op for op in out.graph.operators.values()
+                                              if isinstance(op, LinearMapper))}
+    resumed = absorbs["resume"].pop("model")
+    absorbs["kill"].pop("model"), absorbs["other_data"].pop("model")
+    files = {run: r["checkpoint_files"] for run, r in absorbs.items()}
+    state_equal = {a: bool(np.array_equal(getattr(resumed.solver_state, a),
+                                          getattr(models["absorbed"].solver_state, a)))
+                   for a in ("gram", "cross", "sum_x", "sum_y")}
+    finish(name, t0, {"appended_chunks": ABSORB_APPENDED, "runs": absorbs,
+                      "state_equal": state_equal,
+                      "w_equal": bool(torch.equal(resumed.W, models["absorbed"].W)),
+                      "peak_host_gb": host_peak_gb()})
+    for run in ("kill", "other_data"):
+        check(absorbs[run]["error"] is not None and len(absorbs[run]["saves"]) == 1
+              and absorbs[run]["saves"][0]["chunk"] == 1,
+              f"the {run} absorb was to die after its save at 1: {absorbs[run]}")
+    check(absorbs["kill"]["chunk_draws"] == {ABSORB_CHUNKS: 1},
+          f"the killed absorb drew {absorbs['kill']['chunk_draws']}")
+    check(absorbs["other_data"]["chunk_draws"] == {total: 1} and len(files["other_data"]) == 2,
+          f"the absorb of other data did not start fresh in its own file: {absorbs['other_data']}")
+    check(absorbs["resume"]["chunk_draws"] == {ABSORB_CHUNKS + 1: 1}
+          and not absorbs["resume"]["saves"],
+          f"the resumed absorb drew {absorbs['resume']['chunk_draws']}; only the second chunk")
+    check(files["resume"] == sorted(set(files["other_data"]) - set(files["kill"])),
+          f"the completed absorb left its checkpoint, or removed another's: {files}")
+    check(all(state_equal.values()) and torch.equal(resumed.W, models["absorbed"].W),
+          f"the resumed absorb differs from the uninterrupted one: {state_equal}")
+    del fitted, models, ref_state, resumed, other, Y, featurizer
 
     # -- ls_chunked: the least-squares family on the chunked frames ------
     name, t0 = start("ls_chunked")
@@ -1767,7 +1957,76 @@ def out_of_core_phases(dev, card) -> dict:
               for k in ("DenseLBFGSwithL2", "SparseLBFGSwithL2")),
           f"the L-BFGS options on chunked input: {choice.costs}")
     check(tsqr_rel < 1e-3, f"streamed TSQR's W is {tsqr_rel} off the streamed exact solve's")
-    del frames, raw, feats, Y, W_tsqr, W_exact, raw_model, branch
+    del feats, W_tsqr, W_exact, raw_model, branch
+
+    # -- resume_tsqr: the checkpointed TSQR on the raw frames, killed at
+    # chunk 20 of its fold and resumed; the λ grid against independent fits
+    name, t0 = start("resume_tsqr")
+    ckpt_dir = tempfile.mkdtemp(prefix="resume-tsqr-")
+    labels = Dataset.of(Y)
+    tsqr_runs, fits, rs = {}, {}, {}
+    kill_at = OOC_CHUNKS + 1 + TSQR_KILL_CHUNK  # after the means scan's pulls
+    with Probe() as probe:
+        probe.watch(TSQRLeastSquaresEstimator, "_fold_r")
+        for run, sub, text in (("whole", "whole", None),
+                               ("kill", "killed", f"scan.chunk=fatal@{kill_at}"),
+                               ("resume", "killed", None)):
+            draws = Counter()
+            if text:
+                faults.install(faults.parse_plan(text))
+            error = None
+            t1 = clock()
+            with FaultLog() as log:
+                try:
+                    fits[run] = TSQRLeastSquaresEstimator(
+                        0.0, checkpoint=os.path.join(ckpt_dir, sub),
+                        checkpoint_every=TSQR_EVERY).fit(frame_chunks(0, OOC_CHUNKS), labels)
+                    rs[run] = probe.last["TSQRLeastSquaresEstimator._fold_r:apply"].r
+                except faults.FatalFaultInjected as e:
+                    error = repr(e)
+                finally:
+                    faults.clear()
+            tsqr_runs[run] = {"seconds": clock() - t1, "error": error,
+                              "chunk_draws": sorted(Counter(draws.values()).items()),
+                              "drawn": sorted(draws), "saves": [sv["chunk"] for sv in log.saves]}
+    t1 = clock()
+    plain = TSQRLeastSquaresEstimator(0.0).fit(raw, labels).W
+    plain_seconds = clock() - t1
+    plain_rel = (torch.linalg.norm(fits["whole"].W - plain) / torch.linalg.norm(plain)).item()
+    t1 = clock()
+    grid = TSQRLeastSquaresEstimator.fit_lambda_grid(
+        [TSQRLeastSquaresEstimator(lam) for lam in TSQR_LAMBDAS], raw, labels)
+    grid_seconds = clock() - t1
+    grid_dev = {}
+    for lam, m in zip(TSQR_LAMBDAS, grid):
+        W = TSQRLeastSquaresEstimator(lam).fit(raw, labels).W
+        grid_dev[lam] = {"max_abs": (m.W - W).abs().max().item(),
+                         "relative": ((m.W - W).abs().max() / W.abs().max()).item()}
+    finish(name, t0, {
+        "rows": OOC_ROWS, "chunks": OOC_CHUNKS, "checkpoint_every": TSQR_EVERY,
+        "kill_chunk": TSQR_KILL_CHUNK, "runs": tsqr_runs,
+        "r_equal": bool(torch.equal(rs["whole"], rs["resume"])),
+        "w_equal": bool(torch.equal(fits["whole"].W, fits["resume"].W)),
+        "rel_dev_from_plain_streaming": plain_rel, "plain_seconds": plain_seconds,
+        "limit": 1e-3, "grid_lambdas": TSQR_LAMBDAS, "grid_seconds": grid_seconds,
+        "grid_dev_from_independent": grid_dev, "grid_limit": TSQR_GRID_LIMIT})
+    check(tsqr_runs["kill"]["error"] is not None, "the TSQR kill run did not die")
+    check(tsqr_runs["kill"]["saves"] == list(range(0, TSQR_KILL_CHUNK + 1, TSQR_EVERY)),
+          f"the TSQR kill run saved at {tsqr_runs['kill']['saves']}")
+    check(tsqr_runs["resume"]["drawn"] == list(range(TSQR_KILL_CHUNK, OOC_CHUNKS))
+          and tsqr_runs["resume"]["chunk_draws"] == [(1, OOC_CHUNKS - TSQR_KILL_CHUNK)]
+          and tsqr_runs["resume"]["saves"] == list(range(TSQR_KILL_CHUNK + TSQR_EVERY,
+                                                         OOC_CHUNKS, TSQR_EVERY)),
+          f"the resumed TSQR drew {tsqr_runs['resume']}; the chunks after the save, once")
+    check(torch.equal(rs["whole"], rs["resume"]) and torch.equal(fits["whole"].W,
+                                                                 fits["resume"].W),
+          "the resumed TSQR's R or W differs from the uninterrupted checkpointed fit's")
+    check(plain_rel < 1e-3, f"the checkpointed TSQR is {plain_rel} off the plain streaming fit")
+    check(all(v["relative"] <= TSQR_GRID_LIMIT for v in grid_dev.values()),
+          f"TSQR grid members against independent fits: {grid_dev}")
+    check(not any(os.listdir(os.path.join(ckpt_dir, sub)) for sub in ("whole", "killed")),
+          "a completed TSQR fit left its checkpoint")
+    del frames, raw, Y, labels, fits, rs, plain, grid
 
     # -- timit_stream_vs_memory: the chunked fit against the in-memory one
     name, t0 = start("timit_stream_vs_memory")
@@ -1796,17 +2055,6 @@ def out_of_core_phases(dev, card) -> dict:
     check(excess <= 0, f"the chunked fit's W is off the in-memory one beyond tolerance ({excess})")
     check(preds_equal, "the chunked and in-memory fits predict differently")
     del Xm, Xt, models, preds, train, test
-
-    # -- the scan's card tests ------------------------------------------
-    t1 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "pytest", "--noconftest", "-p", "no:cacheprovider", "-q",
-         "tests/test_torch_cuda_streaming.py"], capture_output=True, text=True, timeout=900)
-    summary = (proc.stdout.strip().splitlines() or [""])[-1]
-    emit({"phase": "cuda_streaming_tests", "returncode": proc.returncode, "summary": summary,
-          "seconds": time.perf_counter() - t1})
-    check(proc.returncode == 0 and "passed" in summary and "skipped" not in summary,
-          f"the scan's card tests: {proc.stdout[-4000:]}{proc.stderr[-2000:]}")
     return launches
 
 
@@ -1988,8 +2236,8 @@ def weighted_out_of_core_phases(dev, card) -> dict:
     """The out-of-core weighted fit: ImageNetSiftLcsFV at the reference's
     widths on 20,480 card-drawn training images that are never whole as
     descriptors; the weighted solver at ImageNet's training count, streamed;
-    the same draw at 100,000 rows streamed against in memory; the slice's
-    card tests. Returns the K1 launches of each path (none reaches K1)."""
+    the same draw at 100,000 rows streamed against in memory. Returns the K1
+    launches of each path (none reaches K1)."""
     from keystone_tpu_torch.data.dataset import Dataset
     from keystone_tpu_torch.linalg.weighted import class_chunk_size
     from keystone_tpu_torch.nodes.learning.weighted import BlockWeightedLeastSquaresEstimator
@@ -2129,18 +2377,146 @@ def weighted_out_of_core_phases(dev, card) -> dict:
           f"routes: {infos}")
     check(excess <= 0, f"streamed predictions off the in-memory ones beyond tolerance ({excess})")
     del Y, labels, rows, preds, Xt, means
+    return launches
 
-    # -- the slice's card tests -----------------------------------------
+
+# the card-drawn MNIST sources (slice 12) through BASELINE's configuration,
+# bench.py's two gates (`bench.py:953-990`); the warm-started BCD λ grid at
+# the CLI's 200 FFTs (d 102,400) on those rows, λ around the CLI's 1000
+MNIST_DEVICE_ROWS, MNIST_DEVICE_FFTS, MNIST_BLOCK, MNIST_LAMBDA = (60000, 10000), 4, 2048, 1000.0
+LINEAR_TASK_LAMBDA = 10.0
+BCD_LAMBDAS = (100.0, 1000.0, 10000.0)
+BCD_WARM_LIMIT = 1.02  # a warm member's objective against a cold fit's (the JAX test's)
+
+
+# the card tests of the out-of-core scan, the weighted fit and the faults:
+# one pytest process, which reaches the card once
+CARD_TEST_FILES = ("tests/test_torch_cuda_streaming.py",
+                   "tests/test_torch_cuda_weighted_streaming.py",
+                   "tests/test_torch_cuda_faults.py")
+
+
+def card_tests() -> None:
     t1 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "pytest", "--noconftest", "-p", "no:cacheprovider", "-q",
-         "tests/test_torch_cuda_weighted_streaming.py"], capture_output=True, text=True,
-        timeout=900)
+         *CARD_TEST_FILES], capture_output=True, text=True, timeout=900)
     summary = (proc.stdout.strip().splitlines() or [""])[-1]
-    emit({"phase": "cuda_weighted_streaming_tests", "returncode": proc.returncode,
+    emit({"phase": "cuda_card_tests", "files": CARD_TEST_FILES, "returncode": proc.returncode,
           "summary": summary, "seconds": time.perf_counter() - t1})
     check(proc.returncode == 0 and "passed" in summary and "skipped" not in summary,
-          f"the slice's card tests: {proc.stdout[-4000:]}{proc.stderr[-2000:]}")
+          f"the card tests: {proc.stdout[-4000:]}{proc.stderr[-2000:]}")
+
+
+def ridge_objective(model, X, Y, lam: float, rows: int = 5000) -> float:
+    """‖model(X) − Y‖² + λ‖W‖² in float64, the rows in chunks (the model
+    centers a copy of what it is given)."""
+    total = 0.0
+    for i in range(0, X.shape[0], rows):
+        total += ((model.forward(X[i:i + rows]) - Y[i:i + rows]).double() ** 2).sum().item()
+    return total + lam * (model._W.double() ** 2).sum().item()
+
+
+def mnist_device_phases(dev, card) -> dict:
+    """The card-drawn MNIST sources through MnistRandomFFT at BASELINE's 4
+    FFTs and the exact ridge on the linear task, against their card
+    Monte-Carlo Bayes errors; the warm-started BCD λ grid at 200 FFTs on
+    those rows against cold fits. Returns the K1 launches of each path
+    (none reaches K1)."""
+    from keystone_tpu_torch.data.dataset import Dataset
+    from keystone_tpu_torch.linalg import bcd
+    from keystone_tpu_torch.nodes.learning.linear import (
+        BlockLeastSquaresEstimator, LinearMapEstimator,
+    )
+    from keystone_tpu_torch.nodes.util import ClassLabelIndicators
+    from keystone_tpu_torch.pipelines import mnist_random_fft as mnist
+    from keystone_tpu_torch.workflow.pipeline import clock
+
+    start, finish, launches = phase_group(card)
+
+    # -- mnist_device: the task drawn on the card, bench.py's two gates --
+    name, t0 = start("mnist_device")
+    t1 = clock()
+    train, test = mnist.synthetic_mnist_device(*MNIST_DEVICE_ROWS, seed=mnist.DATA_SEED,
+                                               device=dev)
+    draw_seconds = clock() - t1
+    t1 = clock()
+    bayes = mnist.bayes_error_mc_device(mnist.DATA_SEED, device=dev)
+    bayes_seconds = clock() - t1
+    X, Xt = train.data.to_array(), test.data.to_array()
+    # what fit_and_score does with them: no copy from the host
+    on_card = (X.is_cuda and Xt.is_cuda and X.to(dev, torch.float32).data_ptr() == X.data_ptr()
+               and Xt.to(dev, torch.float32).data_ptr() == Xt.data_ptr())
+    conf = mnist.MnistRandomFFTConfig(num_ffts=MNIST_DEVICE_FFTS, block_size=MNIST_BLOCK,
+                                      lam=MNIST_LAMBDA)
+    phases = {}
+    _, tr_err, te_err, run_seconds = mnist.run(train, test, conf, dev, phases)
+    t1 = clock()
+    ltrain, ltest, lbayes = mnist.linear_task_device(*MNIST_DEVICE_ROWS, seed=mnist.DATA_SEED,
+                                                     device=dev)
+    linear_draw_seconds = clock() - t1
+    Y = ClassLabelIndicators(mnist.NUM_CLASSES).forward(ltrain.labels.to_array().to(dev))
+    model = LinearMapEstimator(LINEAR_TASK_LAMBDA).fit(ltrain.data, Dataset.of(Y))
+    pred = model.forward(ltest.data.to_array()).argmax(dim=1).cpu()
+    lin_err = (pred != ltest.labels.to_array().long()).float().mean().item()
+    finish(name, t0, {
+        "rows": MNIST_DEVICE_ROWS, "num_ffts": MNIST_DEVICE_FFTS, "draw_seconds": draw_seconds,
+        "bayes_seconds": bayes_seconds, "features_on_card_no_host_copy": on_card,
+        "train_error": tr_err, "test_error": te_err, "bayes_error": bayes,
+        "limit": 1.5 * bayes + 0.005, "run_seconds": run_seconds, "phase_seconds": phases,
+        "linear_task": {"draw_seconds": linear_draw_seconds, "bayes_error": lbayes,
+                        "exact_ridge_error": lin_err, "lambda": LINEAR_TASK_LAMBDA,
+                        "band": [lbayes - 0.005, 1.3 * lbayes + 0.005]}})
+    check(on_card, "the card-drawn rows were copied")
+    check(te_err <= 1.5 * bayes + 0.005,
+          f"test error {te_err} above 1.5 × the Bayes error {bayes} + 0.005")
+    check(lbayes - 0.005 <= lin_err <= 1.3 * lbayes + 0.005,
+          f"the exact ridge's error {lin_err} outside [Bayes − 0.005, 1.3 × Bayes + 0.005] "
+          f"of the linear task (Bayes {lbayes})")
+    del ltrain, ltest, model, Y, pred
+
+    # -- bcd_lambda_grid: warm-started members against cold fits ---------
+    name, t0 = start("bcd_lambda_grid")
+    t1 = clock()
+    feats = mnist.build_featurizer(mnist.MnistRandomFFTConfig(num_ffts=MNIST_FULL_FFTS),
+                                   dev).apply(X).get().to_array()
+    featurize_seconds = clock() - t1
+    Y = ClassLabelIndicators(mnist.NUM_CLASSES).forward(train.labels.to_array().to(dev))
+    del train, test, X, Xt
+    members_log, orig_fit = [], BlockLeastSquaresEstimator.fit
+
+    def logged_fit(est, data, labels):
+        warm, steps0, t2 = est.warm_start_ws is not None, bcd._block_update_impl.steps, clock()
+        out = orig_fit(est, data, labels)
+        members_log.append({"lambda": est.lam, "warm": warm, "seconds": clock() - t2,
+                            "block_steps": bcd._block_update_impl.steps - steps0})
+        return out
+
+    BlockLeastSquaresEstimator.fit = logged_fit
+    try:
+        members = BlockLeastSquaresEstimator.fit_lambda_grid(
+            [BlockLeastSquaresEstimator(MNIST_BLOCK, 1, lam) for lam in BCD_LAMBDAS],
+            Dataset.of(feats), Dataset.of(Y))
+        grid_log, members_log = members_log, []
+        colds = [BlockLeastSquaresEstimator(MNIST_BLOCK, 1, lam).fit(Dataset.of(feats),
+                                                                     Dataset.of(Y))
+                 for lam in BCD_LAMBDAS]
+    finally:
+        BlockLeastSquaresEstimator.fit = orig_fit
+    objectives = {lam: {"warm": ridge_objective(m, feats, Y, lam),
+                        "cold": ridge_objective(c, feats, Y, lam)}
+                  for lam, m, c in zip(BCD_LAMBDAS, members, colds)}
+    finish(name, t0, {
+        "rows": int(feats.shape[0]), "d": int(feats.shape[1]), "block_size": MNIST_BLOCK,
+        "featurize_seconds": featurize_seconds, "members": grid_log, "cold_fits": members_log,
+        "objectives": objectives, "limit": BCD_WARM_LIMIT})
+    check([m["warm"] for m in grid_log] == [False, True, True],
+          f"the grid's warm starts: {grid_log}")
+    check(all(m["block_steps"] == MNIST_FULL_STEPS for m in grid_log + members_log),
+          f"block steps of the fits: {grid_log + members_log}")
+    check(all(o["warm"] <= BCD_WARM_LIMIT * o["cold"] for o in objectives.values()),
+          f"a warm member's objective above {BCD_WARM_LIMIT} × the cold fit's: {objectives}")
+    del feats, Y, members, colds
     return launches
 
 
@@ -2579,6 +2955,8 @@ def main() -> int:
     text_k1 = text_phases(cli, dev, card)
     ooc_k1 = out_of_core_phases(dev, card)
     weighted_k1 = weighted_out_of_core_phases(dev, card)
+    resumable_k1 = mnist_device_phases(dev, card)
+    card_tests()
 
     emit({"phase": "total", "seconds": time.perf_counter() - started, "card": card})
     fit = timings["fit"]
@@ -2592,7 +2970,7 @@ def main() -> int:
         "launches_by_path": {"slice": launches, "compiled_cifar": compiled_launches,
                              "krr_family": krr_launches, "timit_full_width": timit_k1,
                              "cifar_family": cifar_family_k1, "voc": voc_k1, **imagenet_k1,
-                             **text_k1, **ooc_k1, **weighted_k1},
+                             **text_k1, **ooc_k1, **weighted_k1, **resumable_k1},
     }]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -22,7 +22,9 @@ fused groups) run on the consumer. Chunks share a leading batch dimension
 and are tensors, numpy arrays or tuples of them (the gather zips branch
 chunks into tuples).
 
-Not ported: the fault-injection seam of the JAX package's scans.
+While a fault plan is active (``faults/plan.py``), every scan's source is
+wrapped in the ``scan.chunk`` seam, which fires before each pull inside
+the iterator, so a transient fault retries without advancing the source.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ from typing import Any, Callable, Iterator, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..faults import SCAN_CHUNK, RetryBudget, retry_call
+from ..faults import SCAN_CHUNK, RetryBudget, active_plan, retry_call
 from ..utils import env_int
 from .dataset import Dataset, _rebatch
 from .pipeline_scan import (
@@ -59,6 +61,48 @@ def prefetch_to_device(chunks: Any, depth: int = 2, device: Any = None):
     """Iterate ``chunks`` copied to ``device`` up to ``depth`` ahead, in
     order (the serial form of a scan)."""
     return serial_staged(chunks, depth, device)
+
+
+class _InjectedChunks:
+    """The ``scan.chunk`` seam: fires the fault point before each pull,
+    inside this iterator, so a transient fault retries (with backoff)
+    without advancing the source, and the last one of a spent budget
+    propagates. A scan made over it adopts its ``retry_budget``: one budget
+    a scan for chunk production and staging."""
+
+    def __init__(self, it: Iterator[Any], label: str):
+        self._it = it
+        self._label = label
+        self.retry_budget = RetryBudget(label=f"scan[{label}]")
+
+    def __iter__(self) -> "_InjectedChunks":
+        return self
+
+    def __next__(self) -> Any:
+        retry_call(lambda: None, self.retry_budget, SCAN_CHUNK, label=self._label)
+        return next(self._it)
+
+    def close(self) -> None:
+        close = getattr(self._it, "close", None)
+        if close is not None:
+            close()
+
+    @property
+    def shards(self) -> int:
+        """Producer shards behind the seam."""
+        return getattr(self._it, "shards", 1)
+
+    @property
+    def shard_chunks(self):
+        return getattr(self._it, "shard_chunks", None)
+
+
+def _maybe_inject(it: Iterator[Any], label: str) -> Iterator[Any]:
+    """``it`` behind the ``scan.chunk`` seam while a fault plan is active;
+    ``it`` itself otherwise."""
+    if active_plan() is None:
+        return it
+    return _InjectedChunks(it, label)
 
 
 def _as_tensor(leaf: Any) -> Any:
@@ -186,12 +230,13 @@ class ChunkedDataset(Dataset):
         takes a generator seeded by its index, never the global one). A
         transient failure of ``chunk_fn`` (``faults.TransientError``)
         regenerates the chunk while the ``KEYSTONE_SCAN_RETRIES`` budget
-        lasts."""
+        lasts. (The fault plan's ``scan.chunk`` faults fire at the scan's
+        seam, not here, so a chunk counts once.)"""
 
         def from_chunk(start: int, step: int = 1):
             budget = RetryBudget(label=f"chunk_fn[{label or 'chunked'}]")
             for i in range(start, num_chunks, step):
-                yield retry_call(lambda i=i: chunk_fn(i), budget, SCAN_CHUNK)
+                yield retry_call(lambda i=i: chunk_fn(i), budget, SCAN_CHUNK, inject=False)
 
         ds = ChunkedDataset(lambda: from_chunk(0), num_rows, label=label)
         ds._skip_factory = from_chunk
@@ -215,8 +260,11 @@ class ChunkedDataset(Dataset):
                              device=device)
 
     def _production(self) -> Iterator[Any]:
-        return maybe_shard(self._skip_factory, lambda: iter(self._payload()),
-                           label=self._label)
+        """The produced chunks, split over producer shards when asked; the
+        fault seam wraps the merged stream, so a plan's indices follow the
+        chunk order."""
+        return _maybe_inject(maybe_shard(self._skip_factory, lambda: iter(self._payload()),
+                                         label=self._label), self._label)
 
     def raw_chunks(self, skip: int = 0) -> Chunks:
         """One scan without the pipelined runtime, for composition sites
@@ -230,12 +278,12 @@ class ChunkedDataset(Dataset):
         if self._skip_factory is not None:
             source = maybe_shard(self._skip_factory, lambda: iter(self._skip_factory(skip)),
                                  start=skip, label=self._label)
-            return Chunks(source, self._steps)
+            return Chunks(_maybe_inject(source, self._label), self._steps)
         it = iter(self._payload())
         for _ in range(skip):
             if next(it, None) is None:
                 break
-        return Chunks(it, self._steps)
+        return Chunks(_maybe_inject(it, self._label), self._steps)
 
     def __iter__(self) -> Iterator[Any]:
         # per-row consumers: the chunks on the device the chain made them on

@@ -29,7 +29,11 @@ Contract: chunk order is kept; an exception of the producer surfaces in
 the consumer with its original traceback; an early exit of the consumer
 (``close()``, garbage collection of an abandoned iterator, ``GeneratorExit``
 in a wrapping generator) drains the queue and joins the producer. No
-failure falls back to another path: it raises.
+failure falls back to another path: it raises. A producer's exception
+includes a ``BaseException`` (an injected ``ReplicaKilled``): it too ends
+the scan in the consumer after the chunks queued before it. Each staging
+copy fires the ``scan.stage`` fault point first and retries transient
+failures from the scan's one budget (``faults/retry.py``).
 
 Knobs: ``KEYSTONE_SCAN_PIPELINE=0`` is the kill switch (a serial scan in
 the calling thread, with the same copies and steps); ``KEYSTONE_SCAN_DEPTH``
@@ -278,7 +282,9 @@ class ScanPipeline:
         self._closed = False
         self._recorded = False
         self.stats = ScanStats(label=label, depth=self._depth, start=time.perf_counter())
-        self._retry = RetryBudget(label=f"scan[{label}]")
+        # one budget a scan: a source behind the scan.chunk seam brings its
+        # own, which the staging copies then share
+        self._retry = getattr(source, "retry_budget", None) or RetryBudget(label=f"scan[{label}]")
         # a sharded producer reports its split when the scan ends
         self._shard_source = source if getattr(source, "shards", 1) > 1 else None
         stream = _consumer_stream(self._device)
@@ -289,7 +295,7 @@ class ScanPipeline:
         def stage_fn(chunk):
             # a copy is idempotent, so a transient failure retries in place
             return retry_call(lambda: _stage_chunk(chunk, target, copy_stream), budget,
-                              SCAN_STAGE)
+                              SCAN_STAGE, label=label)
 
         self._thread = threading.Thread(
             target=_producer_loop,

@@ -1,8 +1,9 @@
 """Bounded-backoff retry of transient failures, with a budget per scan
 (port of ``keystone_tpu/faults/retry.py``).
 
-A scan owns one :class:`RetryBudget`: its producer's staging copies draw
-from it, and a re-callable source (``ChunkedDataset.from_chunk_fn``)
+A scan owns one :class:`RetryBudget`: the ``scan.chunk`` seam of its
+source and its staging copies draw from it (the scan adopts the seam's
+budget), and a re-callable source (``ChunkedDataset.from_chunk_fn``)
 draws its own for the regeneration of a chunk by index. A scan whose
 source is broken cannot retry forever: when the budget is spent, the
 original exception propagates with its original traceback.
@@ -12,7 +13,7 @@ retries a scan may take; ``KEYSTONE_SCAN_RETRY_BACKOFF`` the base backoff
 in seconds (default 0.05), doubled each attempt up to
 :data:`MAX_BACKOFF_S`. Only errors classified transient retry: the typed
 :class:`TransientError` and the standard library's ``ConnectionError``
-and ``TimeoutError``.
+and ``TimeoutError`` (``faults.plan.is_transient``).
 """
 
 from __future__ import annotations
@@ -23,27 +24,14 @@ import time
 from typing import Any, Callable, Optional
 
 from ..utils import env_float, env_int
+from .plan import SCAN_CHUNK, SCAN_STAGE, TransientError, fault_point, is_transient
 
 logger = logging.getLogger(__name__)
 
 MAX_BACKOFF_S = 2.0
 
-#: where a chunk is produced by index (``from_chunk_fn``)
-SCAN_CHUNK = "scan.chunk"
-#: where a produced chunk is copied to its device
-SCAN_STAGE = "scan.stage"
-
-
-class TransientError(Exception):
-    """A failure worth retrying: the operation is expected to succeed if
-    run again (flaky I/O, a dropped connection)."""
-
-
-def is_transient(exc: BaseException) -> bool:
-    """The retry classification: :class:`TransientError` and the standard
-    library's families that mean the world hiccuped, not that the program
-    is wrong."""
-    return isinstance(exc, (TransientError, ConnectionError, TimeoutError))
+__all__ = ["MAX_BACKOFF_S", "SCAN_CHUNK", "SCAN_STAGE", "RetryBudget", "TransientError",
+           "is_transient", "retry_call"]
 
 
 class RetryBudget:
@@ -76,13 +64,18 @@ class RetryBudget:
         return delay
 
 
-def retry_call(fn: Callable[[], Any], budget: RetryBudget, site: str) -> Any:
+def retry_call(fn: Callable[[], Any], budget: RetryBudget, site: str, inject: bool = True,
+               **attrs) -> Any:
     """``fn()``, run again after a transient error while ``budget`` lasts;
     any other error, and the last transient one, propagates as raised.
-    ``fn`` must be safe to run again (a chunk regenerated by index, a
+    With ``inject``, ``fault_point(site, **attrs)`` fires before each
+    attempt, so a fault plan's transient faults at ``site`` retry the same
+    way. ``fn`` must be safe to run again (a chunk regenerated by index, a
     copy)."""
     while True:
         try:
+            if inject:
+                fault_point(site, **attrs)
             return fn()
         except StopIteration:
             raise

@@ -24,6 +24,8 @@ state times its two halves as ``utils.timing`` phases:
 
 from __future__ import annotations
 
+import contextlib
+import logging
 from dataclasses import dataclass, field
 from typing import Iterable, Optional, Tuple
 
@@ -31,6 +33,8 @@ import numpy as np
 import torch
 
 from ..utils.timing import phase
+
+logger = logging.getLogger(__name__)
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -47,30 +51,60 @@ def as_chunk(x, device=None) -> torch.Tensor:
     return t.to(device=device, dtype=torch.float32)
 
 
-def fold_into(state, data, y: torch.Tensor, *, label: str, on_chunk=None):
+def fold_into(state, data, y: torch.Tensor, *, label: str, on_chunk=None, checkpoint=None,
+              checkpoint_every: int = 1):
     """Fold ``data`` and its labels ``y`` into ``state`` (any state with an
-    ``update(A, y)``): a ``ChunkedDataset`` in one scan, its chunks copied to
-    the labels' device, each with its slice of ``y``; anything else in one
-    update. ``on_chunk(index, chunk)`` runs before each chunk is folded.
-    Raises when the rows and the labels disagree. Returns ``state``."""
+    ``update(A, y)``, or a function of no arguments that makes one): a
+    ``ChunkedDataset`` in one scan, its chunks copied to the labels' device,
+    each with its slice of ``y``; anything else in one update.
+    ``on_chunk(index, chunk)`` runs before each chunk is folded. Raises when
+    the rows and the labels disagree. Returns the folded state.
+
+    With ``checkpoint`` (a ``faults.FitCheckpoint``) a chunked fold is
+    resumable: the checkpoint is read once, and a saved ``(state, chunk,
+    row)`` takes the place of ``state`` (a function is then not called) and
+    the scan starts at that chunk without producing the ones before it; the
+    state is saved every ``checkpoint_every`` chunks, except after the
+    labels' last row, and the checkpoint removed when the fold completes.
+    The resumed fold keeps the saved state's shift, so it equals an
+    uninterrupted one bit for bit."""
     from ..data.dataset import Dataset
     from ..data.pipeline_scan import scan_pipeline
 
-    if not getattr(data, "is_chunked", False):
+    chunked = getattr(data, "is_chunked", False)
+    loaded = checkpoint.load() if checkpoint is not None and chunked else None
+    if loaded is not None:
+        state, start, offset = loaded
+        logger.info("fit checkpoint: resuming %s at chunk %d (row %d) from %s", label,
+                    start, offset, checkpoint.path)
+    else:
+        start = offset = 0
+        if not hasattr(state, "update"):
+            state = state()
+    if not chunked:
         if on_chunk is not None:
             on_chunk(0, data)
         return state.update(Dataset.of(data).to_array(), y)
-    offset = 0
-    for i, chunk in enumerate(scan_pipeline(data.raw_chunks(), label=label, device=y.device)):
-        if on_chunk is not None:
-            on_chunk(i, chunk)
-        rows = int(chunk.shape[0])
-        if offset + rows > y.shape[0]:
-            raise ValueError(f"the chunks hold more than the labels' {y.shape[0]} rows")
-        state.update(chunk, y[offset:offset + rows])
-        offset += rows
+    every = max(1, int(checkpoint_every))
+    i = start
+    with contextlib.closing(scan_pipeline(data.raw_chunks(skip=start), label=label,
+                                          device=y.device)) as chunks:
+        for chunk in chunks:
+            if on_chunk is not None:
+                on_chunk(i, chunk)
+            rows = int(chunk.shape[0])
+            if offset + rows > y.shape[0]:
+                raise ValueError(f"the chunks hold more than the labels' {y.shape[0]} rows")
+            state.update(chunk, y[offset:offset + rows])
+            offset += rows
+            i += 1
+            # a save after the last row would be removed unread
+            if checkpoint is not None and i % every == 0 and offset < y.shape[0]:
+                checkpoint.save(state, i, offset)
     if offset != y.shape[0]:
         raise ValueError(f"chunked features have {offset} rows, labels {y.shape[0]}")
+    if checkpoint is not None:
+        checkpoint.complete()
     return state
 
 
@@ -155,6 +189,11 @@ class GramSolverState:
         state as it stands, with no data pass: centered in float64 (Gc =
         Σ(a−s)(a−s)ᵀ − n(μ−s)(μ−s)ᵀ, likewise the cross products), then
         solved in float32 on ``device`` (the CPU when None)."""
+        return self.solve_lambdas([lam], device)[0]
+
+    def solve_lambdas(self, lams: Iterable[float], device=None) -> list:
+        """:meth:`solve` at each λ of ``lams``, the state centered and
+        copied to ``device`` once: a λ grid's solves."""
         from .row_matrix import solve_spd
 
         if self.gram is None or self.n == 0:
@@ -169,7 +208,9 @@ class GramSolverState:
         def f32(a):
             return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(device)
 
-        return solve_spd(f32(Gc), f32(Cc), float(lam)), f32(nu), f32(mu)
+        G, C, b, mean = f32(Gc), f32(Cc), f32(nu), f32(mu)
+        del Gc, Cc
+        return [(solve_spd(G, C, float(lam)), b, mean) for lam in lams]
 
     def rebuild_mapper(self, mapper):
         """Solve at the recorded λ and rebuild ``mapper``'s class with the

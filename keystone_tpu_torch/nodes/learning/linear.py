@@ -16,19 +16,26 @@ solve's Gram, the augmented TSQR's R factor, or one scan a BCD block step,
 so the design matrix is never whole. ``LinearMapEstimator(snapshot=True)``
 fits through :class:`~keystone_tpu_torch.linalg.accumulators.GramSolverState`
 (in memory or chunked) and carries the state on its mapper, for
-``FittedPipeline.absorb``. Not ported: the checkpointed fits
-(``faults/checkpoint.py``) and ``fit_lambda_grid``, which ROADMAP Queue 1
-items 11 and 12 leave to later slices; asking for a checkpoint raises.
+``FittedPipeline.absorb``. ``checkpoint=dir`` makes the chunked fits of
+``LinearMapEstimator`` and ``TSQRLeastSquaresEstimator`` resumable
+(``faults/checkpoint.py``): a killed fit run again resumes from its last
+saved block, bit for bit. Each of the three has the λ-grid hooks of a
+sweep: ``grid_family`` (the key under which members fit as a group) and
+``fit_lambda_grid`` (one Gram or one R for every λ; BCD warm-starts each λ
+from the one before).
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional, Sequence
+import copy
+from typing import Any, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ...data.dataset import Dataset
 from ...data.sparse import SparseRows
+from ...faults import FitCheckpoint
 from ...linalg import bcd, normal_equations, tsqr
 from ...linalg.accumulators import GramSolverState, NotAbsorbable, fold_into
 from ...linalg.bcd import (
@@ -65,12 +72,6 @@ class LinearMapper(Transformer):
         if self.b is not None:
             out = out + self.b
         return out
-
-
-def _later_slice(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: it comes with faults/checkpoint.py in a later slice "
-        "(ROADMAP Queue 1, item 11)")
 
 
 def _streaming_labels(data, labels: Dataset):
@@ -111,36 +112,70 @@ class LinearMapEstimator(LabelEstimator, CostModel):
     (:class:`~keystone_tpu_torch.linalg.accumulators.GramSolverState`: ΣAᵀA
     and ΣAᵀy in host float64, centered at the solve), one scan of a chunked
     input, and carries the state on the fitted :class:`LinearMapper`, which
-    ``FittedPipeline.absorb`` then folds appended chunks into."""
+    ``FittedPipeline.absorb`` then folds appended chunks into.
+
+    ``checkpoint=dir`` fits the same way and makes a chunked fit resumable:
+    the state, with its chunk and row cursors, is saved to ``dir`` every
+    ``checkpoint_every`` chunks (``faults.FitCheckpoint``), a killed fit
+    run again with the same arguments resumes from the last saved block
+    (the state an uninterrupted fit would fold, bit for bit) without
+    producing the chunks before it, and the checkpoint is removed when the
+    fit completes."""
 
     supports_streaming = True
 
     def __init__(self, lam: Optional[float] = None, snapshot: bool = False,
-                 checkpoint: Optional[str] = None):
-        if checkpoint is not None:
-            raise _later_slice("LinearMapEstimator(checkpoint=...)")
+                 checkpoint: Optional[str] = None, checkpoint_every: int = 1):
         self.lam = lam
         self.snapshot = snapshot
+        self.checkpoint = checkpoint
+        self.checkpoint_every = checkpoint_every
+
+    def grid_family(self):
+        """Members of a sweep whose key matches fit as a group; λ is the
+        swept axis, so it is not in the key, and the checkpoint directory
+        is (a group's shared scan must keep each member's resume)."""
+        return ("gram_ne", bool(self.snapshot), self.checkpoint)
+
+    @staticmethod
+    def fit_lambda_grid(estimators: Sequence["LinearMapEstimator"], data, labels,
+                        checkpoint: Optional[str] = None,
+                        checkpoint_every: int = 1) -> List[LinearMapper]:
+        """A λ-only grid from one accumulation: the Gram and cross products
+        do not depend on λ, so the grid costs one scan and a solve a member.
+        Each mapper carries its own snapshot of the state, its λ recorded,
+        so any of them can absorb appended chunks. With ``checkpoint``, a
+        chunked fold saves to that directory every ``checkpoint_every``
+        chunks and resumes from the last saved block when run again."""
+        y = Dataset.of(labels).to_array().float()
+        ckpt = None
+        if checkpoint is not None and getattr(data, "is_chunked", False):
+            lams = [float(e.lam or 0.0) for e in estimators]
+            ckpt = FitCheckpoint(checkpoint, f"gram_ne|n={len(data)}"
+                                             f"|y={tuple(int(s) for s in y.shape)}|lams={lams}")
+        state = fold_into(GramSolverState(), data, y, label="gram_state", checkpoint=ckpt,
+                          checkpoint_every=checkpoint_every)
+        models = []
+        for est in estimators:
+            lam = float(est.lam or 0.0)
+            W, b, mean = state.solve(lam, device=y.device)
+            snap = state.snapshot()
+            snap.lam = lam
+            models.append(LinearMapper(W, b=b, feature_mean=mean, solver_state=snap))
+        return models
 
     def fit(self, data: Dataset, labels: Dataset) -> LinearMapper:
-        if self.snapshot:
-            return self._fit_snapshot(data, labels)
+        if self.snapshot or self.checkpoint:
+            # the state on disk is the snapshot
+            return LinearMapEstimator.fit_lambda_grid(
+                [self], data, labels, checkpoint=self.checkpoint,
+                checkpoint_every=self.checkpoint_every)[0]
         if getattr(data, "is_chunked", False):
             return self._fit_streaming(data, labels)
         A = Dataset.of(data).to_array()
         b = Dataset.of(labels).to_array().to(A.device)
         W, a_mean, b_mean = solve_centered(A, b, reg=self.lam or 0.0)
         return LinearMapper(W, b=b_mean, feature_mean=a_mean)
-
-    def _fit_snapshot(self, data, labels: Dataset) -> LinearMapper:
-        """Fold the data (one scan of a chunked input) into a
-        GramSolverState, solve at λ on the labels' device, and carry the
-        state's snapshot, λ recorded."""
-        y = Dataset.of(labels).to_array().float()
-        state = fold_into(GramSolverState(lam=float(self.lam or 0.0)), data, y,
-                          label="gram_state")
-        W, b, mean = state.solve(state.lam, device=y.device)
-        return LinearMapper(W, b=b, feature_mean=mean, solver_state=state.snapshot())
 
     def _fit_streaming(self, data, labels: Dataset) -> LinearMapper:
         y, a_mean = _streaming_labels(data, labels)
@@ -217,6 +252,29 @@ class BlockLeastSquaresEstimator(LabelEstimator, CostModel):
         self.num_iter = num_iter
         self.lam = lam
         self.num_features = num_features
+        #: per-block starting weights for the next fit (a λ grid's warm
+        #: start from its neighbour's model), used and cleared by ``fit``
+        self.warm_start_ws: Optional[Sequence[torch.Tensor]] = None
+
+    def grid_family(self):
+        return ("bcd", self.block_size, self.num_iter, self.num_features)
+
+    @staticmethod
+    def fit_lambda_grid(estimators: Sequence["BlockLeastSquaresEstimator"], data,
+                        labels) -> List["BlockLinearMapper"]:
+        """A λ grid of BCD members in ascending λ, each warm-started from the
+        model of the λ before it (BCD is iterative: a warm start descends
+        the same objective from elsewhere). A chunked input fits each
+        member cold."""
+        order = sorted(range(len(estimators)), key=lambda i: estimators[i].lam or 0.0)
+        chunked = getattr(data, "is_chunked", False)
+        models: List[Optional[BlockLinearMapper]] = [None] * len(estimators)
+        prev: Optional[BlockLinearMapper] = None
+        for i in order:
+            est = copy.copy(estimators[i])
+            est.warm_start_ws = list(prev.xs) if prev is not None and not chunked else None
+            models[i] = prev = est.fit(data, labels)
+        return models
 
     @property
     def weight(self) -> int:
@@ -234,6 +292,7 @@ class BlockLeastSquaresEstimator(LabelEstimator, CostModel):
         is a tuple of column blocks, or a list or tuple of blocks. A whole
         matrix is read as column views of ``block_size`` (the last one may
         be narrower), so the solve never copies it."""
+        warm, self.warm_start_ws = self.warm_start_ws, None
         if getattr(data, "is_chunked", False):
             return self._fit_streaming(data, labels)
         payload = data if isinstance(data, (list, tuple)) else Dataset.of(data).payload
@@ -246,8 +305,12 @@ class BlockLeastSquaresEstimator(LabelEstimator, CostModel):
                       for i in range(0, d, self.block_size)]
         y = Dataset.of(labels).to_array().to(blocks[0].device, torch.float32)
         means, y_mean = _block_means(blocks, y)
+        init = None
+        if warm is not None and len(warm) == len(blocks) and all(
+                tuple(w.shape) == (b.shape[1], y.shape[1]) for w, b in zip(warm, blocks)):
+            init = [w.to(y.device) for w in warm]
         ws = solve_blockwise_l2(blocks, y - y_mean, reg=self.lam,
-                                num_iter=self.num_iter, means=means)
+                                num_iter=self.num_iter, means=means, init=init)
         return BlockLinearMapper(ws, self.block_size, b=y_mean, feature_means=means)
 
     def _fit_streaming(self, data, labels: Dataset) -> BlockLinearMapper:
@@ -273,6 +336,36 @@ class BlockLeastSquaresEstimator(LabelEstimator, CostModel):
         return BlockLinearMapper(ws, self.block_size, b=y_mean, feature_means=means)
 
 
+class _CenteredTsqr:
+    """The streaming TSQR fold's state: the column and label means of the
+    means scan and the running R of the centered augmented chunks
+    [A − μ | y − ν], R = qr([R; chunk]).R, one lane. R stays on the chunks'
+    device while folding; a pickle (a checkpoint) holds host arrays, so a
+    resumed fit reads no chunk for its means and folds on from the saved
+    R bit for bit."""
+
+    def __init__(self, a_mean: torch.Tensor, y_mean: torch.Tensor):
+        self.a_mean, self.y_mean = a_mean, y_mean
+        self.r: Optional[torch.Tensor] = None
+
+    def update(self, A: torch.Tensor, y: torch.Tensor) -> "_CenteredTsqr":
+        if A.shape[1] != self.a_mean.shape[0]:
+            raise ValueError(f"the chunks are {A.shape[1]} columns wide, the fit expects "
+                             f"d = {self.a_mean.shape[0]}")
+        self.a_mean, self.y_mean = self.a_mean.to(A.device), self.y_mean.to(A.device)
+        chunk = torch.cat([A.float() - self.a_mean, y.float() - self.y_mean], dim=1)
+        self.r = (tsqr._qr_r(chunk) if self.r is None
+                  else tsqr._qr_fold(self.r.to(A.device), chunk))
+        return self
+
+    def __getstate__(self) -> dict:
+        return {k: None if v is None else v.cpu().numpy() for k, v in self.__dict__.items()}
+
+    def __setstate__(self, state: dict) -> None:
+        self.__dict__.update({k: None if v is None else torch.from_numpy(v)
+                              for k, v in state.items()})
+
+
 class TSQRLeastSquaresEstimator(LabelEstimator, CostModel):
     """Exact least squares by one QR of the augmented, centered design
     matrix ``[A − μ | y − ν ; √λ·I | 0]``: its R factor's blocks satisfy
@@ -280,14 +373,49 @@ class TSQRLeastSquaresEstimator(LabelEstimator, CostModel):
     solve and no Gram matrix forms (the Gram route squares the condition
     number). About twice the Gram route's flops, as ``cost`` says. A
     chunked input streams: a scan for the column means, then one scan
-    folding the centered augmented chunks into R, the √λ·I rows last."""
+    folding the centered augmented chunks into R, the √λ·I rows last.
+
+    ``checkpoint=dir`` makes the chunked fit resumable: R is saved with the
+    column means and the cursors every ``checkpoint_every`` chunks; the
+    first save, before any chunk is folded, carries the means, so a resumed
+    fit reads only the chunks after its last save. The √λ·I rows fold after
+    the last chunk, never into a saved prefix."""
 
     supports_streaming = True
 
-    def __init__(self, lam: float = 0.0, checkpoint: Optional[str] = None):
-        if checkpoint is not None:
-            raise _later_slice("TSQRLeastSquaresEstimator(checkpoint=...)")
+    def __init__(self, lam: float = 0.0, checkpoint: Optional[str] = None,
+                 checkpoint_every: int = 1):
         self.lam = lam
+        self.checkpoint = checkpoint
+        self.checkpoint_every = checkpoint_every
+
+    def grid_family(self):
+        return ("tsqr", self.checkpoint)
+
+    @staticmethod
+    def fit_lambda_grid(estimators: Sequence["TSQRLeastSquaresEstimator"], data,
+                        labels) -> List[LinearMapper]:
+        """A λ-only grid from one factorization: the R of the unregularized
+        centered augmented matrix does not depend on λ, and qr([A; B]).R =
+        qr([qr(A).R; B]).R up to row signs, which the triangular solve
+        cancels; so each member folds only its √λ·I rows into the shared R."""
+        if getattr(data, "is_chunked", False):
+            fold = TSQRLeastSquaresEstimator()._fold_r(data, labels)
+            R_base, a_mean, y_mean = fold.r, fold.a_mean, fold.y_mean
+        else:
+            A = Dataset.of(data).to_array().float()
+            y = Dataset.of(labels).to_array().to(A.device, torch.float32)
+            a_mean, y_mean = A.mean(dim=0), y.mean(dim=0)
+            R_base = tsqr.tsqr_r(torch.cat([A - a_mean, y - y_mean], dim=1))
+        d = int(a_mean.shape[0])
+        k = int(R_base.shape[1]) - d
+        models = []
+        for est in estimators:
+            reg = est._reg_rows(d, k, R_base.device)
+            R = R_base if reg is None else tsqr._qr_fold(R_base, reg)
+            models.append(LinearMapper(TSQRLeastSquaresEstimator._solve_from_r(R, d), b=y_mean,
+                                       feature_mean=a_mean))
+        return models
 
     @staticmethod
     def _solve_from_r(R: torch.Tensor, d: int) -> torch.Tensor:
@@ -316,18 +444,32 @@ class TSQRLeastSquaresEstimator(LabelEstimator, CostModel):
         W = self._solve_from_r(tsqr.tsqr_r(aug), d)
         return LinearMapper(W, b=y_mean, feature_mean=a_mean)
 
+    def _fold_r(self, data, labels: Dataset) -> _CenteredTsqr:
+        """The means scan, then the centered augmented chunks folded into
+        R in one scan; resumable with ``checkpoint``."""
+        y = Dataset.of(labels).to_array().float()
+        ckpt = None
+        if self.checkpoint:
+            ckpt = FitCheckpoint(self.checkpoint, f"tsqr|n={len(data)}"
+                                                  f"|y={tuple(int(s) for s in y.shape)}"
+                                                  f"|lam={float(self.lam or 0.0)}")
+
+        def fresh():
+            _, a_mean = _streaming_labels(data, labels)
+            state = _CenteredTsqr(a_mean, y.mean(dim=0))
+            if ckpt is not None:
+                ckpt.save(state, 0, 0)
+            return state
+
+        return fold_into(fresh, data, y, label="tsqr", checkpoint=ckpt,
+                         checkpoint_every=self.checkpoint_every)
+
     def _fit_streaming(self, data, labels: Dataset) -> LinearMapper:
-        y, a_mean = _streaming_labels(data, labels)
-        y_mean = y.mean(dim=0)
-        d, k = int(a_mean.shape[0]), y.shape[1]
-
-        def augmented():
-            return _with_labels(data, y, d,
-                                lambda A, yc: torch.cat([A - a_mean, yc - y_mean], dim=1))
-
-        R = tsqr.tsqr_r_streaming(augmented, device=y.device,
-                                  tail=self._reg_rows(d, k, y.device))
-        return LinearMapper(self._solve_from_r(R, d), b=y_mean, feature_mean=a_mean)
+        fold = self._fold_r(data, labels)
+        d, device = int(fold.a_mean.shape[0]), fold.r.device
+        reg = self._reg_rows(d, int(fold.y_mean.shape[0]), device)
+        R = fold.r if reg is None else tsqr._qr_fold(fold.r, reg)
+        return LinearMapper(self._solve_from_r(R, d), b=fold.y_mean, feature_mean=fold.a_mean)
 
     def cost(self, n, d, k, sparsity, num_machines,
              cpu_weight, mem_weight, network_weight):

@@ -3,7 +3,10 @@ gather(numFFTs × [RandomSignNode → PaddedFFT → LinearRectifier(0)]) →
 VectorCombiner → one-pass BlockLeastSquaresEstimator(blockSize, 1, λ) →
 MaxClassifier, scored with the multiclass evaluator.
 
-Data arrives on the host (numpy) and is moved to ``device`` once. The
+Data arrives on the host (numpy) and is moved to ``device`` once; or it
+is drawn on the card (:func:`synthetic_mnist_device`, and the linear task
+of the solver-sharpness gate, :func:`linear_task_device`), and only the
+labels come to the host. The
 pipeline is a graph: the optimizer fuses the 200 × 3 branch nodes, the
 gather and the combiner into one operator, which is row-local and so runs
 in row chunks; at the CLI's default width (200 branches, d = 102,400) no
@@ -43,6 +46,15 @@ LATENT_DIM = 8
 PROTO_RADIUS = 5.0
 LATENT_SIGMA = 1.0
 AMBIENT_SIGMA = 0.05
+
+#: The JAX package's first task, kept for the solver-sharpness gate: class
+#: prototypes PROTO_SCALE·N(0, I) in raw pixels plus NOISE_SIGMA·N(0, I)
+#: noise. Its Bayes rule is linear, so an exact ridge on raw pixels lands
+#: near the Bayes error and a Gram that lost precision lands far from it.
+PROTO_SCALE = 0.25
+NOISE_SIGMA = 2.0
+#: rows of each task's Monte-Carlo Bayes estimate (the JAX package's)
+BAYES_MC_ROWS = 262144
 
 
 @dataclass
@@ -158,6 +170,109 @@ def bayes_error_mc(seed: int = DATA_SEED, n: int = 262144) -> float:
     scores = u @ P2.T - 0.5 * np.sum(P2 * P2, axis=1)
     pred = np.argmax(scores, axis=1) % NUM_CLASSES
     return float(np.mean(pred != y))
+
+
+# ---- the tasks drawn on the card --------------------------------------
+
+def _device_generator(device: torch.device, seed: int, stream: int) -> torch.Generator:
+    """A new generator for one (seed, stream) on ``device``; streams: 0 the
+    task, 1 train, 2 test, 3 the Monte-Carlo draw."""
+    return torch.Generator(device).manual_seed(seed * 4 + stream)
+
+
+def _latent_task_params_device(seed: int, device: torch.device):
+    """The latent task's (μ (C, LATENT_DIM), U (784, LATENT_DIM)) drawn on
+    ``device`` from ``seed``: the generator and the Bayes estimate share
+    them, so the yardstick measures the data's own instance."""
+    gen = _device_generator(device, seed, 0)
+    mu = torch.randn(NUM_CLASSES, LATENT_DIM, device=device, generator=gen)
+    mu = PROTO_RADIUS * mu / torch.linalg.norm(mu, dim=1, keepdim=True)
+    U, _ = torch.linalg.qr(torch.randn(MNIST_IMAGE_SIZE, LATENT_DIM, device=device,
+                                       generator=gen))
+    return mu, U
+
+
+def _latent_draw(mu: torch.Tensor, gen: torch.Generator, n: int, sigma: float):
+    """(labels, latents s·μ_y + σ·ε) of ``n`` rows, s = ±1."""
+    dev = mu.device
+    y = torch.randint(0, NUM_CLASSES, (n,), device=dev, generator=gen)
+    s = torch.randint(0, 2, (n,), device=dev, generator=gen).float() * 2.0 - 1.0
+    u = s[:, None] * mu[y] + sigma * torch.randn(n, LATENT_DIM, device=dev, generator=gen)
+    return y, u
+
+
+def _labeled(y: torch.Tensor, X: torch.Tensor) -> LabeledData:
+    """The rows stay on their device; only the labels come to the host."""
+    return LabeledData(y.cpu().numpy().astype(np.int32), X)
+
+
+def synthetic_mnist_device(n_train: int = 8192, n_test: int = 2048, seed: int = DATA_SEED,
+                           device=None) -> Tuple[LabeledData, LabeledData]:
+    """(train, test) of the synthetic task drawn on ``device`` (the card
+    unless the CPU is named) from ``torch.Generator``s seeded by ``seed``:
+    no feature crosses from the host. The same task as
+    :func:`synthetic_mnist`; ``torch.Generator`` cannot draw ``jax.random``'s
+    values, so it is another instance than JAX's (and a CPU draw another
+    than a card draw)."""
+    dev = pick_device(device)
+    mu, U = _latent_task_params_device(seed, dev)
+
+    def make(stream, n):
+        gen = _device_generator(dev, seed, stream)
+        y, u = _latent_draw(mu, gen, n, LATENT_SIGMA)
+        X = u @ U.T + AMBIENT_SIGMA * torch.randn(n, MNIST_IMAGE_SIZE, device=dev,
+                                                  generator=gen)
+        return _labeled(y, X)
+
+    return make(1, n_train), make(2, n_test)
+
+
+def _bayes_mc_draws(seed: int, n: int, device: torch.device):
+    """The Monte-Carlo draw of the latent task's Bayes estimate: (μ, labels,
+    latents with σ_eff² = σ_l² + σ_amb², the within-span noise of Uᵀx)."""
+    mu, _ = _latent_task_params_device(seed, device)
+    sig_eff = (LATENT_SIGMA ** 2 + AMBIENT_SIGMA ** 2) ** 0.5
+    y, u = _latent_draw(mu, _device_generator(device, seed, 3), n, sig_eff)
+    return mu, y, u
+
+
+def bayes_error_mc_device(seed: int = DATA_SEED, n: int = BAYES_MC_ROWS, device=None) -> float:
+    """Monte-Carlo Bayes error of the task :func:`synthetic_mnist_device`
+    draws on ``device`` from ``seed``: the nearest of {±μ_c} on the latent,
+    folded mod C, as :func:`bayes_error_mc`, computed on the device."""
+    mu, y, u = _bayes_mc_draws(seed, n, pick_device(device))
+    P2 = torch.cat([mu, -mu])
+    pred = (u @ P2.T - 0.5 * (P2 * P2).sum(dim=1)).argmax(dim=1) % NUM_CLASSES
+    return float((pred != y).float().mean())
+
+
+def _linear_task_draw(protos: torch.Tensor, gen: torch.Generator, n: int):
+    y = torch.randint(0, NUM_CLASSES, (n,), device=protos.device, generator=gen)
+    X = protos[y] + NOISE_SIGMA * torch.randn(n, MNIST_IMAGE_SIZE, device=protos.device,
+                                              generator=gen)
+    return y, X
+
+
+def _linear_task_protos(seed: int, device: torch.device) -> torch.Tensor:
+    return PROTO_SCALE * torch.randn(NUM_CLASSES, MNIST_IMAGE_SIZE, device=device,
+                                     generator=_device_generator(device, seed, 0))
+
+
+def linear_task_device(n_train: int, n_test: int, seed: int = DATA_SEED, device=None,
+                       mc_rows: int = BAYES_MC_ROWS):
+    """The JAX package's linear task drawn on ``device``: (train, test, its
+    Monte-Carlo Bayes error on ``mc_rows`` rows). The Bayes rule is the
+    nearest prototype, linear in the pixels, so an exact ridge on raw
+    pixels must land near it (bench.py's solver-sharpness gate)."""
+    dev = pick_device(device)
+    protos = _linear_task_protos(seed, dev)
+    y_mc, X_mc = _linear_task_draw(protos, _device_generator(dev, seed, 3), mc_rows)
+    scores = X_mc @ protos.T - 0.5 * (protos * protos).sum(dim=1)
+    bayes = float((scores.argmax(dim=1) != y_mc).float().mean())
+    del X_mc, scores
+    train = _labeled(*_linear_task_draw(protos, _device_generator(dev, seed, 1), n_train))
+    test = _labeled(*_linear_task_draw(protos, _device_generator(dev, seed, 2), n_test))
+    return train, test, bayes
 
 
 # ---- CLI -----------------------------------------------------------------

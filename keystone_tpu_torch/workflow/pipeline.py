@@ -23,14 +23,16 @@ the counterpart of the JAX package's one XLA program per shape.
 The incremental refit of the out-of-core tier is ported too:
 ``FittedPipeline.absorb`` folds appended chunks, featurized through the
 frozen prefix, into a snapshot fit's solver state and solves again, and
-``prefix_features`` runs data through that prefix. Left out, each with its
+``prefix_features`` runs data through that prefix; ``absorb(checkpoint=)``
+resumes a killed absorb from its last saved block. Left out, each with its
 own later item of work: the static checker (``check``, ``_static_check``),
-``fit_instrumentation`` (tracing and the cost-model loop), the AOT cache
-of ``compile`` and absorb's checkpoints (``faults/checkpoint.py``).
+``fit_instrumentation`` (tracing and the cost-model loop) and the AOT cache
+of ``compile``.
 """
 
 from __future__ import annotations
 
+import hashlib
 import logging
 import time
 from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
@@ -635,7 +637,7 @@ class FittedPipeline(Chainable):
         return executor.execute(sink).get()
 
     def absorb(self, new_data: Any, new_labels: Any, *, checkpoint: Optional[str] = None,
-               checkpoint_key: Optional[str] = None,
+               checkpoint_key: Optional[str] = None, checkpoint_every: int = 1,
                on_chunk: Optional[Callable[[int, Any], None]] = None) -> "FittedPipeline":
         """Fold appended training data into the fitted model without a fit
         from scratch, and return a new FittedPipeline; this one is left as
@@ -652,22 +654,36 @@ class FittedPipeline(Chainable):
         would change the features of every row already absorbed. A model
         without such a state raises the typed ``NotAbsorbable``.
 
+        ``checkpoint`` (a directory) makes a chunked absorb resumable: the
+        folding state is saved every ``checkpoint_every`` chunks
+        (``faults.FitCheckpoint``), an absorb killed while folding and run
+        again with the same arguments resumes from the last saved block
+        (bit for bit) without producing the chunks before it, and the
+        checkpoint is removed when the absorb completes. The key binds the
+        appended data through a digest of its labels, so a later absorb of
+        other data of the same shape starts fresh; ``checkpoint_key`` sets
+        the key instead (a caller retrying one batch passes its id).
+
         ``on_chunk(chunk_index, features)`` runs before each chunk is
-        folded. ``checkpoint`` and ``checkpoint_key`` (a resumable absorb)
-        raise: checkpoints come with ``faults/checkpoint.py`` in a later
-        slice (ROADMAP Queue 1, item 11)."""
-        if checkpoint is not None or checkpoint_key is not None:
-            raise NotImplementedError(
-                "absorb(checkpoint=...) is not ported yet: it comes with "
-                "faults/checkpoint.py in a later slice (ROADMAP Queue 1, item 11)")
+        folded, for the chunks this call produces (a resumed absorb skips
+        the folded ones)."""
+        from ..faults import FitCheckpoint
         from ..linalg.accumulators import fold_into
 
         node, mapper = self._absorb_node()
         executor, sink = self._prefix_executor(node, new_data)
         device = _first_device(mapper) or torch.device("cpu")
         y = Dataset.of(new_labels).to_array().float().to(device)
-        state = fold_into(mapper.solver_state.snapshot(), executor.execute(sink).get(), y,
-                          label="absorb", on_chunk=on_chunk)
+        state = mapper.solver_state.snapshot()
+        feats = executor.execute(sink).get()
+        ckpt = None
+        if checkpoint is not None and getattr(feats, "is_chunked", False):
+            digest = hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest()[:16]
+            ckpt = FitCheckpoint(checkpoint, checkpoint_key or (
+                f"absorb|base={state.n}|new={len(feats)}|y={tuple(int(s) for s in y.shape)}"
+                f"|ydig={digest}|lam={state.lam}"))
+        state = fold_into(state, feats, y, label="absorb", on_chunk=on_chunk, checkpoint=ckpt,
+                          checkpoint_every=checkpoint_every)
         return FittedPipeline(self._graph.set_operator(node, state.rebuild_mapper(mapper)),
                               self._source, self._sink, self.seconds)
 

@@ -7,9 +7,11 @@ Tolerances: within a package, absorb against a fit from scratch on the
 same chunk boundaries is held at the JAX test's 1e-6 (the same float32
 chunk products folded into the same float64 totals); between the packages
 1e-5 relative to the largest entry (their float32 chunk products round
-apart). The checkpoint case of the JAX file waits for
-``faults/checkpoint.py``: here ``checkpoint=`` raises.
+apart). The checkpoint case holds a resumed absorb bit for bit, as the JAX
+test does.
 """
+
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -208,20 +210,61 @@ def test_absorb_row_mismatch_raises():
         fitted.absorb(ChunkedDataset.from_array(_t(X[:64]), 32), Dataset.of(_t(Y[:50])))
 
 
-def test_absorb_checkpoints_wait_for_a_later_slice_and_on_chunk_sees_each_chunk():
+def test_absorb_checkpoints_wait_for_a_later_slice_and_on_chunk_sees_each_chunk(tmp_path):
+    """The JAX case of ``tests/workflow/test_absorb.py``: a crashed absorb's
+    checkpoint binds the appended data (a digest of its labels in the
+    default key), so an absorb of other data of the same shape starts
+    fresh, and the same data crashed and run again resumes bit for bit;
+    ``on_chunk`` sees each chunk this call produces."""
     X, Y = _problem(300)
-    Xn, Yn = _problem(96, seed=7)
+    Xa, Ya = _problem(96, seed=7)
+    Xb, Yb = _problem(96, seed=8)
     fitted = _featurize().to_pipeline().and_then(
         LinearMapEstimator(lam=0.1, snapshot=True), ChunkedDataset.from_array(_t(X), 64),
         Dataset.of(_t(Y))).fit()
-    for kw in ({"checkpoint": "ckpt"}, {"checkpoint_key": "batch-7"}):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            fitted.absorb(ChunkedDataset.from_array(_t(Xn), 32), Dataset.of(_t(Yn)), **kw)
+
+    class Boom(Exception):
+        pass
+
+    def killer(i, chunk):
+        if i == 2:
+            raise Boom()
+
+    def absorb(Xn, Yn, **kw):
+        return fitted.absorb(ChunkedDataset.from_array(_t(Xn), 32), Dataset.of(_t(Yn)), **kw)
+
+    with pytest.raises(Boom):
+        absorb(Xa, Ya, checkpoint=str(tmp_path), on_chunk=killer)
+    resumed_b = _model(absorb(Xb, Yb, checkpoint=str(tmp_path))).solver_state
+    clean_b = _model(absorb(Xb, Yb)).solver_state
+    assert np.array_equal(resumed_b.gram, clean_b.gram)
+    assert np.array_equal(resumed_b.cross, clean_b.cross)
+    assert resumed_b.n == clean_b.n == 396
+
+    with pytest.raises(Boom):
+        absorb(Xa, Ya, checkpoint=str(tmp_path), on_chunk=killer)
     seen = []
-    updated = fitted.absorb(ChunkedDataset.from_array(_t(Xn), 32), Dataset.of(_t(Yn)),
-                            on_chunk=lambda i, c: seen.append((i, tuple(c.shape))))
-    assert seen == [(0, (32, 24)), (1, (32, 24)), (2, (32, 24))]
+    resumed_a = absorb(Xa, Ya, checkpoint=str(tmp_path),
+                       on_chunk=lambda i, c: seen.append((i, tuple(c.shape))))
+    assert seen == [(2, (32, 24))]  # resumed after the two saved chunks
+    clean_a = absorb(Xa, Ya)
+    for attr in ("gram", "cross", "sum_x", "sum_y", "shift", "shift_y"):
+        assert np.array_equal(getattr(_model(resumed_a).solver_state, attr),
+                              getattr(_model(clean_a).solver_state, attr)), attr
+    assert torch.equal(_model(resumed_a).W, _model(clean_a).W)
+    assert os.listdir(tmp_path) == []
+    # a caller's key names the batch instead of the labels' digest
+    with pytest.raises(Boom):
+        absorb(Xa, Ya, checkpoint=str(tmp_path), checkpoint_key="batch-7", on_chunk=killer)
+    assert len(os.listdir(tmp_path)) == 1
+    seen = []
+    updated = absorb(Xa, Ya, checkpoint=str(tmp_path), checkpoint_key="batch-7",
+                     on_chunk=lambda i, c: seen.append((i, tuple(c.shape))))
+    assert seen == [(2, (32, 24))]
     assert _model(updated).solver_state.n == 396
+    seen = []
+    absorb(Xa, Ya, on_chunk=lambda i, c: seen.append((i, tuple(c.shape))))
+    assert seen == [(0, (32, 24)), (1, (32, 24)), (2, (32, 24))]
 
 
 def test_prefix_features_run_the_frozen_prefix():

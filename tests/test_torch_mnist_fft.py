@@ -4,7 +4,9 @@ apply, the synthetic task, the whole fitted pipeline at the JAX test's
 config, and the JAX fit's parameters carried into the port.
 
 The JAX nodes draw their signs with ``jax.random``; the port draws with
-numpy, so every parity test here copies the JAX node's signs.
+numpy, so every parity test here copies the JAX node's signs. The tasks
+drawn on the device (``torch.Generator``) cannot match ``jax.random``'s
+values either: they are held by their statistics, run on the CPU.
 """
 
 import jax.numpy as jnp
@@ -201,6 +203,84 @@ def test_bayes_error_is_the_instance_error():
     err = np.mean(pred != test.labels.to_array().numpy())
     assert abs(err - bayes) < 4 * np.sqrt(bayes * (1 - bayes) / 20000) + 4 * np.sqrt(
         bayes * (1 - bayes) / 262144)
+
+
+def test_device_draws_have_the_tasks_shapes_and_label_frequencies():
+    """``synthetic_mnist_device`` and ``linear_task_device`` on the CPU:
+    float32 rows of 784 on the device named, int32 labels on the host, each
+    class near a tenth (four binomial standard deviations)."""
+    train, test = tm.synthetic_mnist_device(3000, 500, seed=3, device="cpu")
+    ltrain, ltest, lbayes = tm.linear_task_device(3000, 500, seed=3, device="cpu",
+                                                  mc_rows=20000)
+    for tr, te in ((train, test), (ltrain, ltest)):
+        X, y = tr.data.to_array(), tr.labels.to_array()
+        assert X.shape == (3000, 784) and X.dtype == torch.float32 and X.device == CPU
+        assert y.dtype == torch.int32 and len(te) == 500
+        freq = np.bincount(y.numpy(), minlength=10) / 3000
+        assert np.all(np.abs(freq - 0.1) < 4 * np.sqrt(0.09 / 3000)), freq
+    assert 0.005 < lbayes < 0.2
+
+
+def test_device_draws_hold_the_tasks_class_statistics():
+    """Per class, within an n-scaled bound (six standard errors): the linear
+    task's mean is its prototype; the latent task's mean is 0 (the sign
+    flip) and its second moment in the latent is μ_c μ_cᵀ + σ_eff² I."""
+    n = 6000
+    ltrain, _, _ = tm.linear_task_device(n, 10, seed=5, device="cpu", mc_rows=1000)
+    protos = tm._linear_task_protos(5, CPU).double().numpy()
+    X, y = ltrain.data.to_array().double().numpy(), ltrain.labels.to_array().numpy()
+    for c in range(10):
+        Xc = X[y == c]
+        bound = 6 * tm.NOISE_SIGMA / np.sqrt(len(Xc))
+        assert np.abs(Xc.mean(0) - protos[c]).max() < bound, c
+    train, _ = tm.synthetic_mnist_device(n, 10, seed=5, device="cpu")
+    mu, U = (t.double().numpy() for t in tm._latent_task_params_device(5, CPU))
+    np.testing.assert_allclose(U.T @ U, np.eye(tm.LATENT_DIM), atol=1e-5)
+    np.testing.assert_allclose(np.linalg.norm(mu, axis=1), tm.PROTO_RADIUS, rtol=1e-5)
+    X, y = train.data.to_array().double().numpy(), train.labels.to_array().numpy()
+    sig2 = tm.LATENT_SIGMA ** 2 + tm.AMBIENT_SIGMA ** 2
+    for c in range(10):
+        u = X[y == c] @ U
+        se = np.sqrt((2 * tm.PROTO_RADIUS ** 2 + sig2) * sig2 / len(u))
+        assert np.abs(u.mean(0)).max() < 6 * np.sqrt((tm.PROTO_RADIUS ** 2 + sig2) / len(u)), c
+        second = u.T @ u / len(u) - sig2 * np.eye(tm.LATENT_DIM)
+        assert np.abs(second - np.outer(mu[c], mu[c])).max() < 6 * se + 6 * sig2 / np.sqrt(
+            len(u)), c
+
+
+def test_device_draws_repeat_for_a_seed_and_differ_across_seeds():
+    a, at = tm.synthetic_mnist_device(500, 100, seed=7, device="cpu")
+    b, bt = tm.synthetic_mnist_device(500, 100, seed=7, device="cpu")
+    c, _ = tm.synthetic_mnist_device(500, 100, seed=8, device="cpu")
+    assert torch.equal(a.data.to_array(), b.data.to_array())
+    assert torch.equal(a.labels.to_array(), b.labels.to_array())
+    assert torch.equal(at.data.to_array(), bt.data.to_array())
+    assert not torch.equal(a.data.to_array(), c.data.to_array())
+    assert not torch.equal(a.data.to_array()[:100], at.data.to_array())  # train ≠ test
+    la = tm.linear_task_device(500, 100, seed=7, device="cpu", mc_rows=1000)
+    lb = tm.linear_task_device(500, 100, seed=7, device="cpu", mc_rows=1000)
+    lc = tm.linear_task_device(500, 100, seed=8, device="cpu", mc_rows=1000)
+    assert torch.equal(la[0].data.to_array(), lb[0].data.to_array()) and la[2] == lb[2]
+    assert not torch.equal(la[0].data.to_array(), lc[0].data.to_array())
+    assert tm.bayes_error_mc_device(7, 5000, CPU) == tm.bayes_error_mc_device(7, 5000, CPU)
+
+
+def test_device_bayes_errors_agree_with_the_float64_rule_on_the_same_draws():
+    """Each task's Monte-Carlo Bayes error, computed on the device in
+    float32, equals the Bayes rule evaluated in float64 numpy on the same
+    draws, up to draws within float32 rounding of a tie."""
+    n = 20000
+    bayes = tm.bayes_error_mc_device(11, n, CPU)
+    mu, y, u = (t.numpy() for t in tm._bayes_mc_draws(11, n, CPU))
+    P2 = np.concatenate([mu, -mu]).astype(np.float64)
+    pred = np.argmax(u.astype(np.float64) @ P2.T - 0.5 * (P2 * P2).sum(1), axis=1) % 10
+    assert abs(np.mean(pred != y) - bayes) <= 2 / n and 0.005 < bayes < 0.1
+    _, _, lbayes = tm.linear_task_device(10, 10, seed=11, device="cpu", mc_rows=n)
+    protos = tm._linear_task_protos(11, CPU)
+    ly, lX = tm._linear_task_draw(protos, tm._device_generator(CPU, 11, 3), n)
+    P = protos.double().numpy()
+    lpred = np.argmax(lX.double().numpy() @ P.T - 0.5 * (P * P).sum(1), axis=1)
+    assert abs(np.mean(lpred != ly.numpy()) - lbayes) <= 2 / n and 0.005 < lbayes < 0.2
 
 
 def test_load_labeled_csv_matches_jax(tmp_path):

@@ -275,20 +275,49 @@ def test_num_features_streams_the_leading_columns():
 
 
 @pytest.mark.parametrize("make", [
-    lambda: LinearMapEstimator(snapshot=True), lambda: LinearMapEstimator(checkpoint="d"),
-    lambda: TSQRLeastSquaresEstimator(checkpoint="d"),
+    lambda d: LinearMapEstimator(snapshot=True),
+    lambda d: LinearMapEstimator(lam=0.5, checkpoint=d, checkpoint_every=2),
+    lambda d: TSQRLeastSquaresEstimator(lam=0.5, checkpoint=d, checkpoint_every=2),
 ], ids=["linear-snapshot", "linear-checkpoint", "tsqr-checkpoint"])
-def test_snapshots_and_checkpoints_wait_for_a_later_slice(make, request):
-    """The checkpoints wait for ``faults/checkpoint.py``; the snapshot fit
-    is ported (``tests/test_torch_absorb.py``) and carries its state."""
+def test_snapshots_and_checkpoints_wait_for_a_later_slice(make, request, tmp_path):
+    """The snapshot fit carries its state (``tests/test_torch_absorb.py``);
+    a checkpointed chunked fit killed by a ``fatal`` fault and run again
+    equals the uninterrupted fit bit for bit, drawing only the chunks after
+    its last save, and leaves no checkpoint (``tests/test_torch_faults.py``
+    holds the rest)."""
+    from keystone_tpu_torch import faults
+
     if request.node.callspec.id == "linear-snapshot":
         A = np.random.default_rng(0).standard_normal((20, 3)).astype(np.float32)
-        fitted = make().fit(Dataset.of(torch.from_numpy(A)),
-                            Dataset.of(torch.from_numpy(A[:, :2])))
+        fitted = make(None).fit(Dataset.of(torch.from_numpy(A)),
+                                Dataset.of(torch.from_numpy(A[:, :2])))
         assert fitted.solver_state is not None and fitted.solver_state.n == 20
         return
-    with pytest.raises(NotImplementedError, match="later slice"):
-        make()
+    A, y = _problem(n=96, d=6, k=2)
+    drawn = []
+
+    def chunk_fn(i):
+        drawn.append(i)
+        return A[16 * i:16 * i + 16]
+
+    ds = ChunkedDataset.from_chunk_fn(chunk_fn, 6, 96)
+    labels = Dataset.of(torch.from_numpy(y))
+    whole = make(str(tmp_path / "whole")).fit(ds, labels)
+    # killed at the pull of chunk 4, after the save at 4 chunks (TSQR's
+    # means scan pulls 7 times first: 6 chunks and its end)
+    kill_at = {"linear-checkpoint": 4, "tsqr-checkpoint": 7 + 4}[request.node.callspec.id]
+    faults.install(faults.parse_plan(f"scan.chunk=fatal@{kill_at}"))
+    try:
+        with pytest.raises(faults.FatalFaultInjected):
+            make(str(tmp_path / "killed")).fit(ds, labels)
+    finally:
+        faults.clear()
+    drawn.clear()
+    resumed = make(str(tmp_path / "killed")).fit(ds, labels)
+    assert torch.equal(resumed.W, whole.W) and torch.equal(resumed.b, whole.b)
+    assert torch.equal(resumed.feature_mean, whole.feature_mean)
+    assert drawn == [4, 5]
+    assert all(not list(p.iterdir()) for p in tmp_path.iterdir())
 
 
 def test_block_snapshot_raises_as_in_jax():
