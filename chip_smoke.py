@@ -76,8 +76,21 @@ absorb killed and resumed the same way, and an absorb of other data that
 starts fresh; the checkpointed TSQR on the raw frames killed and resumed,
 and its λ grid against independent fits; the card-drawn MNIST tasks
 against their card Monte-Carlo Bayes errors (bench.py's two gates); the
-warm-started BCD λ grid at 200 FFTs against cold fits. Last, the card
-tests of the scan, the weighted fit and the faults, in one pytest process.
+warm-started BCD λ grid at 200 FFTs against cold fits. Then the
+observe-and-learn loop: RandomPatchCifarKernel and MnistRandomFFT at full
+width under the auto-caching optimizer with a profile store, a first fit
+that samples and a second, in a fresh environment, planned from the store
+with no sampling (K1's launches by shape, the auto-cache profiler's
+sampled fits apart; predictions equal to the default optimizer's runs; an
+8 GiB budget at 200 FFTs); the CIFAR application through the command line
+with ``--trace`` and ``--profiles``, twice, its Chrome trace read back (and
+a traced streamed TSQR of the raw TIMIT frames, whose scan spans carry the
+scans' own counters, among the out-of-core phases); GridSweep at 200 FFTs
+over three BCD λ, cold and warm-started, each member bit-equal to its
+reference fit with the 24.6 GB featurizer run once a sweep; and GridSweep
+over six λ of one TIMIT cosine branch, from one Gram. Last, the card
+tests of the scan, the weighted fit, the faults and the tracer, in one
+pytest process.
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card it exits non-zero
 and prints no result.
@@ -99,6 +112,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from collections import Counter
 
@@ -115,6 +129,11 @@ CHECK_SHAPES = [(700, 128, 256), (37, 5, 3), (1, 800, 100), (513, 33, 129),
                 (300, 7, 40), (129, 800, 17), (4100, 96, 700),
                 (50000, 800, 5000), (10000, 800, 5000), (8000, 800, 5000),
                 (8000, 800, 3000)]  # (n, d, b)
+# the auto-cache profiler's sampled pulls of the CIFAR kernel graphs: KRR
+# fitted on 8, 16 and 24 rows, and 8-24 rows against the fitted model's
+# blocks of 5000 training rows
+PROFILER_SHAPES = [(8, 800, 8), (16, 800, 16), (24, 800, 24),
+                   (8, 800, 5000), (16, 800, 5000), (24, 800, 5000)]
 FIT_SHAPE = (50000, 800, 5000)
 APPLY_SHAPE = (10000, 800, 5000)
 CHUNK_SHAPE = (2500, 800, 5000)  # apply_chunked's blocks
@@ -125,6 +144,10 @@ EXACT_SHAPES = ((8000, 800, 5000), (8000, 800, 3000))
 SLICE_ARGS = ["RandomPatchCifarKernel", "--nTrain", "50000", "--nTest", "10000",
               "--lambda", "5.0"]
 SLICE_LAUNCHES = 30  # 10 blocks × (fit, apply to train, apply to test)
+# the first auto-cached fit's profiler launches K1 once at each sampled KRR
+# fit and 10 blocks × 2 times at each scale's applies (the application's two
+# pull graphs)
+PROFILER_LAUNCHES = dict(zip(PROFILER_SHAPES, (1, 1, 1, 20, 20, 20)))
 CHUNK = 2500  # apply_chunked's rows per chunk, the fused groups' own
 KRR_ROWS, KRR_LAMBDA = 8000, 5.0
 
@@ -313,13 +336,18 @@ def check(cond: bool, what: str) -> None:
 
 
 def fresh_env():
-    """Reset the port's fit-once state and drop the fused groups' shared
-    CUDA graphs, so a phase holds no device memory of the one before it."""
-    from keystone_tpu_torch.workflow import fusion
+    """Reset the port's fit-once state, drop the fused groups' shared CUDA
+    graphs, the optimize memo's plans and the profile store, so a phase
+    holds no device memory of the one before it and learns nothing from
+    it."""
+    from keystone_tpu_torch import cost
+    from keystone_tpu_torch.workflow import fusion, optimizers
     from keystone_tpu_torch.workflow.env import PipelineEnv
 
     PipelineEnv.get_or_create().reset()
     fusion.clear_graph_cache()
+    optimizers.clear_memo()
+    cost.reset()
 
 
 def phase_group(card):
@@ -2026,7 +2054,36 @@ def out_of_core_phases(dev, card) -> dict:
           f"TSQR grid members against independent fits: {grid_dev}")
     check(not any(os.listdir(os.path.join(ckpt_dir, sub)) for sub in ("whole", "killed")),
           "a completed TSQR fit left its checkpoint")
-    del frames, raw, Y, labels, fits, rs, plain, grid
+
+    # -- traced_tsqr: the plain streamed TSQR of the raw frames under a
+    # tracer: one scan span a scan, its counters the scan's own ----------
+    from keystone_tpu_torch.obs import tracer as trace_mod
+
+    name, t0 = start("traced_tsqr")
+    tracer = trace_mod.install(trace_mod.Tracer())
+    try:
+        with ScanLog() as scans:
+            t1 = clock()
+            traced_W = TSQRLeastSquaresEstimator(0.0).fit(raw, labels).W
+            traced_seconds = clock() - t1
+    finally:
+        trace_mod.reset()
+    spans = [sp for sp in tracer.spans() if sp.name == "scan.pipeline"]
+    keys = ("chunks", "producer_seconds", "producer_stall_seconds", "consumer_stall_seconds",
+            "staged_bytes", "occupancy_max")
+    own = [{k: (round(getattr(st, k), 6) if isinstance(getattr(st, k), float) else getattr(st, k))
+            for k in keys} for st in scans]
+    finish(name, t0, {
+        "rows": OOC_ROWS, "chunks": OOC_CHUNKS, "traced_seconds": traced_seconds,
+        "untraced_seconds": plain_seconds, "scan_spans": [{k: sp.attrs[k] for k in keys}
+                                                          for sp in spans],
+        "scans": own, "w_equal_untraced": bool(torch.equal(traced_W, plain))})
+    check(len(spans) == len(scans) >= 1 and all(o["chunks"] == OOC_CHUNKS for o in own),
+          f"{len(spans)} scan spans for {len(scans)} scans of {[o['chunks'] for o in own]} chunks")
+    check([{k: sp.attrs[k] for k in keys} for sp in spans] == own,
+          "a scan span's counters differ from its scan's")
+    check(torch.equal(traced_W, plain), "the traced TSQR fit differs from the untraced one")
+    del frames, raw, Y, labels, fits, rs, plain, grid, traced_W
 
     # -- timit_stream_vs_memory: the chunked fit against the in-memory one
     name, t0 = start("timit_stream_vs_memory")
@@ -2389,11 +2446,12 @@ BCD_LAMBDAS = (100.0, 1000.0, 10000.0)
 BCD_WARM_LIMIT = 1.02  # a warm member's objective against a cold fit's (the JAX test's)
 
 
-# the card tests of the out-of-core scan, the weighted fit and the faults:
-# one pytest process, which reaches the card once
+# the card tests of the out-of-core scan, the weighted fit, the faults and
+# the tracer: one pytest process, which reaches the card once
 CARD_TEST_FILES = ("tests/test_torch_cuda_streaming.py",
                    "tests/test_torch_cuda_weighted_streaming.py",
-                   "tests/test_torch_cuda_faults.py")
+                   "tests/test_torch_cuda_faults.py",
+                   "tests/test_torch_cuda_obs.py")
 
 
 def card_tests() -> None:
@@ -2520,6 +2578,451 @@ def mnist_device_phases(dev, card) -> dict:
     return launches
 
 
+# The observe-and-learn loop (slice 13): the CIFAR kernel and the 200-FFT
+# MNIST applications auto-cached under a profile store, traced through the
+# command line, and λ grids as one merged DAG
+MNIST_SMALL_BUDGET = 8 << 30
+HOST_BUDGET = 4 << 30  # the auto-cache budget off the card
+MNIST_TRAIN_ROWS = 60000  # the command line's training rows
+SWEEP_BCD_LAMBDAS = (1e2, 1e3, 1e4)
+SWEEP_TIMIT_LAMBDAS = (1e-3, 3e-3, 1e-2, 3e-2, 1e-1, 1.0)  # bench.py's G_LAMS (:3278)
+SWEEP_TIMIT_LIMIT = 1e-6  # a member's W against its independent fit, relative to its largest
+
+
+class K1Shapes:
+    """While entered: K1's calls by (n, d, b) outside the auto-cache
+    profiler's sampled pulls and inside them, and the K1 launches and BCD
+    block steps those pulls made (the wrapped functions restored on exit).
+    A call inside a CUDA-graph capture launches nothing and is not
+    counted."""
+
+    def __enter__(self) -> "K1Shapes":
+        from keystone_tpu_torch.linalg import bcd
+        from keystone_tpu_torch.nodes.learning import kernel
+        from keystone_tpu_torch.ops import gaussian_kernel as gk
+        from keystone_tpu_torch.workflow import autocache
+
+        self.shapes, self.profiler_shapes = Counter(), Counter()
+        self.profiler_launches = self.profiler_steps = self._inside = 0
+        k1, profile, log = kernel.gaussian_kernel_block, autocache._profile_at_scale, self
+
+        def counted_k1(X, Xb, gamma):
+            if not torch.cuda.is_current_stream_capturing():
+                shape = (int(X.shape[0]), int(X.shape[1]), int(Xb.shape[0]))
+                (log.profiler_shapes if log._inside else log.shapes)[shape] += 1
+            return k1(X, Xb, gamma)
+
+        def counted_profile(graph, size):
+            l0, s0 = gk.gaussian_kernel_block.launches, bcd._block_update_impl.steps
+            log._inside += 1
+            try:
+                return profile(graph, size)
+            finally:
+                log._inside -= 1
+                log.profiler_launches += gk.gaussian_kernel_block.launches - l0
+                log.profiler_steps += bcd._block_update_impl.steps - s0
+
+        self._undo = [(kernel, "gaussian_kernel_block", k1),
+                      (autocache, "_profile_at_scale", profile)]
+        kernel.gaussian_kernel_block, autocache._profile_at_scale = counted_k1, counted_profile
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for mod, name, orig in self._undo:
+            setattr(mod, name, orig)
+
+    def as_dict(self) -> dict:
+        return {"by_shape": sorted([list(k), v] for k, v in self.shapes.items()),
+                "profiler_by_shape": sorted([list(k), v] for k, v in self.profiler_shapes.items()),
+                "profiler_launches": self.profiler_launches,
+                "profiler_block_steps": self.profiler_steps}
+
+
+class SweepLog:
+    """While entered: the full-size runs of ``cls.batch_transform`` (a
+    result of ``rows`` rows; with ``keep``, the first one's result is kept,
+    and its memory with it), and each BlockLeastSquaresEstimator fit's λ,
+    warm start and block steps, the steps counted on the fit's own thread
+    (a sweep's fits overlap)."""
+
+    def __init__(self, cls, rows: int, keep: bool = False):
+        self.cls, self.rows, self.keep = cls, rows, keep
+
+    def __enter__(self) -> "SweepLog":
+        from keystone_tpu_torch.linalg import bcd
+        from keystone_tpu_torch.nodes.learning.linear import BlockLeastSquaresEstimator
+
+        self.featurized, self.features, self.fits = 0, None, []
+        local, lock, log = threading.local(), threading.Lock(), self
+        step, fit, bt = (bcd._block_update_impl, BlockLeastSquaresEstimator.fit,
+                         self.cls.batch_transform)
+
+        def counted_step(*args, **kwargs):
+            local.steps = getattr(local, "steps", 0) + 1
+            return step(*args, **kwargs)
+
+        # the step adds to its own global name's counter: keep one there
+        counted_step.steps = step.steps
+
+        def logged_fit(est, data, labels):
+            warm = est.warm_start_ws is not None
+            local.steps = 0
+            out = fit(est, data, labels)
+            with lock:
+                log.fits.append({"lambda": est.lam, "warm": warm, "block_steps": local.steps})
+            return out
+
+        def counted_bt(op, inputs):
+            out = bt(op, inputs)
+            if len(out) == log.rows:
+                with lock:
+                    log.featurized += 1
+                    if log.keep and log.features is None:
+                        log.features = out
+            return out
+
+        self._step, self._undo = (bcd, step, counted_step), [
+            (BlockLeastSquaresEstimator, "fit", fit), (self.cls, "batch_transform", bt)]
+        bcd._block_update_impl = counted_step
+        BlockLeastSquaresEstimator.fit = logged_fit
+        self.cls.batch_transform = counted_bt
+        return self
+
+    def __exit__(self, *exc) -> None:
+        bcd, step, counted = self._step
+        step.steps = counted.steps
+        bcd._block_update_impl = step
+        for cls, name, orig in self._undo:
+            setattr(cls, name, orig)
+
+
+def observe_phases(cli, dev, card, slice_ref, mnist_ref) -> dict:
+    """The observe-and-learn loop: auto-cached fits planned from a profile
+    store (CIFAR with K1, MNIST at 200 FFTs), the command line traced, and
+    GridSweep over BCD at 200 FFTs and over a TIMIT Gram family. Returns
+    the K1 launches of each path."""
+    from keystone_tpu_torch import cost
+    from keystone_tpu_torch.data.dataset import Dataset
+    from keystone_tpu_torch.linalg import bcd
+    from keystone_tpu_torch.loaders.cifar import synthetic_cifar
+    from keystone_tpu_torch.nodes.learning.linear import (
+        BlockLeastSquaresEstimator, BlockLinearMapper, LinearMapEstimator, LinearMapper,
+    )
+    from keystone_tpu_torch.nodes.util import ClassLabelIndicators, MaxClassifier
+    from keystone_tpu_torch.obs import tracer as trace_mod
+    from keystone_tpu_torch.obs.audit import cache_audit
+    from keystone_tpu_torch.ops import gaussian_kernel as gk
+    from keystone_tpu_torch.pipelines import mnist_random_fft as mnist
+    from keystone_tpu_torch.pipelines import timit
+    from keystone_tpu_torch.sweep import GridSweep
+    from keystone_tpu_torch.workflow import optimizers
+    from keystone_tpu_torch.workflow.env import PipelineEnv
+    from keystone_tpu_torch.workflow.fusion import FusedTransformerOperator
+    from keystone_tpu_torch.workflow.optimizers import AutoCachingOptimizer
+    from keystone_tpu_torch.workflow.pipeline import Pipeline, clock
+    from keystone_tpu_torch.workflow.rules import RuleExecutor
+
+    launches = {}
+    store_root = tempfile.mkdtemp(prefix="profiles-")
+
+    def learn_env(store_dir, optimizer):
+        """A fresh environment with ``optimizer`` and the store read anew
+        from disk."""
+        fresh_env()
+        cost.configure(store_dir)
+        PipelineEnv.get_or_create().set_optimizer(optimizer)
+
+    def budgets(store_dir):
+        store = cost.ProfileStore(store_dir)
+        return sorted({store.load(k).get("budget") for k in store.keys()
+                       if k.startswith("plan/")} - {None})
+
+    def cachers(tracer):
+        return [{"label": r["label"], "est_bytes": r["est_bytes"], "obs_bytes": r["obs_bytes"],
+                 "observed": r["observed"]} for r in cache_audit(tracer) if r["cacher"]]
+
+    def traced_run(args):
+        """``cli.run(args)`` under a tracer and K1's shape log; the tracer
+        is removed after."""
+        tracer = trace_mod.install(trace_mod.Tracer())
+        t1 = clock()
+        try:
+            with K1Shapes() as k1:
+                out = cli.run(args)
+        finally:
+            trace_mod.reset()
+        return out, tracer, k1, clock() - t1
+
+    # -- autocache_cifar: the kernel application auto-cached, twice -------
+    Xt = synthetic_cifar(10000, seed=2).data.to_array().to(dev)  # the CLI's test set
+    cifar_dir = os.path.join(store_root, "cifar")
+    runs = {}
+    for run in ("first", "second"):
+        learn_env(cifar_dir, AutoCachingOptimizer())
+        gk.gaussian_kernel_block.launches = 0
+        out, tracer, k1, seconds = traced_run(SLICE_ARGS)
+        total = gk.gaussian_kernel_block.launches
+        sampling = cost.sampling_executions()
+        audit = cache_audit(tracer)
+        preds = out["scorer"].and_then(MaxClassifier())(Xt).get().to_array().cpu()
+        runs[run] = {"app_seconds": out["seconds"], "phase_seconds": out["phases"],
+                     "wall_seconds": seconds, "test_error": out["test_error"],
+                     "k1_launches": total, "k1": k1.as_dict(), "sampling_executions": sampling,
+                     "cachers": cachers(tracer), "budgets": budgets(cifar_dir),
+                     "audit": [{k: r[k] for k in ("node", "label", "kind", "cacher",
+                                                  "est_seconds", "obs_seconds", "seconds_ratio",
+                                                  "est_bytes", "obs_bytes", "observed")}
+                               for r in audit],
+                     "memo": dict(optimizers.memo_stats),
+                     "predictions": preds}
+        launches[f"autocache_cifar_{run}"] = total
+        del out, tracer
+    first, second = runs["first"], runs["second"]
+    equal = {run: bool(torch.equal(r.pop("predictions"), slice_ref["predictions"]))
+             for run, r in runs.items()}
+    emit({"phase": "autocache_cifar", "args": SLICE_ARGS, "runs": runs,
+          "predictions_equal_default_optimizer": equal,
+          "untraced_default_seconds": slice_ref["seconds"], "card": card})
+    check(first["sampling_executions"]["total"] > 0, "the first auto-cached fit did not sample")
+    by_shape = {tuple(k): v for k, v in first["k1"]["profiler_by_shape"]}
+    check(by_shape == PROFILER_LAUNCHES
+          and first["k1"]["profiler_launches"] == sum(PROFILER_LAUNCHES.values()),
+          f"the first fit's profiler launched K1 {first['k1']['profiler_launches']} times, "
+          f"by shape {by_shape}; want {PROFILER_LAUNCHES}")
+    check(all(b > HOST_BUDGET for r in runs.values() for b in r["budgets"]),
+          f"an auto-cached CIFAR plan under the host's budget: "
+          f"{[r['budgets'] for r in runs.values()]}")
+    check(first["k1_launches"] - first["k1"]["profiler_launches"] == SLICE_LAUNCHES,
+          f"the first auto-cached run launched K1 {first['k1_launches']} times, "
+          f"{first['k1']['profiler_launches']} in the profiler; want {SLICE_LAUNCHES} outside it")
+    check(second["sampling_executions"]["total"] == 0,
+          f"the second auto-cached fit sampled {second['sampling_executions']}")
+    check(second["k1_launches"] == SLICE_LAUNCHES and second["k1"]["profiler_launches"] == 0,
+          f"the second auto-cached run launched K1 {second['k1_launches']} times")
+    check(all(equal.values()), f"auto-cached predictions differ from the default's: {equal}")
+    check(all(r["test_error"] < 0.7 for r in runs.values()),
+          f"auto-cached test errors {[r['test_error'] for r in runs.values()]}")
+
+    # -- autocache_mnist: 200 FFTs at the card's budget, again, and at 8 GiB
+    mnist_dir = os.path.join(store_root, "mnist")
+    feature_bytes = MNIST_TRAIN_ROWS * MNIST_FULL_FFTS * 512 * 4
+    _, mtest = mnist.synthetic_mnist(60000, 10000)  # the command line's data
+    Xm = mtest.data.to_array().to(dev)
+    runs = {}
+    for run, budget in (("first", None), ("second", None), ("budget_8gib", MNIST_SMALL_BUDGET)):
+        learn_env(mnist_dir, AutoCachingOptimizer("greedy", budget))
+        bcd._block_update_impl.steps = 0
+        gk.gaussian_kernel_block.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with SweepLog(FusedTransformerOperator, MNIST_TRAIN_ROWS) as featurize, \
+                Probe() as probe:
+            probe.watch_fit(Pipeline)
+            probe.watch(RuleExecutor, "execute")
+            out, tracer, k1, seconds = traced_run(MNIST_FULL)
+            fit_graph = probe.last["RuleExecutor.execute:fit"][0]
+        peak = torch.cuda.max_memory_allocated()
+        steps = bcd._block_update_impl.steps
+        launches[f"autocache_mnist_{run}"] = gk.gaussian_kernel_block.launches
+        sampling = cost.sampling_executions()
+        fitted = out["scorer"].and_then(MaxClassifier()).fit()
+        preds = fitted.apply(Xm).to_array().cpu()
+        graph_cachers = [type(op).__name__ for op in fit_graph.operators.values()
+                         if type(op).__name__ == "Cacher"]
+        runs[run] = {
+            "budget": budget, "app_seconds": out["seconds"], "phase_seconds": out["phases"],
+            "wall_seconds": seconds, "test_error": out["test_error"],
+            "k1_launches": launches[f"autocache_mnist_{run}"],
+            "block_steps": steps - k1.profiler_steps, "profiler_block_steps": k1.profiler_steps,
+            "sampling_executions": sampling, "featurized_full_size": featurize.featurized,
+            "cachers_planned": cachers(tracer), "budgets": budgets(mnist_dir),
+            "cacher_nodes_after_fusion": len(graph_cachers),
+            "fused_steps": [len(g) for g in fused_steps(fit_graph)],
+            "peak_mem_gb": peak / 1e9, "peak_over_features": peak / feature_bytes,
+            "memo": dict(optimizers.memo_stats),
+            "predictions_equal_default_optimizer": bool(torch.equal(preds,
+                                                                    mnist_ref["predictions"])),
+        }
+        del out, tracer, fitted, fit_graph, preds, featurize
+    emit({"phase": "autocache_mnist", "args": MNIST_FULL, "feature_bytes": feature_bytes,
+          "runs": runs, "untraced_default_seconds": mnist_ref["seconds"], "card": card})
+    for run, r in runs.items():
+        check(r["k1_launches"] == 0, f"{run}: the MNIST fit launched K1 {r['k1_launches']} times")
+        check(r["block_steps"] == MNIST_FULL_STEPS,
+              f"{run}: {r['block_steps']} BCD block steps outside the profiler, "
+              f"want {MNIST_FULL_STEPS}")
+        check(r["test_error"] < 0.35, f"{run}: test error {r['test_error']}")
+        check(r["predictions_equal_default_optimizer"],
+              f"{run}: predictions differ from the default optimizer's")
+        check(r["peak_over_features"] < 1.5, f"{run}: peak {r['peak_mem_gb']} GB")
+    check(runs["first"]["sampling_executions"]["total"] > 0, "the first MNIST fit did not sample")
+    check(runs["second"]["sampling_executions"]["total"] == 0,
+          f"the second MNIST fit sampled {runs['second']['sampling_executions']}")
+    check(all(b > HOST_BUDGET for run in ("first", "second") for b in runs[run]["budgets"]),
+          f"an MNIST plan at the card's budget under the host's: "
+          f"{[runs[run]['budgets'] for run in ('first', 'second')]}")
+    small = runs["budget_8gib"]
+    check(small["budgets"] == [float(MNIST_SMALL_BUDGET)],
+          f"the 8 GiB run planned under {small['budgets']}")
+    check(all((c["est_bytes"] or 0) <= MNIST_SMALL_BUDGET for c in small["cachers_planned"])
+          and sum(c["est_bytes"] or 0 for c in small["cachers_planned"]) <= MNIST_SMALL_BUDGET,
+          f"a Cacher above the 8 GiB budget: {small['cachers_planned']}")
+    check(small["featurized_full_size"] == 2,
+          f"the 8 GiB run featurized the fit data {small['featurized_full_size']} times, want 2 "
+          "(the fit and the train apply)")
+    del Xm, mtest
+
+    # -- traced_cifar: the command line with --trace and --profiles, twice
+    trace_dir = tempfile.mkdtemp(prefix="traces-")
+    traced_dir = os.path.join(store_root, "traced")
+    runs = {}
+    for run in ("first", "second"):
+        fresh_env()
+        gk.gaussian_kernel_block.launches = 0
+        path = os.path.join(trace_dir, f"{run}.json")
+        t1 = clock()
+        out = cli.run(SLICE_ARGS + ["--trace", path, "--profiles", traced_dir])
+        seconds = clock() - t1
+        tracer = trace_mod.current()
+        trace_mod.reset()
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        nodes = [e for e in events if e["ph"] == "X" and "node" in e["args"]]
+        # K1 runs in the KRR fit and in the applies of its model, which the
+        # application's lazy pulls make through delegating nodes
+        k1_nodes = [e for e in nodes if e["args"].get("op_type") in
+                    ("KernelRidgeRegression", "DelegatingOperator")]
+        roots = [sp for sp in tracer.spans() if sp.name == "pipeline.fit"]
+        runs[run] = {
+            "app_seconds": out["seconds"], "phase_seconds": out["phases"],
+            "wall_seconds": seconds, "test_error": out["test_error"],
+            "k1_launches": gk.gaussian_kernel_block.launches,
+            "sampling_executions": cost.sampling_executions(), "events": len(events),
+            "node_spans": len(nodes), "fit_roots": len(roots),
+            "fit_root_parentless": all(sp.parent_id is None for sp in roots),
+            "node_spans_with_op_type": sum(1 for e in nodes if e["args"].get("op_type")),
+            "node_spans_with_sync": sum(1 for e in nodes if e["args"].get("sync_ms")),
+            "k1_node_spans": [{k: e["args"].get(k) for k in ("op_type", "cache", "sync_ms")}
+                              for e in k1_nodes],
+            "compiles": sum(e["args"].get("compiles", 0) for e in nodes),
+            "top_spans": {k: v["seconds"] for k, v in sorted(
+                tracer.span_summary().items(), key=lambda kv: -kv[1]["seconds"])[:8]},
+        }
+        launches[f"traced_cifar_{run}"] = runs[run]["k1_launches"]
+        del out, tracer, events
+    emit({"phase": "traced_cifar", "args": SLICE_ARGS, "runs": runs,
+          "untraced_seconds": slice_ref["seconds"], "card": card})
+    for run, r in runs.items():
+        check(r["fit_roots"] == 1 and r["fit_root_parentless"],
+              f"{run}: {r['fit_roots']} pipeline.fit roots")
+        check(r["node_spans"] > 0 and r["node_spans_with_op_type"] == r["node_spans"],
+              f"{run}: node spans without an operator type")
+        check(sum(e["op_type"] == "KernelRidgeRegression" for e in r["k1_node_spans"]) == 1
+              and sum(bool(e["sync_ms"]) for e in r["k1_node_spans"]
+                      if e["op_type"] == "DelegatingOperator") >= 2,
+              f"{run}: the K1-bearing node spans {r['k1_node_spans']}")
+        check(r["compiles"] >= 1, f"{run}: no CUDA-graph capture counted in the node spans")
+        check(r["k1_launches"] == SLICE_LAUNCHES, f"{run}: K1 launched {r['k1_launches']} times")
+        check(r["test_error"] < 0.7, f"{run}: test error {r['test_error']}")
+    check(runs["second"]["sampling_executions"]["total"] == 0,
+          f"the second traced run sampled {runs['second']['sampling_executions']}")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    shutil.rmtree(store_root, ignore_errors=True)
+
+    start, finish, zero = phase_group(card)
+
+    # -- sweep_mnist: GridSweep at 200 FFTs over three BCD λ --------------
+    name, t0 = start("sweep_mnist")
+    mtrain, _ = mnist.synthetic_mnist(60000, 10000)
+    X = mtrain.data.to_array().to(dev, torch.float32)
+    Y = ClassLabelIndicators(mnist.NUM_CLASSES).forward(mtrain.labels.to_array().to(dev))
+    conf = mnist.MnistRandomFFTConfig(num_ffts=MNIST_FULL_FFTS)
+    sweeps = {}
+    for warm in (False, True):
+        fresh_env()
+        featurizer = mnist.build_featurizer(conf, dev)
+        with SweepLog(FusedTransformerOperator, X.shape[0], keep=True) as log, \
+                Probe() as probe:
+            probe.watch(RuleExecutor, "execute")
+            t1 = clock()
+            res = GridSweep(featurizer,
+                            lambda lam: BlockLeastSquaresEstimator(MNIST_BLOCK, 1, lam),
+                            {"lam": list(SWEEP_BCD_LAMBDAS)}, X, Y, warm_start=warm).fit()
+            sweep_seconds = clock() - t1
+            sweep_fits = list(log.fits)
+            feats = log.features
+            t1 = clock()
+            if warm:
+                refs = BlockLeastSquaresEstimator.fit_lambda_grid(
+                    [BlockLeastSquaresEstimator(MNIST_BLOCK, 1, lam) for lam in SWEEP_BCD_LAMBDAS],
+                    feats, Dataset.of(Y))
+            else:
+                refs = [BlockLeastSquaresEstimator(MNIST_BLOCK, 1, lam).fit(feats, Dataset.of(Y))
+                        for lam in SWEEP_BCD_LAMBDAS]
+            ref_seconds = clock() - t1
+        equal = []
+        for m, ref in zip(res, refs):
+            (mapper,) = [op for op in m.fitted.graph.operators.values()
+                         if isinstance(op, BlockLinearMapper)]
+            equal.append(torch.equal(mapper._W, ref._W) and (
+                mapper.b is ref.b is None or torch.equal(mapper.b, ref.b)))
+        sweeps["warm" if warm else "cold"] = {
+            "seconds": sweep_seconds, "optimize_seconds": probe.seconds.get(
+                "RuleExecutor.execute:apply", 0.0),
+            "reference_seconds": ref_seconds, "featurized_full_size": log.featurized,
+            "stats": res.stats, "fits": sweep_fits, "members_equal_reference": equal}
+        del res, refs, feats, featurizer, log
+    finish(name, t0, {"num_ffts": MNIST_FULL_FFTS, "rows": int(X.shape[0]),
+                      "lambdas": SWEEP_BCD_LAMBDAS, "sweeps": sweeps})
+    cold, warm_ = sweeps["cold"], sweeps["warm"]
+    for kind, sw in sweeps.items():
+        check(sw["featurized_full_size"] == 1,
+              f"{kind} sweep featurized the fit data {sw['featurized_full_size']} times")
+        check(all(sw["members_equal_reference"]),
+              f"{kind} sweep members differ from their reference fits: "
+              f"{sw['members_equal_reference']}")
+    check(cold["stats"]["warm_starts"] == 0 and cold["stats"]["groups"] == 0
+          and sorted(f["block_steps"] for f in cold["fits"][:3]) == [MNIST_FULL_STEPS] * 3
+          and not any(f["warm"] for f in cold["fits"][:3]),
+          f"the cold sweep's fits: {cold['fits']}, stats {cold['stats']}")
+    check(warm_["stats"]["warm_starts"] == 2 and warm_["stats"]["groups"] == 1,
+          f"the warm sweep's stats {warm_['stats']}")
+    del X, Y, mtrain
+
+    # -- sweep_timit: six λ of one 4096-wide cosine branch from one Gram --
+    name, t0 = start("sweep_timit")
+    tconf = timit.TimitConfig()
+    train = timit.synthetic_timit(TIMIT_ROWS, tconf.num_classes, seed=1)
+    X = train.data.to_array().to(dev, torch.float32)
+    Y = ClassLabelIndicators(tconf.num_classes).forward(train.labels.to_array().to(dev))
+    prefix = timit._cosine_branch(tconf, 0, dev).to_pipeline()
+    t1 = clock()
+    res = GridSweep(prefix, lambda lam: LinearMapEstimator(lam=lam),
+                    {"lam": list(SWEEP_TIMIT_LAMBDAS)}, X, Y).fit()
+    sweep_seconds = clock() - t1
+    devs, ind_seconds = {}, []
+    for m in res:
+        lam = m.params["lam"]
+        t1 = clock()
+        ind = prefix.and_then(LinearMapEstimator(lam=lam, snapshot=True), X, Y).fit()
+        ind_seconds.append(clock() - t1)
+        (W,) = [op.W for op in m.fitted.graph.operators.values() if isinstance(op, LinearMapper)]
+        (Wi,) = [op.W for op in ind.graph.operators.values() if isinstance(op, LinearMapper)]
+        devs[lam] = ((W - Wi).abs().max() / Wi.abs().max()).item()
+    finish(name, t0, {"rows": TIMIT_ROWS, "d": tconf.cosine_features, "k": tconf.num_classes,
+                      "lambdas": SWEEP_TIMIT_LAMBDAS, "stats": res.stats,
+                      "sweep_seconds": sweep_seconds, "independent_fit_seconds": ind_seconds,
+                      "independent_total_seconds": sum(ind_seconds),
+                      "rel_dev_from_independent": devs, "limit": SWEEP_TIMIT_LIMIT})
+    check(res.stats["gram_reuse_solves"] == len(SWEEP_TIMIT_LAMBDAS),
+          f"the TIMIT sweep's stats {res.stats}")
+    check(all(v <= SWEEP_TIMIT_LIMIT for v in devs.values()),
+          f"TIMIT sweep members against independent fits: {devs}")
+    del X, Y, res, prefix, train
+    launches.update(zero)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2576,7 +3079,7 @@ def main() -> int:
     # -- each kernel against its plain version, on the card --------------
     gen = torch.Generator(device=dev).manual_seed(0)
     max_err = 0.0
-    for n, d, b in CHECK_SHAPES:
+    for n, d, b in CHECK_SHAPES + PROFILER_SHAPES:
         X = torch.randn(n, d, device=dev, generator=gen)
         Xb = torch.randn(b, d, device=dev, generator=gen)
         got = gk.gaussian_kernel_block(X, Xb, GAMMA)
@@ -2586,7 +3089,8 @@ def main() -> int:
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
         max_err = max(max_err, err)
         emit({"phase": "kernel_check", "kernel": "gaussian_kernel_block",
-              "shape": [n, d, b], "max_abs_err": err, "atol": 1e-5, "rtol": 1e-4})
+              "shape": [n, d, b], "max_abs_err": err, "atol": 1e-5, "rtol": 1e-4,
+              **({"role": "auto-cache profiler"} if (n, d, b) in PROFILER_SHAPES else {})})
         del X, Xb, got, want
     # rows 132 B apart starting 4 B past a 16-byte edge, as a row slice passes them
     X = torch.randn(2001, 33, device=dev, generator=gen)[1:]
@@ -2633,7 +3137,9 @@ def main() -> int:
     timings = {}
     for label, (n, d, b) in (("fit", FIT_SHAPE), ("apply", APPLY_SHAPE),
                              ("chunk", CHUNK_SHAPE), ("exact_block", EXACT_SHAPES[0]),
-                             ("exact_tail", EXACT_SHAPES[1])):
+                             ("exact_tail", EXACT_SHAPES[1]),
+                             ("profiler_fit", PROFILER_SHAPES[2]),
+                             ("profiler_apply", PROFILER_SHAPES[5])):
         X = torch.randn(max(n, FIT_SHAPE[0]), d, device=dev, generator=gen)
         Xq, Xb = X[:n], X[2 * b:3 * b]
         row = {}
@@ -2738,6 +3244,8 @@ def main() -> int:
     t0 = clock()
     eager = scores.apply(Xt).to_array()
     secs["eager_apply"] = clock() - t0
+    # the default optimizer's run, for the auto-cached and traced runs
+    slice_ref = {"predictions": eager.argmax(dim=1).cpu(), "seconds": out["seconds"]}
     captures = []
     scores.compile(on_trace=captures.append)
     results, k1 = {}, {}
@@ -2884,8 +3392,10 @@ def main() -> int:
     Xm = torch.from_numpy(Xm_host).to(dev)
     secs = {}
     t0 = clock()
-    fitted.apply(Xm)
+    eager_m = fitted.apply(Xm)
     secs["eager_apply"] = clock() - t0
+    mnist_ref = {"predictions": eager_m.to_array().cpu(), "seconds": out["seconds"]}
+    del eager_m
     fitted.compile()
     for name in ("chunked_first_call", "chunked_replay"):
         t0 = clock()
@@ -2956,6 +3466,7 @@ def main() -> int:
     ooc_k1 = out_of_core_phases(dev, card)
     weighted_k1 = weighted_out_of_core_phases(dev, card)
     resumable_k1 = mnist_device_phases(dev, card)
+    observe_k1 = observe_phases(cli, dev, card, slice_ref, mnist_ref)
     card_tests()
 
     emit({"phase": "total", "seconds": time.perf_counter() - started, "card": card})
@@ -2970,7 +3481,8 @@ def main() -> int:
         "launches_by_path": {"slice": launches, "compiled_cifar": compiled_launches,
                              "krr_family": krr_launches, "timit_full_width": timit_k1,
                              "cifar_family": cifar_family_k1, "voc": voc_k1, **imagenet_k1,
-                             **text_k1, **ooc_k1, **weighted_k1, **resumable_k1},
+                             **text_k1, **ooc_k1, **weighted_k1, **resumable_k1,
+                             **observe_k1},
     }]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -33,7 +33,9 @@ failure falls back to another path: it raises. A producer's exception
 includes a ``BaseException`` (an injected ``ReplicaKilled``): it too ends
 the scan in the consumer after the chunks queued before it. Each staging
 copy fires the ``scan.stage`` fault point first and retries transient
-failures from the scan's one budget (``faults/retry.py``).
+failures from the scan's one budget (``faults/retry.py``). With a tracer
+installed, a pipelined scan records its counters as one ``scan.pipeline``
+span when it shuts down (``obs/scan.py``).
 
 Knobs: ``KEYSTONE_SCAN_PIPELINE=0`` is the kill switch (a serial scan in
 the calling thread, with the same copies and steps); ``KEYSTONE_SCAN_DEPTH``
@@ -372,6 +374,9 @@ class ScanPipeline:
         if self._shard_source is not None:
             self.stats.shards = int(self._shard_source.shards)
             self.stats.shard_chunks = list(self._shard_source.shard_chunks)
+        from ..obs.scan import record_scan_span
+
+        record_scan_span(self.stats)
 
     def __del__(self):
         try:

@@ -118,8 +118,9 @@ class Convolver(Transformer):
         if self.conv_size ** 2 * img_channels != self.filters.shape[1]:
             raise ValueError("filters must be square patches")
         S, C, K = self.conv_size, img_channels, self.filters.shape[0]
-        # weight[k, c, px, py] from the row layout c + px*C + py*C*S
-        self.weight = (
+        # conv_weight[k, c, px, py] from the row layout c + px*C + py*C*S;
+        # not ``weight``, which a cache planner reads as passes over the input
+        self.conv_weight = (
             self.filters.reshape(K, S, S, C).permute(0, 3, 2, 1).contiguous()
         )
 
@@ -127,7 +128,7 @@ class Convolver(Transformer):
         S, C = self.conv_size, self.img_channels
         m = S * S * C
         Xc = X.float().permute(0, 3, 1, 2)  # NCHW view, H≡x, W≡y
-        conv = F.conv2d(Xc, self.weight)  # (n, K, resX, resY)
+        conv = F.conv2d(Xc, self.conv_weight)  # (n, K, resX, resY)
         if self.normalize_patches:
             # window moments summed over S×S and the channels
             p_sum = F.avg_pool2d(Xc, S, stride=1, divisor_override=1).sum(

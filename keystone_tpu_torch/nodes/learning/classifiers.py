@@ -204,7 +204,11 @@ class LeastSquaresEstimator(LabelEstimator, AutoSolverFrontDoor, CostModel, Opti
     ``fit`` makes it from the data's shape.
 
     The cluster weights are the reference's fitted constants. The number
-    of machines is ``num_machines`` or 1: the port runs on one card."""
+    of machines is ``num_machines`` or 1: the port runs on one card. With a
+    profile store configured (``KEYSTONE_PROFILE_DIR``), the chooser turns
+    units into predicted seconds from the learned per-class throughput of
+    traced fits (``cost/model.py``), and a chunked input leaves only the
+    solvers with a streaming fit."""
 
     def __init__(self, lam: float = 0.0, num_machines: Optional[int] = None,
                  cpu_weight: float = 3.8e-4, mem_weight: float = 2.9e-1,

@@ -81,14 +81,16 @@ class AutoSolverFrontDoor:
     def shape_from_samples(self, samples, num_items: int, chunked: bool = False):
         return dense_shape_from_samples(samples, num_items, self.num_machines or 1, chunked)
 
-    def choose_solver(self, shape):
+    def choose_solver(self, shape, node_id=None):
         """The chooser's :class:`~keystone_tpu_torch.cost.SolverChoice`
-        (pricing table included) over the options for ``shape``."""
+        (pricing table included) over the options for ``shape``; with a
+        profile store the prices are learned seconds (``cost/model.py``).
+        ``node_id`` names the DAG node in the trace's estimate rows."""
         from ...cost import SolverChooser
 
         return SolverChooser().choose(
             self.options, shape, self.cpu_weight, self.mem_weight, self.network_weight,
-            owner_label=type(self).__name__,
+            node_id=node_id, owner_label=type(self).__name__,
         )
 
     def sample_optimize(self, samples, num_items: int, chunked: bool = False):

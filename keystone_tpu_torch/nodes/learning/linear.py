@@ -22,7 +22,7 @@ fits through :class:`~keystone_tpu_torch.linalg.accumulators.GramSolverState`
 saved block, bit for bit. Each of the three has the λ-grid hooks of a
 sweep: ``grid_family`` (the key under which members fit as a group) and
 ``fit_lambda_grid`` (one Gram or one R for every λ; BCD warm-starts each λ
-from the one before).
+from the one before, or fits each cold with ``warm_start=False``).
 """
 
 from __future__ import annotations
@@ -261,18 +261,20 @@ class BlockLeastSquaresEstimator(LabelEstimator, CostModel):
 
     @staticmethod
     def fit_lambda_grid(estimators: Sequence["BlockLeastSquaresEstimator"], data,
-                        labels) -> List["BlockLinearMapper"]:
-        """A λ grid of BCD members in ascending λ, each warm-started from the
-        model of the λ before it (BCD is iterative: a warm start descends
-        the same objective from elsewhere). A chunked input fits each
-        member cold."""
+                        labels, warm_start: bool = True) -> List["BlockLinearMapper"]:
+        """A λ grid of BCD members in ascending λ. With ``warm_start`` each
+        member starts from the model of the λ before it (BCD is iterative:
+        a warm start descends the same objective from elsewhere, so its
+        iterates are not a cold fit's); without it each member fits cold,
+        as its own fit would. A chunked input fits each member cold.
+        ``GridSweep`` passes its own ``warm_start`` (default False)."""
         order = sorted(range(len(estimators)), key=lambda i: estimators[i].lam or 0.0)
-        chunked = getattr(data, "is_chunked", False)
+        warm = warm_start and not getattr(data, "is_chunked", False)
         models: List[Optional[BlockLinearMapper]] = [None] * len(estimators)
         prev: Optional[BlockLinearMapper] = None
         for i in order:
             est = copy.copy(estimators[i])
-            est.warm_start_ws = list(prev.xs) if prev is not None and not chunked else None
+            est.warm_start_ws = list(prev.xs) if warm and prev is not None else None
             models[i] = prev = est.fit(data, labels)
         return models
 

@@ -1,0 +1,56 @@
+"""Pipeline tracing and per-node profiling (port of the core of
+``keystone_tpu/obs/``).
+
+A :class:`~keystone_tpu_torch.obs.tracer.Tracer` collects a span tree
+across the graph executor's pulls, the auto-cache planner and the
+cost-model chooser; ``export`` writes it as Chrome-trace JSON in the JAX
+package's schema with a plain-text top-N summary, and ``audit`` joins the
+planner's estimates with what each node was observed to cost.
+
+Enable with ``KEYSTONE_TRACE=/path/trace.json`` (or the CLI's ``--trace
+PATH``); off, every instrumentation point is one ``current() is None``
+check. The serving half of the JAX package's ``obs/`` (flight recorder,
+Prometheus export, ledger, resource sampling, trace contexts) comes with
+the serving tier.
+"""
+
+from .audit import cache_audit, log_cache_audit, observed_by_node
+from .export import format_top_spans, to_chrome_trace, write_chrome_trace
+from .scan import SCAN_SPAN, record_scan_span
+from .span import Span, cheap_nbytes, sync_value
+from .tracer import (
+    Tracer,
+    current,
+    export,
+    install,
+    install_if_absent,
+    reset,
+    start,
+    stop,
+    suspended,
+    uninstall,
+)
+
+__all__ = [
+    "SCAN_SPAN",
+    "Span",
+    "Tracer",
+    "cache_audit",
+    "cheap_nbytes",
+    "current",
+    "export",
+    "format_top_spans",
+    "install",
+    "install_if_absent",
+    "log_cache_audit",
+    "observed_by_node",
+    "record_scan_span",
+    "reset",
+    "start",
+    "stop",
+    "suspended",
+    "sync_value",
+    "to_chrome_trace",
+    "uninstall",
+    "write_chrome_trace",
+]

@@ -3,7 +3,7 @@
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled with
 ``nvcc`` for ``sm_90a`` into ``keystone_tpu_torch/_build/`` under a name
 that carries a hash of the source, so an edited source is rebuilt and an
-unchanged one is loaded as it is. A failed build raises.
+unchanged one is loaded as it is. A failed build raises :class:`KernelError`.
 """
 
 from __future__ import annotations
@@ -25,6 +25,10 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
+class KernelError(RuntimeError):
+    """A kernel of the port failed to build, to set up or to launch."""
+
+
 _LOADED: Dict[str, ctypes.CDLL] = {}
 #: name -> {"seconds": build time (0.0 when found built), "log": nvcc stderr}
 BUILD_INFO: Dict[str, dict] = {}
@@ -38,7 +42,7 @@ def _nvcc() -> str:
     candidate = os.path.join(cuda_home, "bin", "nvcc")
     if os.path.exists(candidate):
         return candidate
-    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    raise KernelError("nvcc not found: the CUDA kernels cannot be built")
 
 
 def build(name: str) -> Path:
@@ -60,7 +64,7 @@ def build(name: str) -> Path:
     )
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
+        raise KernelError(f"nvcc failed on {src}:\n{proc.stderr}")
     os.replace(tmp, lib)
     BUILD_INFO[name] = {
         "seconds": time.perf_counter() - t0, "log": proc.stderr,

@@ -83,7 +83,7 @@ def _check(lib: ctypes.CDLL, err: int, what: str) -> None:
     """Raise on a nonzero error code from ``lib``."""
     if err != 0:
         msg = lib.keystone_cuda_error_string(err).decode()
-        raise RuntimeError(f"gaussian_kernel_block {what} failed: {msg} ({err})")
+        raise _build.KernelError(f"gaussian_kernel_block {what} failed: {msg} ({err})")
 
 
 def gaussian_kernel_block(X: torch.Tensor, Xb: torch.Tensor,

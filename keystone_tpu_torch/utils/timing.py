@@ -76,10 +76,14 @@ def record(name: str, seconds: float) -> None:
 
 
 def reset() -> None:
-    """Clear the phase totals: a fresh measurement epoch."""
+    """Clear the phase totals and the periodic-log rate limits
+    (``utils/obs.every``): a fresh measurement epoch."""
     with _lock:
         _totals.clear()
         _counts.clear()
+    from . import obs
+
+    obs.reset_rate_limits()
 
 
 def snapshot(prefix: Optional[str] = None) -> Dict[str, Dict[str, float]]:

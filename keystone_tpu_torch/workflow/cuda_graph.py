@@ -27,6 +27,10 @@ are captured; estimators bound the fused groups, and no fit is captured.
 The K1 kernel's wrapper counts no launch while it is being captured
 (``ops/gaussian_kernel.py``): each graph records how many it holds, and
 each replay adds that many to ``gaussian_kernel_block.launches``.
+
+Each capture counts as one compile for the tracer (``obs/tracer.py``), in
+the ``compiles`` of every span open around it: the counterpart of the
+JAX package's XLA compile count.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 
 from ..data.dataset import map_leaves
+from ..obs.tracer import count_compile
 from ..ops import gaussian_kernel
 
 #: one capture at a time in the process: a capture from one thread while
@@ -97,6 +102,7 @@ class GraphCache:
             entry = self._graphs.get(sig)
             if entry is None:
                 entry = self._graphs[sig] = self._capture(xs)
+                count_compile()
                 if self._on_capture is not None:
                     self._on_capture(sig)
             for dst, src in zip(leaves(entry.inputs), leaves(xs)):

@@ -23,9 +23,9 @@ class VersionedState(Dict[Prefix, Expression]):
     """The prefix → saved-expression table, with a mutation counter.
 
     ``SavedStateLoadRule`` bakes state values into optimized graphs, so
-    a cache of optimized plans (the JAX package's optimize memo, not
-    ported yet) keys on this version: any mutation here — a fit saving
-    a prefix, a test clearing the table — invalidates every plan."""
+    the optimize memo (``optimizers.py``) keys on this version: any
+    mutation here — a fit saving a prefix, a test clearing the table —
+    invalidates every plan."""
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
@@ -83,6 +83,11 @@ class PipelineEnv:
 
             self._optimizer = DefaultOptimizer()
         return self._optimizer
+
+    def set_optimizer(self, optimizer: "Optimizer") -> None:
+        """Use ``optimizer`` (such as ``AutoCachingOptimizer``) for every
+        graph optimized from now on, until ``reset``."""
+        self._optimizer = optimizer
 
     def reset(self) -> None:
         self.state.clear()

@@ -8,10 +8,15 @@ one expression per node. Results of saveable prefixes (annotated by the
 optimizer) are written into the global :class:`PipelineEnv` state so later
 executions skip the work entirely.
 
-Every node's result is retained for the executor's life, the JAX
-package's default when no auto-cache plan is present: a graph's results
-live as long as the executor that computed them, so an owner that keeps
-an executor past its use (``Pipeline._fit``) releases its state itself.
+Retention: by default every node's result is retained for the
+executor's life, so a graph's results live as long as the executor that
+computed them, and an owner that keeps an executor past its use
+(``Pipeline.fit``) releases its state itself. Once the auto-cache rule has
+planned the graph (the ``autocache_active`` annotation), only Cacher,
+data-leaf, saved-state and fitted-estimator results outlive a pull; every
+other intermediate is shared within its pull (a diamond computes once)
+and recomputed by the next, as an unpersisted RDD in the reference, so the
+cache budget bounds what stays resident.
 
 Concurrency: the recursive pull builds the expression web serially, and
 when the pending work has width (two or more nodes ready at once), the
@@ -29,7 +34,17 @@ producing a chunk, so forcing a branch on the pool builds its chain and
 runs none of its scan; the chunks are produced when a consumer (an
 estimator's streaming fit, ``to_array``) scans them.
 
-Not ported: segment dispatch and trace spans.
+Tracing (``obs/``): with a tracer installed, a node's span opens when its
+thunk is first forced, so the upstream thunks it forces nest as child
+spans, and closes after waiting for the card's work on its result
+(``sync_seconds``, ``output_bytes``). An eager leaf records a finished
+span; a memoized result returned records a ``hit`` instant. A node forced
+by the scheduler carries ``queue_wait_seconds`` (ready to started) and
+``worker``, and nests under the pull that armed it. Off, the cost is one
+``None`` check a node.
+
+Not ported: the JAX package's compiled-segment dispatch (the compile
+plane).
 """
 
 from __future__ import annotations
@@ -37,13 +52,16 @@ from __future__ import annotations
 import heapq
 import os
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional
 
+from ..obs.tracer import current as _trace_current
 from ..utils import env_flag, env_int
 from .env import PipelineEnv
 from .expressions import Expression
 from .graph import Graph, GraphId, NodeId, SinkId, SourceId
+from .operators import DatasetOperator, DatumOperator, EstimatorOperator, ExpressionOperator
 from .rules import Annotations
 
 
@@ -56,6 +74,11 @@ def exec_workers() -> int:
     """Worker-pool width of a scheduled pull: ``KEYSTONE_EXEC_WORKERS``,
     default ``min(8, cpu)``."""
     return env_int("KEYSTONE_EXEC_WORKERS", min(8, os.cpu_count() or 1))
+
+
+#: per-thread scheduler task context: the worker forcing a node publishes
+#: its queue wait and name here, for the node's span to pick up
+_TASK_CTX = threading.local()
 
 
 class GraphExecutor:
@@ -89,6 +112,21 @@ class GraphExecutor:
                 self._optimized = self._input_graph
         return self._optimized
 
+    def _retain(self, graph: Graph, graph_id: NodeId) -> bool:
+        """Whether this node's result stays resident across pulls: all of
+        them by default; under an auto-cache plan only Cacher, data-leaf,
+        saved-state and fitted-estimator results. Concurrency widens no
+        retention (a scheduled pull shares its transient table and drops
+        it at the pull's end), but the transient peak can grow by up to
+        the worker count, which ``KEYSTONE_EXEC_WORKERS`` bounds."""
+        from ..nodes.util.core import Cacher
+        from .autocache import AUTOCACHE_ACTIVE
+
+        if not self._annotations.get(AUTOCACHE_ACTIVE):
+            return True
+        return isinstance(graph.get_operator(graph_id), (
+            Cacher, DatasetOperator, DatumOperator, EstimatorOperator, ExpressionOperator))
+
     def _use_parallel(self) -> bool:
         if self._parallel is not None:
             return self._parallel
@@ -97,27 +135,45 @@ class GraphExecutor:
     def execute(self, graph_id: GraphId) -> Expression:
         with self._build_lock:
             built: Dict[NodeId, Expression] = {}
-            expr = self._execute(graph_id, built)
+            expr = self._execute(graph_id, {}, built)
             if self._use_parallel():
                 self._arm_concurrent(expr, built)
         return expr
 
-    def _execute(self, graph_id: GraphId, built: Dict[NodeId, Expression]) -> Expression:
+    def _execute(self, graph_id: GraphId, transient: Dict[NodeId, Expression],
+                 built: Dict[NodeId, Expression]) -> Expression:
         graph = self.graph  # optimize before anything runs
         if isinstance(graph_id, SourceId):
             raise ValueError(f"cannot execute unconnected {graph_id}")
         if isinstance(graph_id, SinkId):
-            return self._execute(graph.get_sink_dependency(graph_id), built)
+            return self._execute(graph.get_sink_dependency(graph_id), transient, built)
+        tracer = _trace_current()
         expr = self._state.get(graph_id)
         if expr is not None:
             built.setdefault(graph_id, expr)
+            if tracer is not None:
+                _trace_hit(tracer, graph, graph_id, "state")
             return expr
-        deps = [self._execute(d, built) for d in graph.get_dependencies(graph_id)]
-        expr = graph.get_operator(graph_id).execute(deps)
+        expr = transient.get(graph_id)
+        if expr is not None:
+            if tracer is not None:
+                _trace_hit(tracer, graph, graph_id, "transient")
+            return expr
+        deps = [self._execute(d, transient, built) for d in graph.get_dependencies(graph_id)]
+        op = graph.get_operator(graph_id)
+        retained = self._retain(graph, graph_id)
+        if tracer is None:
+            expr = op.execute(deps)
+        else:
+            expr = _traced_execute(tracer, graph_id, op, deps, retained)
         # every node of this pull, dependencies first: the scheduler's
         # topological order comes straight from it
         built[graph_id] = expr
-        self._state[graph_id] = expr
+        if retained:
+            self._state[graph_id] = expr
+        else:
+            # shared within this pull (diamonds compute once), dropped after
+            transient[graph_id] = expr
         prefix = self._annotations.get(graph_id)
         if prefix is not None:
             PipelineEnv.get_or_create().state[prefix] = expr
@@ -181,6 +237,55 @@ class GraphExecutor:
         root_expr._sched_armed = True
 
 
+def _trace_hit(tracer, graph: Graph, graph_id: NodeId, store: str) -> None:
+    """A memoized result was returned instead of recomputed."""
+    op = graph.get_operator(graph_id)
+    tracer.instant(f"node.{op.label}", node_id=str(graph_id.id), op_type=type(op).__name__,
+                   cache="hit", store=store)
+
+
+def _traced_execute(tracer, graph_id: NodeId, op, deps, retained: bool) -> Expression:
+    """The node's expression with its evaluation wrapped in a span. The
+    span opens when ``get()`` first forces the node, so the upstream
+    thunks forced inside it become its children; it closes after waiting
+    for the card's work on the result."""
+    from ..obs.span import Span, cheap_nbytes
+
+    name = f"node.{op.label}"
+    op_type = type(op).__name__
+    node_id = str(graph_id.id)
+    t0 = time.perf_counter()
+    expr = op.execute(deps)
+    if expr.computed:
+        # an eager leaf (data, saved state): its work happened above
+        tracer.record_complete(Span(
+            name=name, start=t0, end=time.perf_counter(), node_id=node_id, op_type=op_type,
+            cache="miss", output_bytes=cheap_nbytes(expr.get()),
+            attrs={"retained": retained, "eager": True},
+        ))
+        return expr
+
+    def wrap(thunk):
+        def traced_thunk():
+            extra = {}
+            if getattr(_TASK_CTX, "node_id", None) == node_id:
+                # consumed once: a nested pull inside this thunk may reuse
+                # the id string (ids count per graph)
+                _TASK_CTX.node_id = None
+                extra = {"queue_wait_seconds": round(_TASK_CTX.queue_wait, 6),
+                         "worker": _TASK_CTX.worker}
+            with tracer.span(name, node_id=node_id, op_type=op_type, cache="miss",
+                             retained=retained, **extra) as sp:
+                value = thunk()
+                sp.sync_on(value)
+            return value
+
+        return traced_thunk
+
+    expr.map_thunk(wrap)
+    return expr
+
+
 def _force_scheduled(
     exprs: Dict[NodeId, Expression],
     deps_of: Dict[NodeId, List[NodeId]],
@@ -194,20 +299,34 @@ def _force_scheduled(
     remaining = [n for n, e in exprs.items() if not e.computed]
     if not remaining:
         return
+    tracer = _trace_current()
+    parent = tracer.current_span() if tracer is not None else None
     in_remaining = set(remaining)
     indeg = {n: sum(1 for d in deps_of[n] if d in in_remaining) for n in remaining}
-    ready = [(topo[n], n) for n in remaining if indeg[n] == 0]
+    now = time.perf_counter()
+    # an entry carries the instant its node became ready: the queue wait is
+    # ready to started, time parked here while the workers are busy included
+    ready = [(topo[n], n, now) for n in remaining if indeg[n] == 0]
     heapq.heapify(ready)
     cond = threading.Condition()
     state = {"pending": len(remaining), "inflight": 0}
     failures: List[BaseException] = []
 
-    def run_one(node: NodeId, expr: Expression) -> None:
+    def run_one(node: NodeId, expr: Expression, ready_since: float) -> None:
         err: Optional[BaseException] = None
+        _TASK_CTX.node_id = str(node.id)
+        _TASK_CTX.queue_wait = time.perf_counter() - ready_since
+        _TASK_CTX.worker = threading.current_thread().name
         try:
-            expr.get()
+            if tracer is not None:
+                with tracer.adopt(parent):
+                    expr.get()
+            else:
+                expr.get()
         except BaseException as e:  # noqa: BLE001 — must reach the caller
             err = e
+        finally:
+            _TASK_CTX.node_id = None
         with cond:
             state["inflight"] -= 1
             if err is not None:
@@ -218,11 +337,12 @@ def _force_scheduled(
                 # so a result frees after its last consumer, as in the
                 # serial pull
                 exprs.pop(node, None)
+                t_ready = time.perf_counter()
                 for c in children[node]:
                     if c in indeg:
                         indeg[c] -= 1
                         if indeg[c] == 0:
-                            heapq.heappush(ready, (topo[c], c))
+                            heapq.heappush(ready, (topo[c], c, t_ready))
             cond.notify_all()
 
     # one pool per pull: a process-wide bounded pool would deadlock when a
@@ -233,9 +353,9 @@ def _force_scheduled(
         with cond:
             while state["pending"] and not failures:
                 while ready and state["inflight"] < workers and not failures:
-                    _, node = heapq.heappop(ready)
+                    _, node, since = heapq.heappop(ready)
                     state["inflight"] += 1
-                    pool.submit(run_one, node, exprs[node])
+                    pool.submit(run_one, node, exprs[node], since)
                 if state["pending"] and not failures:
                     cond.wait()
             while state["inflight"]:

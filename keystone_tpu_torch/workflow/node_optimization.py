@@ -1,20 +1,25 @@
-"""Node-level implementation choice driven by data samples (port of
-``keystone_tpu/workflow/node_optimization.py`` on its path without a
-profile store; parity: ``workflow/NodeOptimizationRule.scala``,
-``OptimizableNodes.scala``).
+"""Node-level implementation choice driven by data samples and profiles
+(port of ``keystone_tpu/workflow/node_optimization.py``; parity:
+``workflow/NodeOptimizationRule.scala``, ``OptimizableNodes.scala``).
 
 An ``Optimizable`` node (such as the auto-solver ``KernelRidgeEstimator``)
 looks at a small sample of its input and the full dataset size and
 returns the operator to run. The rule runs the graph on sampled leaf
 datasets to produce those samples, then swaps the operators in place.
+
 Nodes with the cost-model protocol (``shape_from_samples`` and
-``choose_solver``) are planned through the solver chooser.
+``choose_solver``) are planned through the solver chooser. When a profile
+store is configured and holds this pipeline's solver shape from a previous
+traced run, the rule plans without running the sampled graph at all (the
+zero-sampling second fit). Either way the decision (shape, choice,
+pricing) goes into the pending re-plan, so the fit's observed cost feeds
+the store (``cost/replan.py``).
 """
 
 from __future__ import annotations
 
 import logging
-from typing import Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 from ..data.dataset import Dataset
 from . import analysis
@@ -35,8 +40,9 @@ class Optimizable:
     ``sample_optimize(samples, num_items)`` receives one sampled ``Dataset``
     per dependency and the full input size, and returns the replacement
     operator. Nodes that also implement ``shape_from_samples(samples,
-    num_items, chunked=...)`` and ``choose_solver(shape)`` are
-    planned through the cost-model chooser."""
+    num_items, chunked=...)`` and ``choose_solver(shape, node_id=...)``
+    are planned through the cost-model chooser, and can skip sampling on
+    stored evidence."""
 
     def sample_optimize(self, samples: Sequence[Dataset], num_items: int) -> Operator:
         raise NotImplementedError
@@ -101,7 +107,17 @@ class NodeOptimizationRule(Rule):
             return graph, annotations
 
         from .. import cost as cost_mod
+        from ..cost.replan import topo_node_index
 
+        store = cost_mod.get_store()
+        fp: Optional[str] = None
+        index: Dict[NodeId, int] = {}
+        if store is not None:
+            fp = cost_mod.graph_fingerprint(graph)
+            index = topo_node_index(graph)
+
+        # built on first use: a run planned from evidence pays not even the
+        # truncated graph's construction
         executor = None
 
         def sampled_deps(node: NodeId):
@@ -126,8 +142,8 @@ class NodeOptimizationRule(Rule):
             # choice itself propagates
             try:
                 if cost_protocol:
-                    chosen = self._choose_with_cost_model(op, graph, node, num_items,
-                                                          sampled_deps)
+                    chosen = self._choose_with_cost_model(op, graph, node, num_items, store, fp,
+                                                          index.get(node), sampled_deps)
                 else:
                     chosen = op.sample_optimize(sampled_deps(node), num_items)
             except _SamplingFailed as e:
@@ -139,9 +155,42 @@ class NodeOptimizationRule(Rule):
         return graph, annotations
 
     @staticmethod
-    def _choose_with_cost_model(op, graph: Graph, node: NodeId, num_items: int, sampled_deps):
-        """Plan one cost-protocol node from its sampled shape, ``chunked``
-        when its data input is out-of-core."""
-        shape = op.shape_from_samples(sampled_deps(node), num_items,
-                                      chunked=_chunked_input(graph, node))
-        return op.choose_solver(shape).chosen
+    def _choose_with_cost_model(op, graph: Graph, node: NodeId, num_items: int, store,
+                                fp: Optional[str], node_idx: Optional[int], sampled_deps):
+        """Plan one cost-protocol node: from the stored shape when the
+        profile store has seen this pipeline (no sampling), else from its
+        sampled shape (``chunked`` when its data input is out-of-core);
+        the choice goes through the chooser and into the pending re-plan."""
+        import dataclasses
+
+        from .. import cost as cost_mod
+        from ..cost import replan as cost_replan
+
+        chunked = _chunked_input(graph, node)
+        shape = None
+        source = "sampled"
+        if store is not None and fp is not None and node_idx is not None:
+            stored = cost_replan.stored_solver_shape(store, fp, node_idx)
+            if stored is not None:
+                # n, chunkedness and machines come from this run (the data
+                # may have grown); d, k and sparsity are the evidence
+                shape = dataclasses.replace(
+                    stored, n=int(num_items) or stored.n, chunked=chunked,
+                    machines=int(getattr(op, "num_machines", None) or 1))
+                source = "profiles"
+                logger.info("node optimization: %s planned from stored profile (no sampling)",
+                            op.label)
+        if shape is None:
+            shape = op.shape_from_samples(sampled_deps(node), num_items, chunked=chunked)
+        choice = op.choose_solver(shape, node_id=str(node.id))
+        plan = cost_mod.current_plan()
+        # the first deposit wins: the outer fit's optimizer runs before any
+        # estimator, so a nested fit must not overwrite the plan observed
+        if plan is not None and plan.solver is None and fp is not None and node_idx is not None:
+            units = choice.costs.get(choice.label, {}).get("units")
+            plan.solver = {
+                "fp": fp, "node_idx": int(node_idx), "node_id": str(node.id),
+                "shape": shape.to_record(), "chosen": choice.label,
+                "units": float(units) if units is not None else 0.0, "source": source,
+            }
+        return choice.chosen

@@ -24,14 +24,24 @@ The incremental refit of the out-of-core tier is ported too:
 ``FittedPipeline.absorb`` folds appended chunks, featurized through the
 frozen prefix, into a snapshot fit's solver state and solves again, and
 ``prefix_features`` runs data through that prefix; ``absorb(checkpoint=)``
-resumes a killed absorb from its last saved block. Left out, each with its
-own later item of work: the static checker (``check``, ``_static_check``),
-``fit_instrumentation`` (tracing and the cost-model loop) and the AOT cache
-of ``compile``.
+resumes a killed absorb from its last saved block.
+
+Every fit runs under :func:`fit_instrumentation`, the observe-and-learn
+loop: a ``pipeline.fit`` root span when a tracer is installed, and with a
+profile store configured a fit-local tracer and a pending re-plan, joined
+with the fit's observed per-node costs afterwards (``cost/replan.py``), so
+the next fit of the pipeline plans with zero sampling executions. A pull
+(``pipeline.pull``), an apply (``pipeline.apply``) and an absorb
+(``pipeline.absorb``) record their spans under a tracer.
+
+Left out, each with its own later item of work: the static checker
+(``check``, ``_static_check``, ``to_dot``) and the AOT cache of
+``compile``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import logging
 import time
@@ -42,6 +52,7 @@ import torch
 
 from ..check import lattice
 from ..data.dataset import Dataset, map_leaves
+from ..obs.tracer import current as _trace_current
 from . import analysis
 from .cuda_graph import GraphCache, dtype_name
 from .env import PipelineEnv
@@ -124,7 +135,15 @@ class PipelineResult:
         return self._executor.execute(self._sink)
 
     def get(self) -> Any:
-        return self.expression().get()
+        tracer = _trace_current()
+        if tracer is None:
+            return self.expression().get()
+        # the pull's root: every node span of it nests here, the scheduler
+        # workers' too (Tracer.adopt)
+        with tracer.span("pipeline.pull", op_type=type(self).__name__) as sp:
+            value = self.expression().get()
+            sp.sync_on(value)
+        return value
 
 
 class PipelineDataset(PipelineResult):
@@ -140,8 +159,70 @@ class PipelineDatum(PipelineResult):
 
 
 # ---------------------------------------------------------------------------
+# Fit instrumentation: the tracer and the cost-model loop around a fit
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def fit_instrumentation(op_type: str, span_name: str = "pipeline.fit"):
+    """The observe-and-learn wrapper every fit runs under: a root span, and
+    with a profile store configured a pending re-plan joined with the
+    fit's observed per-node costs afterwards. Shared by
+    :meth:`Pipeline.fit` and :class:`~keystone_tpu_torch.sweep.GridSweep`,
+    whose merged graph earns its own plan records through this loop."""
+    from .. import cost as cost_mod
+    from ..obs import tracer as obs_tracer_mod
+
+    store = cost_mod.get_store()
+    tracer = _trace_current()
+    own_tracer = None
+    if store is not None and tracer is None:
+        # two concurrent fits race for the global slot; the loser does not
+        # learn (joining the winner's tracer would merge both fits' spans
+        # by small-int node id into both records): it fits plain
+        own_tracer = obs_tracer_mod.install_if_absent(obs_tracer_mod.Tracer())
+        tracer = own_tracer
+        if own_tracer is None:
+            store = None
+    try:
+        with cost_mod.pending_plan(store) as plan:
+            if plan is not None and tracer is not None:
+                plan.span_watermark = len(tracer.spans())
+            if tracer is None:
+                yield
+            else:
+                with tracer.span(span_name, op_type=op_type):
+                    yield
+            # after the fit span has closed, every node span is complete
+            cost_mod.finalize(plan, tracer)
+    finally:
+        if own_tracer is not None:
+            obs_tracer_mod.uninstall(own_tracer)
+
+
+# ---------------------------------------------------------------------------
 # Graph-building helpers
 # ---------------------------------------------------------------------------
+
+
+def datum_spec_of(data: Any) -> Optional[tuple]:
+    """The per-item ``(shape, dtype)`` of a batch, when cheaply known: None
+    for lazy results, item lists and chunked scans (a hint, never a reason
+    to materialize anything). The dtype is numpy's spelling."""
+    if isinstance(data, PipelineResult):
+        return None
+    payload = data
+    if isinstance(payload, Dataset):
+        if payload.is_chunked or not payload.is_batched:
+            return None
+        payload = payload.payload
+    shape = getattr(payload, "shape", None)
+    dtype = getattr(payload, "dtype", None)
+    if shape is None or dtype is None or len(shape) < 1:
+        return None
+    if isinstance(dtype, torch.dtype):
+        dtype = dtype_name(dtype)
+    return (tuple(int(d) for d in shape[1:]), str(dtype))
 
 
 def attach_data(graph: Graph, data: Any) -> tuple:
@@ -206,7 +287,12 @@ class Chainable:
                     "and_then(estimator) needs training data: and_then(est, data[, labels])"
                 )
             fitted = nxt.with_data(self(fit_data[0]), *fit_data[1:])
-            return self.to_pipeline()._compose(fitted)
+            composed = self.to_pipeline()._compose(fitted)
+            # fit_data[0] is fed at the chain's source, so its per-item spec
+            # is the datum a fitted chain serves: kept as a hint
+            if composed._datum_hint is None:
+                composed._datum_hint = datum_spec_of(fit_data[0])
+            return composed
         if isinstance(nxt, Chainable):
             if fit_data:
                 raise ValueError("fit data only applies when chaining an estimator")
@@ -232,6 +318,9 @@ class Pipeline(Chainable):
         self._graph = graph
         self._source = source
         self._sink = sink
+        #: the per-item (shape, dtype) of the data the estimators were fed
+        #: at the source (``datum_spec_of``), carried to the fitted pipeline
+        self._datum_hint: Optional[tuple] = None
 
     @property
     def graph(self) -> Graph:
@@ -253,7 +342,9 @@ class Pipeline(Chainable):
         merged, _, sink_map = self._graph.connect_graph(
             nxt._graph, {self._sink: nxt._source}
         )
-        return Pipeline(merged, self._source, sink_map[nxt._sink])
+        composed = Pipeline(merged, self._source, sink_map[nxt._sink])
+        composed._datum_hint = self._datum_hint
+        return composed
 
     # -- application ----------------------------------------------------
 
@@ -277,10 +368,22 @@ class Pipeline(Chainable):
 
         The returned pipeline's ``seconds`` holds the host seconds of the
         rule stack ("optimize"), of forcing each estimator's data
-        dependencies ("featurize"), of each estimator's fit (by class
-        name), and of the rest of this method ("executor": the graph edits
-        and the pull bookkeeping). The card is synchronized at those
-        boundaries only."""
+        dependencies ("featurize"; under an auto-cache plan whose retention
+        would drop them, they are forced inside the estimator's own pull
+        and counted there), of each estimator's fit (by class name), and
+        of the rest of this method ("executor": the graph edits and the
+        pull bookkeeping). The card is synchronized at those boundaries
+        only.
+
+        With a profile store configured (``KEYSTONE_PROFILE_DIR``) the fit
+        closes the cost-model loop (:func:`fit_instrumentation`): the
+        solver choice and cache plan are joined with the fit's observed
+        per-node costs, and the next fit of this pipeline plans from them
+        with zero sampling executions."""
+        with fit_instrumentation(type(self).__name__):
+            return self._fit()
+
+    def _fit(self) -> "FittedPipeline":
         seconds: Dict[str, float] = {}
 
         def add(key: str, dt: float) -> None:
@@ -300,9 +403,14 @@ class Pipeline(Chainable):
                 continue
             est_dep, *data_deps = graph.get_dependencies(node)
             est = graph.get_operator(est_dep) if isinstance(est_dep, NodeId) else None
-            if isinstance(est, EstimatorOperator):
+            est_deps = graph.get_dependencies(est_dep) if est is not None else ()
+            # the data is forced apart (the "featurize" seconds) only where
+            # the executor keeps it for the estimator's pull: under an
+            # auto-cache plan an uncached input would be computed twice
+            if isinstance(est, EstimatorOperator) and all(
+                    executor._retain(graph, d) for d in est_deps if isinstance(d, NodeId)):
                 t0 = clock()
-                for d in graph.get_dependencies(est_dep):
+                for d in est_deps:
                     executor.execute(d).get()
                 t1 = clock()
                 fitted = executor.execute(est_dep).get()
@@ -342,7 +450,10 @@ class Pipeline(Chainable):
                 raise TypeError(f"fit() left a non-transformer operator in the graph: {op.label}")
         spent = sum(seconds.values())
         add("executor", clock() - start - spent)
-        return FittedPipeline(graph, self._source, self._sink, seconds)
+        hint = self._datum_hint
+        return FittedPipeline(graph, self._source, self._sink, seconds,
+                              datum_shape=hint[0] if hint else None,
+                              datum_dtype=hint[1] if hint else None)
 
     # -- combinators ----------------------------------------------------
 
@@ -387,12 +498,21 @@ class FittedPipeline(Chainable):
     estimator was fit on features computed under exactly this partition
     into fused groups, and another partition may sum in another order)."""
 
+    #: the per-item input recorded at fit time, None when not known
+    datum_shape: Optional[tuple] = None
+    datum_dtype: Optional[str] = None
+
     def __init__(self, graph: Graph, source: SourceId, sink: SinkId,
-                 seconds: Optional[Dict[str, float]] = None):
+                 seconds: Optional[Dict[str, float]] = None, *,
+                 datum_shape: Optional[tuple] = None, datum_dtype: Optional[str] = None):
         self._graph = graph
         self._source = source
         self._sink = sink
         self.seconds = dict(seconds or {})
+        if datum_shape is not None:
+            self.datum_shape = tuple(int(d) for d in datum_shape)
+        if datum_dtype is not None:
+            self.datum_dtype = str(datum_dtype)
         self._compiled: Optional[_Compiled] = None
         self._compiled_signatures: List[tuple] = []
 
@@ -401,11 +521,21 @@ class FittedPipeline(Chainable):
         return self._graph
 
     def to_pipeline(self) -> Pipeline:
-        return Pipeline(self._graph, self._source, self._sink)
+        p = Pipeline(self._graph, self._source, self._sink)
+        if self.datum_shape is not None:
+            p._datum_hint = (self.datum_shape, self.datum_dtype)
+        return p
 
     def apply(self, data: Any) -> Dataset:
         graph = _bind_source(self._graph, self._source, attach_data, data)
-        return GraphExecutor(graph, optimize=False).execute(self._sink).get()
+        executor = GraphExecutor(graph, optimize=False)
+        tracer = _trace_current()
+        if tracer is None:
+            return executor.execute(self._sink).get()
+        with tracer.span("pipeline.apply", op_type=type(self).__name__) as sp:
+            value = executor.execute(self._sink).get()
+            sp.sync_on(value)
+        return value
 
     def apply_datum(self, datum: Any) -> Any:
         graph = _bind_source(self._graph, self._source, attach_datum, datum)
@@ -675,17 +805,29 @@ class FittedPipeline(Chainable):
         device = _first_device(mapper) or torch.device("cpu")
         y = Dataset.of(new_labels).to_array().float().to(device)
         state = mapper.solver_state.snapshot()
-        feats = executor.execute(sink).get()
-        ckpt = None
-        if checkpoint is not None and getattr(feats, "is_chunked", False):
-            digest = hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest()[:16]
-            ckpt = FitCheckpoint(checkpoint, checkpoint_key or (
-                f"absorb|base={state.n}|new={len(feats)}|y={tuple(int(s) for s in y.shape)}"
-                f"|ydig={digest}|lam={state.lam}"))
-        state = fold_into(state, feats, y, label="absorb", on_chunk=on_chunk, checkpoint=ckpt,
-                          checkpoint_every=checkpoint_every)
-        return FittedPipeline(self._graph.set_operator(node, state.rebuild_mapper(mapper)),
-                              self._source, self._sink, self.seconds)
+        tracer = _trace_current()
+        with contextlib.ExitStack() as stack:
+            sp = None if tracer is None else stack.enter_context(tracer.span(
+                "pipeline.absorb", op_type=type(self).__name__, prior_rows=int(state.n)))
+            feats = executor.execute(sink).get()
+            ckpt = None
+            if checkpoint is not None and getattr(feats, "is_chunked", False):
+                digest = hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest()[:16]
+                ckpt = FitCheckpoint(checkpoint, checkpoint_key or (
+                    f"absorb|base={state.n}|new={len(feats)}|y={tuple(int(s) for s in y.shape)}"
+                    f"|ydig={digest}|lam={state.lam}"))
+            state = fold_into(state, feats, y, label="absorb", on_chunk=on_chunk,
+                              checkpoint=ckpt, checkpoint_every=checkpoint_every)
+            new_mapper = state.rebuild_mapper(mapper)
+            if sp is not None:
+                sp.attrs["absorbed_rows"] = int(state.rows_folded)
+                sp.attrs["total_rows"] = int(state.n)
+                solved_w = getattr(new_mapper, "W", None)
+                if solved_w is not None:
+                    sp.sync_on(solved_w)
+        return FittedPipeline(self._graph.set_operator(node, new_mapper),
+                              self._source, self._sink, self.seconds,
+                              datum_shape=self.datum_shape, datum_dtype=self.datum_dtype)
 
     # -- persistence ----------------------------------------------------
 

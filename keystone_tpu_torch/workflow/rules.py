@@ -1,5 +1,5 @@
 """Rule-based graph optimizer machinery (port of
-``keystone_tpu/workflow/rules.py``, without its tracer hook).
+``keystone_tpu/workflow/rules.py``).
 
 Parity targets: ``workflow/Rule.scala``, ``RuleExecutor.scala``,
 ``EquivalentNodeMergeRule.scala``, ``UnusedBranchRemovalRule.scala``,
@@ -7,13 +7,14 @@ Parity targets: ``workflow/Rule.scala``, ``RuleExecutor.scala``,
 
 A rule transforms ``(graph, annotations)`` where the annotations carry the
 node → prefix map used for the fit-once state table. Batches of rules run
-either once or to fixpoint.
+either once or to fixpoint. With a tracer installed, each optimizer pass
+opens a new estimate epoch (``Tracer.begin_plan_epoch``).
 """
 
 from __future__ import annotations
 
 import logging
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from . import analysis
@@ -57,6 +58,12 @@ class RuleExecutor:
 
     def execute(self, graph: Graph, annotations: Optional[Annotations] = None
                 ) -> Tuple[Graph, Annotations]:
+        from ..obs import tracer as obs_tracer
+
+        t = obs_tracer.current()
+        if t is not None:
+            # one optimize pass, one estimate epoch (Tracer.record_node_estimate)
+            t.begin_plan_epoch()
         ann = dict(annotations or {})
         for batch in self.batches():
             iteration = 0
@@ -171,13 +178,22 @@ class EquivalentNodeMergeRule(Rule):
                 key = (op_key(graph.get_operator(node)),
                        tuple(graph.get_dependencies(node)))
                 groups.setdefault(key, []).append(node)
-            dups = {k: sorted(v) for k, v in groups.items() if len(v) > 1}
-            if not dups:
+            # each group of equal nodes folds into its smallest id; a pass
+            # merges every group it found with one rebuild of the maps (the
+            # groups are disjoint, and equal dependencies stay equal when
+            # rewritten alike), then the next pass finds the nodes that the
+            # merges made equal
+            merged = {n: nodes[0] for nodes in map(sorted, groups.values())
+                      if len(nodes) > 1 for n in nodes[1:]}
+            if not merged:
                 return graph, annotations
-            # merge one group per pass (dependency keys shift as we edit)
-            nodes = next(iter(dups.values()))
-            keep, rest = nodes[0], nodes[1:]
-            for n in rest:
-                graph = graph.replace_dependency(n, keep)
-                graph = graph.remove_node(n)
+            graph = replace(
+                graph,
+                operators={n: op for n, op in graph.operators.items() if n not in merged},
+                dependencies={n: tuple(merged.get(d, d) for d in deps)
+                              for n, deps in graph.dependencies.items() if n not in merged},
+                sink_dependencies={k: merged.get(d, d)
+                                   for k, d in graph.sink_dependencies.items()},
+            )
+            for n in merged:
                 annotations.pop(n, None)

@@ -394,9 +394,9 @@ def test_node_optimization_plans_a_chunked_input_as_chunked(monkeypatch):
     shapes = []
     orig = LeastSquaresEstimator.choose_solver
 
-    def spy(self, shape):
+    def spy(self, shape, **kw):
         shapes.append(shape)
-        return orig(self, shape)
+        return orig(self, shape, **kw)
 
     monkeypatch.setattr(LeastSquaresEstimator, "choose_solver", spy)
     for data, chunked in ((ChunkedDataset.from_array(A, 64), True), (torch.from_numpy(A), False)):
