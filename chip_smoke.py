@@ -17,7 +17,13 @@ across a fit and the applies, and how long the optimizer took. A fused
 group runs on the card as CUDA-graph replays. Three paths follow each
 application's run: one-program apply of the fitted CIFAR chain
 (``apply_compiled`` on the 10000 test rows and ``apply_chunked``, with
-K1's launches per replay), one-program apply at 200 FFTs (with the
+K1's launches per replay), the same chain served by ``ServingEngine``
+(``serve_cifar``: the 10000 test rows as single-row requests from 16
+client threads into buckets 1 / 8 / 32 / 64, one CUDA graph a bucket, K1
+10 times a batch inside the replays and held against its plain version at
+each bucket's shape; ``serve_swap``: a same-contract swap under traffic,
+and a replacement of another datum width refused), one-program apply at
+200 FFTs (with the
 featurizer's host launches traced eager against captured), and the KRR
 family on 8000 CIFAR features (the cost-model chooser picks the exact
 solve, which builds its kernel from K1 blocks). Then TimitPipeline: a small
@@ -88,8 +94,15 @@ a traced streamed TSQR of the raw TIMIT frames, whose scan spans carry the
 scans' own counters, among the out-of-core phases); GridSweep at 200 FFTs
 over three BCD λ, cold and warm-started, each member bit-equal to its
 reference fit with the 24.6 GB featurizer run once a sweep; and GridSweep
-over six λ of one TIMIT cosine branch, from one Gram. Last, the card
-tests of the scan, the weighted fit, the faults and the tracer, in one
+over six λ of one TIMIT cosine branch, from one Gram. After the MNIST
+phases, the static checker: ``--check`` through the command line for each
+of the twelve applications, every check running no CUDA kernel (a
+``torch.profiler`` trace), allocating nothing, launching no K1 and sampling
+nothing (``check_apps``), and a shape- and a dtype-mismatched ``and_then``
+on card data refused at their nodes before any kernel (``check_rejects``);
+then ``--serve-demo`` at the JAX CLI's defaults (``serve_demo``). Last, the
+card tests of the scan, the weighted fit, the faults, the tracer, the
+checker and the engine, in one
 pytest process.
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card it exits non-zero
@@ -103,6 +116,7 @@ each of which must exceed its limit.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import functools
 import json
@@ -2451,7 +2465,9 @@ BCD_WARM_LIMIT = 1.02  # a warm member's objective against a cold fit's (the JAX
 CARD_TEST_FILES = ("tests/test_torch_cuda_streaming.py",
                    "tests/test_torch_cuda_weighted_streaming.py",
                    "tests/test_torch_cuda_faults.py",
-                   "tests/test_torch_cuda_obs.py")
+                   "tests/test_torch_cuda_obs.py",
+                   "tests/test_torch_cuda_check.py",
+                   "tests/test_torch_cuda_serving.py")
 
 
 def card_tests() -> None:
@@ -3023,6 +3039,317 @@ def observe_phases(cli, dev, card, slice_ref, mnist_ref) -> dict:
     return launches
 
 
+# -- the static checker and the serving engine (slice 15) ------------------
+
+#: the command line's per-item widths at small row counts: a check reads
+#: the symbolic lead dimension, so n does not change the report
+CHECK_APPS = {
+    **{app: ["--nTrain", "256", "--nTest", "64"]
+       for app in ("RandomPatchCifarKernel", "RandomPatchCifar", "LinearPixels", "RandomCifar",
+                   "RandomPatchCifarAugmented")},
+    "MnistRandomFFT": ["--nTrain", "512", "--nTest", "64"],
+    "TimitPipeline": ["--nTrain", "512", "--nTest", "64"],
+    "VOCSIFTFisher": ["--nTrain", "16", "--nTest", "8"],
+    "ImageNetSiftLcsFV": ["--nTrain", "16", "--nTest", "8"],
+    "NewsgroupsPipeline": ["--nTrain", "64", "--nTest", "16"],
+    "AmazonReviewsPipeline": ["--nTrain", "64", "--nTest", "16"],
+    "StupidBackoffPipeline": [],
+}
+SERVE_BUCKETS = (1, 8, 32, 64)
+SERVE_CLIENTS = 16
+SERVE_BLOCKS = 10  # 50000 training rows in blocks of 5000: K1 launches a batch
+SERVE_LIMIT = 1e-5  # a served row's scores against the eager apply's (compiled_cifar's)
+
+
+@contextlib.contextmanager
+def device_quiet():
+    """Counts what runs on the card inside the block: ``seen["kernels"]``
+    (CUDA kernels in a ``torch.profiler`` trace), ``seen["copies"]``
+    (memory copies and sets in it), ``seen["allocated"]``
+    (bytes the caching allocator handed out above what was live),
+    ``seen["k1"]`` (K1 launches counted, and recorded for captures), and
+    ``seen["sampling"]`` (``cost.count_sampling`` executions)."""
+    from keystone_tpu_torch import cost
+    from keystone_tpu_torch.ops import gaussian_kernel as gk
+
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated()
+    k1 = gk.gaussian_kernel_block.launches + gk.captured_launches()
+    sampled = cost.sampling_executions()["total"]
+    torch.cuda.reset_peak_memory_stats()
+    seen = {}
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        yield seen
+        torch.cuda.synchronize()
+    seen["seconds"] = time.perf_counter() - t0
+    on_card = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    copies = [n for n in on_card if n.startswith(("Memcpy", "Memset"))]
+    seen["kernels"] = len(on_card) - len(copies)
+    seen["copies"] = len(copies)
+    seen["kernel_names"] = sorted(Counter(on_card).items(), key=lambda kv: -kv[1])[:5]
+    seen["allocated"] = torch.cuda.max_memory_allocated() - live
+    seen["k1"] = gk.gaussian_kernel_block.launches + gk.captured_launches() - k1
+    seen["sampling"] = cost.sampling_executions()["total"] - sampled
+
+
+def check_phases(cli, dev, card) -> None:
+    """``check_apps``: ``--check`` through the command line for each of the
+    twelve applications; every check (at ``and_then`` and at fit entry)
+    runs no CUDA kernel, allocates nothing on the card, launches no K1 and
+    samples nothing, and each application ends at its first fit with a
+    report. ``check_rejects``: on card data, a shape-mismatched and a
+    dtype-mismatched ``and_then`` raise ``PipelineCheckError`` naming the
+    node, with no kernel run by the composition."""
+    from keystone_tpu_torch import check as check_pkg
+    from keystone_tpu_torch.nodes.learning.linear import LinearMapEstimator, LinearMapper
+    from keystone_tpu_torch.nodes.stats import RandomSignNode
+
+    real_check_graph = check_pkg.check_graph
+    calls = []
+
+    def watched(*args, **kwargs):
+        with device_quiet() as seen:
+            report = real_check_graph(*args, **kwargs)
+        calls.append(dict(seen, nodes=len(report.order)))
+        return report
+
+    apps = {}
+    t_all = time.perf_counter()
+    check_pkg.check_graph = watched
+    try:
+        for app, args in CHECK_APPS.items():
+            fresh_env()
+            calls.clear()
+            device = [] if app == "StupidBackoffPipeline" else ["--device", str(dev)]
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(open(os.devnull, "w")):
+                out = cli.run([app, *device, *args, "--check"])
+            report = out.get("check_report")
+            apps[app] = {"seconds": time.perf_counter() - t0,
+                         "checks": [{k: c[k] for k in ("seconds", "nodes", "kernels", "copies",
+                                                       "allocated", "k1", "sampling")}
+                                    for c in calls],
+                         "summary": None if report is None else report.summary()}
+            check(isinstance(report, check_pkg.CheckReport), f"{app}: no check report")
+            for c in calls:
+                check(c["kernels"] == 0 and c["copies"] == 0 and c["allocated"] == 0
+                      and c["k1"] == 0 and c["sampling"] == 0,
+                      f"{app}: a check ran on the card: {c}")
+    finally:
+        check_pkg.check_graph = real_check_graph
+    emit({"phase": "check_apps", "apps": apps, "seconds": time.perf_counter() - t_all,
+          "card": card})
+
+    # -- compositions refused on card data, before any kernel ------------
+    fresh_env()
+    gen = torch.Generator(device=dev).manual_seed(15)
+    X = torch.randn(256, 100, device=dev, generator=gen)  # 100 wide: the signs are 784
+    X64 = torch.randn(256, 784, device=dev, generator=gen, dtype=torch.float64)
+    Y = torch.randn(256, 10, device=dev, generator=gen)
+    signs = RandomSignNode.create(784, seed=0, device=dev)
+    mapper = LinearMapper(torch.randn(784, 32, device=dev, generator=gen))  # float32 weights
+    rejects = {}
+    for name, head, data in (("shape", signs, X), ("dtype", mapper, X64)):
+        with device_quiet() as seen:
+            try:
+                head.and_then(LinearMapEstimator(lam=1.0), data, Y)
+                err = None
+            except check_pkg.PipelineCheckError as e:
+                err = e
+        rejects[name] = {"raised": err is not None, "node": str(getattr(err, "node", None)),
+                         "label": getattr(err, "label", None), "message": str(err)[:300],
+                         "kernels": seen["kernels"], "copies": seen["copies"], "k1": seen["k1"]}
+    emit({"phase": "check_rejects", "rejects": rejects, "card": card})
+    check(rejects["shape"]["raised"] and rejects["shape"]["label"] == "RandomSignNode",
+          f"the shape mismatch was not refused at its node: {rejects['shape']}")
+    check(rejects["dtype"]["raised"] and rejects["dtype"]["label"] == "LinearMapper",
+          f"the dtype mismatch was not refused at its node: {rejects['dtype']}")
+    check(all(r["kernels"] == 0 and r["k1"] == 0 for r in rejects.values()),
+          f"a refused composition ran kernels: {rejects}")
+
+
+def serve_phases(dev, card, scores, X_host, eager) -> dict:
+    """``serve_cifar``: the fitted RandomPatchCifarKernel chain ending in
+    the scores served by ``ServingEngine(buckets=(1, 8, 32, 64))`` from the
+    contract the fit recorded, every one of the ``X_host`` rows a single-row
+    request from 16 client threads; each answer within 1e-5 of ``eager``
+    (the whole-set apply) and every argmax equal, one capture a bucket and
+    none under traffic, K1 launched 10 times a batch, and K1 held against
+    its plain version at (b, 800, 5000) for each bucket b. ``serve_swap``:
+    a same-contract swap under traffic recaptures every bucket and serves
+    on; a replacement of another datum width raises
+    ``ContractMismatchError``. Returns the K1 launches of each."""
+    import numpy as np
+
+    from keystone_tpu_torch.check import ContractMismatchError
+    from keystone_tpu_torch.nodes.learning.kernel import KernelBlockLinearMapper
+    from keystone_tpu_torch.ops import gaussian_kernel as gk
+    from keystone_tpu_torch.serving import ServingEngine
+    from keystone_tpu_torch.utils import timing
+    from keystone_tpu_torch.workflow.pipeline import FittedPipeline, clock
+
+    mapper = next(op for op in scores.graph.operators.values()
+                  if isinstance(op, KernelBlockLinearMapper))
+    train_X = mapper.train_X
+    gen = torch.Generator(device=dev).manual_seed(16)
+    # K1 at each bucket's shape, against its plain version, timed beside
+    # its bound and the library call (launches here are not the path's)
+    kernel_rows = {}
+    for b in SERVE_BUCKETS:
+        Xq = torch.randn(b, train_X.shape[1], device=dev, generator=gen)
+        Xb = train_X[:mapper.block_size]
+        got = gk.gaussian_kernel_block(Xq, Xb, mapper.gamma)
+        want = gk.gaussian_kernel_block_plain(Xq, Xb, mapper.gamma)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+        row = {}
+        for _ in range(2):
+            row.setdefault("plain_ms", []).append(
+                time_ms(lambda: gk.gaussian_kernel_block_plain(Xq, Xb, mapper.gamma), reps=50))
+            row.setdefault("ms", []).append(
+                time_ms(lambda: gk.gaussian_kernel_block(Xq, Xb, mapper.gamma), reps=50))
+            row.setdefault("library_ms", []).append(time_ms(
+                lambda: torch.exp(-mapper.gamma * torch.cdist(Xq, Xb).square()), reps=50))
+        n, d, bb = b, int(Xq.shape[1]), int(Xb.shape[0])
+        kernel_rows[b] = dict({k: min(v) for k, v in row.items()}, **gaussian_bound_ms(n, d, bb),
+                              shape=[n, d, bb], max_abs_err=err)
+        kernel_rows[b]["share_of_bound"] = kernel_rows[b]["bound_ms"] / kernel_rows[b]["ms"]
+        emit(dict({"phase": "kernel_time", "kernel": "gaussian_kernel_block",
+                   "main_path_role": f"serve_bucket_{b}", "atol": 1e-5, "rtol": 1e-4,
+                   "card": card}, **kernel_rows[b], all_runs=row))
+    del Xq, Xb, got, want
+
+    launches = {}
+    engine = ServingEngine(scores, buckets=SERVE_BUCKETS)
+    try:
+        buckets_used = Counter()
+        bucket_for = engine.policy.bucket_for
+
+        def counted(n):
+            b = bucket_for(n)
+            buckets_used[b] += 1
+            return b
+
+        engine.policy.bucket_for = counted
+        timing.reset()
+        t0 = clock()
+        engine.start()
+        start_seconds = clock() - t0
+        compiles_at_start = engine.metrics.count("compiles")
+        gk.gaussian_kernel_block.launches = 0
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(max_workers=SERVE_CLIENTS) as pool:
+            rows = list(pool.map(lambda r: engine.predict(r, timeout=600.0), X_host))
+        wall = time.perf_counter() - t0
+        launches["serve_cifar"] = gk.gaussian_kernel_block.launches
+        snap = engine.metrics.snapshot()
+        served = torch.from_numpy(np.stack(rows))
+        dev_max = (served - eager.cpu()).abs().max().item()
+        preds_equal = bool(torch.equal(served.argmax(1), eager.cpu().argmax(1)))
+        c = snap["counters"]
+        emit({"phase": "serve_cifar", "requests": len(X_host), "clients": SERVE_CLIENTS,
+              "buckets": list(SERVE_BUCKETS), "answered": len(rows),
+              "completed": c.get("completed", 0), "compiles": c.get("compiles", 0),
+              "compiles_at_start": compiles_at_start, "start_seconds": start_seconds,
+              "batches": c.get("batches", 0), "bucket_histogram": dict(sorted(buckets_used.items())),
+              "k1_launches": launches["serve_cifar"], "k1_launches_per_batch": SERVE_BLOCKS,
+              "max_abs_dev_from_apply": dev_max, "limit": SERVE_LIMIT,
+              "predictions_equal": preds_equal, "wall_seconds": wall,
+              "requests_per_second": len(X_host) / wall,
+              "latency_s": snap["latency"], "queue_age_s": snap["queue_age"],
+              "occupancy": snap["batch_occupancy"]["ratio"],
+              # the worker's seconds a batch: the copy in, the replay, the
+              # copy out (host clock; the copy out waits for the card)
+              "serve_batch_phase": snap["phases"].get("serve.batch"),
+              "datum_contract": [list(engine.policy.datum_shape), str(engine.policy.dtype)],
+              "kernel_at_buckets": {b: {k: r[k] for k in ("ms", "bound_ms", "share_of_bound",
+                                                          "plain_ms", "library_ms", "max_abs_err")}
+                                    for b, r in kernel_rows.items()},
+              "card": card})
+        check(len(rows) == len(X_host) == c.get("completed", 0),
+              f"{c.get('completed', 0)} of {len(X_host)} requests answered")
+        check(dev_max <= SERVE_LIMIT, f"served scores {dev_max} off the eager apply")
+        check(preds_equal, "served predictions differ from the eager apply's")
+        check(compiles_at_start == c.get("compiles") == len(SERVE_BUCKETS),
+              f"captures {compiles_at_start} at start, {c.get('compiles')} after traffic")
+        check(launches["serve_cifar"] == SERVE_BLOCKS * c.get("batches", 0),
+              f"K1 launched {launches['serve_cifar']} times in {c.get('batches')} batches")
+
+        # -- a same-contract swap under traffic, then another width -------
+        gk.gaussian_kernel_block.launches = 0
+        stop = threading.Event()
+        answers = []
+
+        def hammer():
+            while not stop.is_set():
+                answers.append(engine.predict(X_host[len(answers) % 64], timeout=600.0))
+
+        t0 = clock()
+        with concurrent.futures.ThreadPoolExecutor(max_workers=4) as pool:
+            workers = [pool.submit(hammer) for _ in range(4)]
+            replacement = FittedPipeline(scores.graph, scores._source, scores._sink,
+                                         datum_shape=scores.datum_shape,
+                                         datum_dtype=scores.datum_dtype)
+            warmed = engine.swap(replacement)
+            after = np.stack([engine.predict(r, timeout=600.0) for r in X_host[:64]])
+            stop.set()
+            for w in workers:
+                w.result(timeout=600)
+        swap_seconds = clock() - t0
+        launches["serve_swap"] = gk.gaussian_kernel_block.launches
+        swap_dev = (torch.from_numpy(after) - eager[:64].cpu()).abs().max().item()
+        # the kernel model alone, a valid chain whose datum is the 800-wide
+        # features, not the images the engine serves
+        head = mapper.to_pipeline()
+        narrow = FittedPipeline(head.graph, head.source, head.sink,
+                                datum_shape=(int(train_X.shape[1]),), datum_dtype="float32")
+        try:
+            engine.swap(narrow)
+            refused = None
+        except ContractMismatchError as e:
+            refused = e
+        c = engine.metrics.snapshot()["counters"]
+        emit({"phase": "serve_swap", "buckets_warmed": warmed, "compiles": c.get("compiles"),
+              "swaps": c.get("swaps"), "answers_during_swap": len(answers),
+              "max_abs_dev_after_swap": swap_dev, "k1_launches": launches["serve_swap"],
+              "seconds": swap_seconds,
+              "other_width": {"raised": refused is not None,
+                              "label": getattr(refused, "label", None),
+                              "message": str(refused)[:300]},
+              "card": card})
+        check(warmed == len(SERVE_BUCKETS) and c.get("compiles") == 2 * len(SERVE_BUCKETS),
+              f"the swap warmed {warmed}, compiles {c.get('compiles')}")
+        check(swap_dev <= SERVE_LIMIT, f"after the swap the scores are {swap_dev} off")
+        check(refused is not None and refused.label == "source",
+              f"a replacement of another width was not refused: {refused}")
+    finally:
+        engine.shutdown(drain=False)
+    return launches
+
+
+def serve_demo_phase(cli, card) -> None:
+    """``serve_demo``: ``--serve-demo`` at the JAX CLI's defaults on the
+    card: every answer equal to the pipeline's own apply, and one capture
+    for each of its two buckets."""
+    import io
+    import re
+
+    fresh_env()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["--serve-demo"])
+    out = buf.getvalue()
+    line = next((ln for ln in out.splitlines() if ln.startswith("SERVE ok=")), "")
+    ok = re.match(r"SERVE ok=(\d+)/(\d+) compiles=(\d+)", line)
+    emit({"phase": "serve_demo", "returncode": rc, "line": line,
+          "seconds": time.perf_counter() - t0, "card": card})
+    check(rc == 0 and "SERVE PASS" in out and ok is not None and ok[1] == ok[2]
+          and int(ok[3]) == 2, f"--serve-demo: {out[-2000:]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3275,6 +3602,9 @@ def main() -> int:
           f"signatures {scores.compiled_signatures}")
     compiled_launches = sum(k1.values())
 
+    # -- the serving engine on the fitted chain (slice 15) ---------------
+    serve_launches = serve_phases(dev, card, scores, Xt_host, eager)
+
     # -- the KRR family on 8000 of the fit's features: the chooser picks
     # the exact solve, whose kernel is two K1 column blocks ------------
     mapper = next(op for op in scores.graph.operators.values()
@@ -3457,6 +3787,8 @@ def main() -> int:
           "compose_seconds": t1 - t0, "optimize_seconds": runs, "card": card})
     del pipe, X, Y
 
+    check_phases(cli, dev, card)
+    serve_demo_phase(cli, card)
     timit_k1 = timit_phases(cli, dev, card)
     ls_family_phase(dev, card)
     cifar_family_k1 = cifar_family_phases(cli, dev, card)
@@ -3479,6 +3811,7 @@ def main() -> int:
         "plain_ms": fit["plain_ms"], "bound_ms": fit["bound_ms"],
         "bound_by": fit["bound_by"], "library_ms": fit["library_ms"],
         "launches_by_path": {"slice": launches, "compiled_cifar": compiled_launches,
+                             **serve_launches,
                              "krr_family": krr_launches, "timit_full_width": timit_k1,
                              "cifar_family": cifar_family_k1, "voc": voc_k1, **imagenet_k1,
                              **text_k1, **ooc_k1, **weighted_k1, **resumable_k1,

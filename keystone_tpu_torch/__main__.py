@@ -8,13 +8,23 @@ AmazonReviewsPipeline and StupidBackoffPipeline. Each runs on CUDA unless
 ``--device cpu`` is given, but StupidBackoffPipeline, whose language model
 is host numpy.
 
-Two flags of the JAX CLI apply to every application: ``--trace PATH``
+Three flags of the JAX CLI apply to every application: ``--trace PATH``
 records a per-node trace and writes it as Chrome-trace JSON to ``PATH``
-when the application ends, failed or not (also ``KEYSTONE_TRACE``), and
+when the application ends, failed or not (also ``KEYSTONE_TRACE``);
 ``--profiles DIR`` keeps the operator-profile store in ``DIR``, from which
 the second fit of a pipeline plans its solver choice and caching with zero
-sampling executions (also ``KEYSTONE_PROFILE_DIR``). The JAX CLI's
-``--check``, ``--aot-cache`` and demo modes come with their modules.
+sampling executions (also ``KEYSTONE_PROFILE_DIR``); and ``--check`` builds
+the application, runs the static checker at its first fit's entry, prints
+the report and ``CHECK OK: ...`` and exits 0 without fitting (a proven
+defect raises ``PipelineCheckError``). On the command line ``--log LEVEL``
+(``--logLevel``) and ``--profile`` set logging and phase profiling, as in
+the JAX CLI.
+
+``python -m keystone_tpu_torch --serve-demo [--device cpu] [flags]`` fits
+the small MnistRandomFFT pipeline and serves synthetic traffic through
+``ServingEngine`` (``serving/demo.py``). The JAX CLI's ``--aot-cache``,
+``--sweep-demo`` and ``--trainer-demo`` come with the compile plane, the
+sweep demo and the trainer.
 """
 
 from __future__ import annotations
@@ -59,11 +69,14 @@ def _app(argv):
     return PIPELINES[argv[0]]
 
 
-def _observed(entry, argv, configure_all: bool):
-    """``entry(argv)`` with ``--trace`` and ``--profiles`` taken out of
-    ``argv`` and applied, the trace written at the end either way. With
-    ``configure_all`` (the command line) logging and phase profiling are
-    set up too; a caller of :func:`run` keeps its own."""
+def _observed(entry, argv, configure_all: bool, checked):
+    """``entry(argv)`` with ``--trace``, ``--profiles`` and ``--check`` taken
+    out of ``argv`` and applied, the trace written at the end either way.
+    With ``configure_all`` (the command line) logging and phase profiling
+    are set up too; a caller of :func:`run` keeps its own. Under
+    ``--check`` the first fit stops at its static check: the report's
+    summary is printed and ``checked(report)`` returned."""
+    from . import check as check_mod
     from . import cost
     from .obs import tracer as obs_tracer
     from .utils.obs import configure, export_trace
@@ -71,35 +84,59 @@ def _observed(entry, argv, configure_all: bool):
     flags = argparse.ArgumentParser(add_help=False, allow_abbrev=False)
     flags.add_argument("--trace", default=None, metavar="PATH")
     flags.add_argument("--profiles", default=None, metavar="DIR")
+    flags.add_argument("--check", action="store_true", dest="check_only")
+    flags.add_argument("--log", "--logLevel", dest="log_level", default=None,
+                       choices=["debug", "info", "warning", "error"])
+    flags.add_argument("--profile", action="store_true")
     args, rest = flags.parse_known_args(argv)
     # the application's own --device keys the profile store's environment
     device = argparse.ArgumentParser(add_help=False, allow_abbrev=False)
     device.add_argument("--device", default=None)
     device = device.parse_known_args(rest)[0].device
     if configure_all:
-        configure(trace=args.trace, profiles=args.profiles, device=device)
+        configure(args.log_level, profile=args.profile or None, trace=args.trace,
+                  profiles=args.profiles, device=device)
     else:
         if args.trace:
             obs_tracer.start(path=args.trace)
         if args.profiles is not None:
             cost.configure(args.profiles, device=device)
+    if args.check_only:
+        check_mod.set_check_only(True)
     try:
         return entry(rest)
+    except check_mod.CheckOnlyExit as e:
+        if not args.check_only:
+            raise
+        s = e.report.summary()
+        print(f"CHECK OK: {s['nodes']} nodes, {s['segments']} segment(s), "
+              f"{s['barriers']} barrier(s), 0 executions", flush=True)
+        return checked(e.report)
     finally:
+        if args.check_only:
+            # an in-process caller's later fits must not stop at a check
+            check_mod.set_check_only(False)
         export_trace()
 
 
 def run(argv) -> dict:
-    """Run an application and return its result dict. Only ``--trace`` and
-    ``--profiles`` are configured here: logging and phase profiling stay
-    the caller's."""
+    """Run an application and return its result dict (under ``--check``,
+    ``{"check_report": report}``). Only ``--trace``, ``--profiles`` and
+    ``--check`` are configured here: logging and phase profiling stay the
+    caller's."""
     argv = list(argv)
-    return _observed(_app(argv)[0], argv, configure_all=False)
+    return _observed(_app(argv)[0], argv, configure_all=False,
+                     checked=lambda report: {"check_report": report})
 
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    return _observed(_app(argv)[1], argv, configure_all=True)
+    if "--serve-demo" in argv:
+        from .serving.demo import main as serve_demo_main
+
+        argv.remove("--serve-demo")
+        return _observed(serve_demo_main, argv, configure_all=True, checked=lambda _: 0)
+    return _observed(_app(argv)[1], argv, configure_all=True, checked=lambda _: 0)
 
 
 if __name__ == "__main__":

@@ -203,6 +203,10 @@ class ChunkedDataset(Dataset):
         #: without producing the others, for the indexable sources: the
         #: resume hook (step 1) and the sharded producer's (step N)
         self._skip_factory: Optional[Callable[..., Iterator[Any]]] = None
+        #: the per-item ``(shape, dtype)`` of the source's chunks when a
+        #: constructor can see it (``from_array``), read by the static
+        #: checker without producing a chunk; None after ``map_batch``
+        self._item_spec: Optional[tuple] = None
 
     # ---- constructors ---------------------------------------------------
 
@@ -220,6 +224,10 @@ class ChunkedDataset(Dataset):
 
         ds = ChunkedDataset(lambda: from_chunk(0), n, label=f"array[{n}]")
         ds._skip_factory = from_chunk
+        dtype = getattr(arr, "dtype", None)
+        if dtype is not None:
+            dtype = str(dtype).replace("torch.", "")
+            ds._item_spec = (tuple(int(d) for d in arr.shape[1:]), dtype)
         return ds
 
     @staticmethod
@@ -247,6 +255,12 @@ class ChunkedDataset(Dataset):
     @property
     def is_chunked(self) -> bool:
         return True
+
+    @property
+    def item_spec(self) -> Optional[tuple]:
+        """The per-item ``(shape, dtype)`` known without producing a chunk,
+        or None."""
+        return getattr(self, "_item_spec", None)
 
     def __len__(self) -> int:
         return self._num_rows

@@ -13,7 +13,6 @@ then the ring histograms angle-major; descriptor index x_idx · rw + y_idx.
 
 from __future__ import annotations
 
-import functools
 import math
 from typing import List, Sequence, Tuple
 
@@ -21,12 +20,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ...utils.constants import device_constant
 from ...workflow.transformer import Transformer
 
 
-@functools.lru_cache(maxsize=None)
+@device_constant
 def _taps(values: Tuple[float, ...], dtype: torch.dtype, device: str) -> torch.Tensor:
-    return torch.tensor(values, dtype=dtype, device=device)
+    # built on the host and moved, so under the static checker's fake
+    # tensors the move is abstract too (a tensor built on the card from host
+    # data would be copied there for real)
+    return torch.tensor(values, dtype=dtype).to(device)
 
 
 def _sep_conv_same(X: torch.Tensor, xf: Sequence[float], yf: Sequence[float]) -> torch.Tensor:
@@ -43,7 +46,7 @@ def _sep_conv_same(X: torch.Tensor, xf: Sequence[float], yf: Sequence[float]) ->
     return out[:, 0]
 
 
-@functools.lru_cache(maxsize=None)
+@device_constant
 def _grid_index(start: int, stop: int, step: int, offset: int, size: int,
                 device: str) -> torch.Tensor:
     """Grid positions ``range(start, stop, step) + offset`` clipped to the

@@ -15,7 +15,6 @@ index y + x · (numYCells − 2).
 
 from __future__ import annotations
 
-import functools
 import math
 from typing import List, Tuple
 
@@ -23,6 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ...utils.constants import device_constant
 from ...workflow.transformer import Transformer
 
 _EPS = 1e-4
@@ -36,7 +36,7 @@ def _cells(size: int, bin_size: int) -> int:
     return int(math.floor(size / bin_size + 0.5))
 
 
-@functools.lru_cache(maxsize=None)
+@device_constant
 def _corners(n_x: int, n_y: int, bin_size: int,
              device: str) -> List[Tuple[torch.Tensor, torch.Tensor]]:
     """For each of the four bilinear corners: the flat cell index of every
@@ -63,10 +63,11 @@ def _corners(n_x: int, n_y: int, bin_size: int,
     return out
 
 
-@functools.lru_cache(maxsize=None)
+@device_constant
 def _directions(device: str) -> Tuple[torch.Tensor, torch.Tensor]:
-    return (torch.tensor(_UU, dtype=torch.float32, device=device),
-            torch.tensor(_VV, dtype=torch.float32, device=device))
+    # built on the host and moved (see daisy.py's ``_taps``)
+    return (torch.tensor(_UU, dtype=torch.float32).to(device),
+            torch.tensor(_VV, dtype=torch.float32).to(device))
 
 
 class HogExtractor(Transformer):

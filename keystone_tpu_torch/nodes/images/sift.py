@@ -22,7 +22,6 @@ device, outside any CUDA graph capture.
 
 from __future__ import annotations
 
-import functools
 import math
 from typing import List, Tuple
 
@@ -30,6 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ...utils.constants import device_constant
 from ...workflow.transformer import Transformer
 
 _NBP = 4      # spatial bins per side
@@ -47,7 +47,7 @@ def _gaussian_kernel1d(sigma: float) -> np.ndarray:
     return (k / k.sum()).astype(np.float32)
 
 
-@functools.lru_cache(maxsize=None)
+@device_constant
 def _kernel(sigma: float, device: str) -> torch.Tensor:
     return torch.from_numpy(_gaussian_kernel1d(sigma)).to(device)
 
@@ -118,7 +118,7 @@ def num_descriptors(xd: int, yd: int, bin_size: int = 4, step: int = 3,
     return total
 
 
-@functools.lru_cache(maxsize=None)
+@device_constant
 def _bin_indices(xd: int, yd: int, bin_size: int, step: int, device: str):
     """For each of the 16 bins in (j, i) order, the clipped (x, y) rows of
     the pooled maps that bin reads, on ``device``."""

@@ -54,6 +54,17 @@ def dense_shape_from_samples(samples, num_items: int, machines: int,
     return ShapeSignature(n=int(n), d=d, k=k, chunked=bool(chunked), machines=int(machines))
 
 
+def label_dim_fitted_out_spec(fit_in, apply_in):
+    """The ``fitted_out_spec`` of the label-estimator solver families
+    (``check/abstract.py``): the fitted mapper sends a feature vector to one
+    score per label column, so the output's item spec is the labels' item
+    shape, in float32. None when the labels' spec is unknown."""
+    labels = fit_in[1] if len(fit_in) > 1 else None
+    if not isinstance(labels, tuple) or len(labels) != 2 or not isinstance(labels[1], str):
+        return None
+    return (tuple(labels[0]), "float32")
+
+
 class AutoSolverFrontDoor:
     """The cost-model front door of an auto-selecting estimator family: an
     ``options`` list of interchangeable solvers, selection through
@@ -63,6 +74,9 @@ class AutoSolverFrontDoor:
     A subclass ``__init__`` sets ``self.options``, ``self.default`` and
     ``self.num_machines`` and calls :meth:`_init_chooser_weights`. ``cost``
     prices the front door as its cheapest option."""
+
+    def fitted_out_spec(self, fit_in, apply_in):
+        return label_dim_fitted_out_spec(fit_in, apply_in)
 
     def _init_chooser_weights(self, cpu_weight, mem_weight, network_weight):
         self.cpu_weight = DEFAULT_CPU_WEIGHT if cpu_weight is None else cpu_weight

@@ -46,7 +46,7 @@ from ...linalg.bcd import (
 )
 from ...linalg.normal_equations import solve_centered, solve_least_squares_streaming
 from ...workflow.transformer import LabelEstimator, Transformer
-from .cost import CostModel, combine_cost
+from .cost import CostModel, combine_cost, label_dim_fitted_out_spec
 
 
 class LinearMapper(Transformer):
@@ -130,6 +130,9 @@ class LinearMapEstimator(LabelEstimator, CostModel):
         self.snapshot = snapshot
         self.checkpoint = checkpoint
         self.checkpoint_every = checkpoint_every
+
+    def fitted_out_spec(self, fit_in, apply_in):
+        return label_dim_fitted_out_spec(fit_in, apply_in)
 
     def grid_family(self):
         """Members of a sweep whose key matches fit as a group; λ is the
@@ -255,6 +258,9 @@ class BlockLeastSquaresEstimator(LabelEstimator, CostModel):
         #: per-block starting weights for the next fit (a λ grid's warm
         #: start from its neighbour's model), used and cleared by ``fit``
         self.warm_start_ws: Optional[Sequence[torch.Tensor]] = None
+
+    def fitted_out_spec(self, fit_in, apply_in):
+        return label_dim_fitted_out_spec(fit_in, apply_in)
 
     def grid_family(self):
         return ("bcd", self.block_size, self.num_iter, self.num_features)
@@ -390,6 +396,9 @@ class TSQRLeastSquaresEstimator(LabelEstimator, CostModel):
         self.lam = lam
         self.checkpoint = checkpoint
         self.checkpoint_every = checkpoint_every
+
+    def fitted_out_spec(self, fit_in, apply_in):
+        return label_dim_fitted_out_spec(fit_in, apply_in)
 
     def grid_family(self):
         return ("tsqr", self.checkpoint)

@@ -184,6 +184,10 @@ class StandardScaler(Estimator):
         self.normalize_std_dev = normalize_std_dev
         self.eps = eps
 
+    def fitted_out_spec(self, fit_in, apply_in):
+        # the fitted model is (x − mean) / std: it keeps the spec
+        return apply_in[0] if apply_in else None
+
     def fit(self, data: Dataset) -> StandardScalerModel:
         data = Dataset.of(data)
         if data.is_chunked:

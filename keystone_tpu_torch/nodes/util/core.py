@@ -44,6 +44,11 @@ class MultiClassLabelIndicators(Transformer):
         out[np.asarray(labels, dtype=np.int64)] = 1.0
         return torch.from_numpy(out)
 
+    def out_spec(self, labels_spec=None):
+        # a per-item host node, so not abstractly evaluable, but the
+        # output's spec is fixed by construction (``check/abstract.py``)
+        return ((self.num_classes,), "float32")
+
 
 class MaxClassifier(Transformer):
     """argmax over the score vector; ties go to the first maximum, as
@@ -100,6 +105,19 @@ class VectorSplitter(Transformer):
     def forward(self, X: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         return self.split_batch(X)
 
+    def out_spec(self, in_spec=None):
+        # the blocks follow from the input width; an unknown input stays
+        # unknown (the checker never guesses)
+        if in_spec is None:
+            return None
+        shape, dtype = in_spec
+        if not shape:
+            raise ValueError("VectorSplitter needs a feature axis")
+        d = self.num_features or int(shape[-1])
+        lead = tuple(shape[:-1])
+        return tuple((lead + (min(self.block_size, d - i),), dtype)
+                     for i in range(0, d, self.block_size))
+
 
 class Cacher(Transformer):
     """Materialize and hold the upstream result. Inside a fused group it is
@@ -126,6 +144,9 @@ class Shuffler(Transformer):
 
     def __init__(self, seed: int = 42):
         self.seed = seed
+
+    def out_spec(self, in_spec=None):
+        return in_spec  # a permutation keeps the spec
 
     def apply(self, x):
         return x

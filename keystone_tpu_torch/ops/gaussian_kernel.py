@@ -20,7 +20,9 @@ every 32 of d) with the norms, clamp and exp in its epilogue.
   only and counts its launches in ``gaussian_kernel_block.launches``. A
   call made while this thread captures a CUDA graph launches nothing: it
   is counted in :func:`captured_launches`, and whoever replays the graph
-  adds that many to ``launches`` at each replay.
+  adds that many to ``launches`` at each replay. Its abstract form: on
+  fake tensors (the static checker's ``FakeTensorMode``) it returns an
+  empty (n, b) float32 fake tensor and counts nothing.
 * :func:`gaussian_kernel_block_plain` is the same function in plain
   PyTorch (port of ``_gaussian_block_xla``, FP32 with TF32 off): what CPU
   tensors run, and the reference the kernel is held against on the card.
@@ -35,6 +37,7 @@ import ctypes
 import threading
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from . import _build
 
@@ -106,7 +109,9 @@ def gaussian_kernel_block(X: torch.Tensor, Xb: torch.Tensor,
     if max(n, b) > _MAX_ROWS:
         raise ValueError(f"n = {n}, b = {b}: the kernel takes at most {_MAX_ROWS} rows")
     out = torch.empty((n, b), dtype=torch.float32, device=X.device)
-    if n == 0 or b == 0:
+    if n == 0 or b == 0 or is_fake(X) or is_fake(Xb):
+        # a fake tensor (the static checker's abstract evaluation) carries
+        # no data: the block's shape is the answer, and nothing launches
         return out
     lib = _lib()
     with torch.cuda.device(X.device):

@@ -23,16 +23,20 @@ from ..nodes.nlp import (
     StupidBackoffModel,
     Tokenizer,
     WordFrequencyEncoder,
+    WordFrequencyTransformer,
 )
 
 
 def train_language_model(lines, n: int = 3) -> StupidBackoffModel:
     """Raw text lines → a fitted StupidBackoffModel over frequency-encoded
     word ids."""
-    tok = Tokenizer()
-    text = Dataset.from_items([tok.apply(line) for line in lines])
-    frequency_encode = WordFrequencyEncoder().fit(text)
-    encoded = Dataset.from_items([frequency_encode.apply(doc) for doc in text])
+    corpus = Dataset.from_items(list(lines))
+    # the encoder is fitted through a pipeline, so ``--check`` stops at its
+    # fit and reports the tokenizer and encoder
+    encoder = Tokenizer().and_then(WordFrequencyEncoder(), corpus).fit()
+    frequency_encode = next(op for op in encoder.graph.operators.values()
+                            if isinstance(op, WordFrequencyTransformer))
+    encoded = encoder.apply(corpus)
     featurizer = NGramsFeaturizer(list(range(2, n + 1)))
     ngram_counts = NGramsCounts("noadd").apply_batch(
         Dataset.from_items([featurizer.apply(doc) for doc in encoded]))

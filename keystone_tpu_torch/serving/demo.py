@@ -1,0 +1,112 @@
+"""``--serve-demo``: fit a small pipeline, push synthetic traffic through
+:class:`~keystone_tpu_torch.serving.engine.ServingEngine` and print the
+metrics (port of ``keystone_tpu/serving/demo.py``, its engine path).
+
+    python -m keystone_tpu_torch --serve-demo [--device cpu] [--requests 64]
+
+prints ``SERVE ok=N/N compiles=... batches=... p50=... p99=...`` and
+``SERVE PASS`` when every answer equals the fitted pipeline's own apply and
+the engine captured once per bucket. The JAX package's ``--replicas N``
+(a fleet) and ``--workers N`` (a cluster) come with the fleet and cluster
+slices; here any other value than 1 and 0 raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+from concurrent.futures import ThreadPoolExecutor
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..utils import env_int
+
+
+def build_demo_fitted(num_ffts: int = 2, block_size: int = 512, lam: float = 100.0,
+                      n_train: int = 2048, n_test: int = 64, device=None):
+    """The demo's serving pipeline: the synthetic MNIST task drawn on the
+    device, the random-FFT featurizer, block least squares and argmax.
+    Returns ``(fitted, test_data)``, the test rows as a host numpy array."""
+    from ..nodes.learning.linear import BlockLeastSquaresEstimator
+    from ..nodes.util import ClassLabelIndicators, MaxClassifier
+    from ..pipelines.mnist_random_fft import (
+        NUM_CLASSES,
+        MnistRandomFFTConfig,
+        build_featurizer,
+        synthetic_mnist_device,
+    )
+
+    conf = MnistRandomFFTConfig(num_ffts=num_ffts, block_size=block_size, lam=lam)
+    train, test = synthetic_mnist_device(n_train=n_train, n_test=max(n_test, 64),
+                                         device=device)
+    labels = ClassLabelIndicators(NUM_CLASSES).apply_batch(train.labels)
+    fitted = (
+        build_featurizer(conf, device)
+        .and_then(BlockLeastSquaresEstimator(conf.block_size, 1, conf.lam or 0.0),
+                  train.data, labels)
+        .and_then(MaxClassifier())
+        .fit()
+    )
+    return fitted, test.data.to_array().cpu().numpy()
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    p = argparse.ArgumentParser("keystone-tpu-torch serve-demo")
+    p.add_argument("--numFFTs", type=int, default=2)
+    p.add_argument("--blockSize", type=int, default=512)
+    p.add_argument("--lambda", dest="lam", type=float, default=100.0)
+    p.add_argument("--nTrain", type=int, default=2048)
+    p.add_argument("--requests", type=int, default=64)
+    p.add_argument("--replicas", type=int, default=1,
+                   help="1: the single-worker ServingEngine (a fleet of N comes later)")
+    p.add_argument("--workers", type=int, default=env_int("KEYSTONE_WORKERS", 0, minimum=0),
+                   help="0: in-process serving (the multi-process cluster comes later)")
+    p.add_argument("--buckets", default="8,32", help="comma-separated batch-size buckets")
+    p.add_argument("--maxQueue", type=int, default=256)
+    p.add_argument("--maxWaitMs", type=float, default=2.0)
+    p.add_argument("--clients", type=int, default=8, help="concurrent submitter threads")
+    p.add_argument("--device", default=None, help="cpu, or a CUDA device (the default)")
+    args = p.parse_args(argv)
+    if args.replicas != 1:
+        raise SystemExit("--replicas N > 1 serves from a ServingFleet, which comes with the "
+                         "fleet slice (serving/fleet.py); use --replicas 1")
+    if args.workers:
+        raise SystemExit("--workers N serves from a multi-process ClusterRouter, which comes "
+                         "with the cluster slice (cluster/); use --workers 0")
+    buckets = tuple(int(b) for b in args.buckets.split(","))
+
+    from .. import device as pick_device
+    from .engine import ServingEngine
+
+    dev = pick_device(args.device)
+    fitted, test_data = build_demo_fitted(num_ffts=args.numFFTs, block_size=args.blockSize,
+                                          lam=args.lam, n_train=args.nTrain,
+                                          n_test=args.requests, device=dev)
+    data = test_data[:args.requests]
+    engine = ServingEngine(fitted, buckets=buckets, datum_shape=data.shape[1:],
+                           max_queue=args.maxQueue, max_wait_ms=args.maxWaitMs)
+    with engine:
+        with ThreadPoolExecutor(max_workers=args.clients) as pool:
+            preds = list(pool.map(lambda row: engine.predict(row, timeout=60.0), data))
+
+    expected = (fitted.apply(torch.as_tensor(data, device=dev)).to_array().cpu().numpy()
+                if len(data) else np.array([]))
+    agree = int(np.sum(np.asarray(preds).ravel() == expected.ravel()))
+    snap = engine.metrics.snapshot()
+    c, lat = snap["counters"], snap["latency"]
+    occ = snap["batch_occupancy"]["ratio"]
+    compiles = c.get("compiles", 0)
+    print(f"SERVE ok={agree}/{len(data)} compiles={compiles} "
+          f"batches={c.get('batches', 0)} completed={c.get('completed', 0)} "
+          f"occupancy={'n/a' if occ is None else format(occ, '.3f')} "
+          f"p50={lat.get('p50', 0):.4f}s p99={lat.get('p99', 0):.4f}s", flush=True)
+    # every bucket captured exactly once (the policy keeps distinct sizes)
+    ok = (agree == len(data) and c.get("completed", 0) == len(data)
+          and compiles == len(engine.policy.batch_sizes))
+    print("SERVE " + ("PASS" if ok else "FAIL"), flush=True)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -25,7 +25,8 @@ inputs are zipped per chunk (``chunked.align_and_zip``). A group with a
 batch-coupled step refuses chunked input.
 
 A node is traceable here when it is a ``TransformerOperator`` with a
-``forward`` and no ``no_fuse`` mark, or a gather.
+``forward``, no ``no_fuse`` mark and no host sync in its ``forward`` (the
+``host_callback`` verdict of ``check/lattice.py``), or a gather.
 """
 
 from __future__ import annotations
@@ -34,11 +35,13 @@ from collections import OrderedDict
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from ..data.chunked import align_and_zip
 from ..data.dataset import Dataset, Payload, first_leaf, map_leaves
 from ..data.pipeline_scan import ChunkPadder
 from ..data.sparse import SparseRows
+from ..check import lattice
 from . import analysis
 from .cuda_graph import GraphCache, leaves, signature
 from .expressions import DatasetExpression, DatumExpression
@@ -241,6 +244,10 @@ class FusedTransformerOperator(TransformerOperator):
         :meth:`chunk_rows` runs them chunk by chunk into one output, so a
         whole-chain program (``FittedPipeline.compile``) holding this group
         keeps its intermediates to a chunk as well."""
+        if xs and is_fake(first_leaf(xs[0])):
+            # the static checker's abstract evaluation: shapes only, so the
+            # whole batch at once
+            return _run_steps(self.steps, self.last_use, xs)
         n = int(first_leaf(xs[0]).shape[0]) if xs else 0
         rows = self.chunk_rows(xs) if xs else 1
         if n > rows:
@@ -326,9 +333,13 @@ class TraceFusionRule(Rule):
             return False
         if isinstance(op, GatherTransformerOperator):
             return True
+        # a node with a host sync runs alone: a fused group is captured as
+        # a CUDA graph, and a sync cannot be captured (the JAX package fuses
+        # a host callback, which its jit keeps on the host)
         return (
             isinstance(op, TransformerOperator)
             and getattr(op, "forward", None) is not None
+            and lattice.classify(op) != lattice.HOST_CALLBACK
         )
 
     def apply(self, graph: Graph, annotations: Annotations) -> Tuple[Graph, Annotations]:

@@ -34,9 +34,11 @@ the next fit of the pipeline plans with zero sampling executions. A pull
 (``pipeline.pull``), an apply (``pipeline.apply``) and an absorb
 (``pipeline.absorb``) record their spans under a tracer.
 
-Left out, each with its own later item of work: the static checker
-(``check``, ``_static_check``, ``to_dot``) and the AOT cache of
-``compile``.
+The static checker (``check/``) runs at ``and_then(estimator, data)``
+and at fit entry (``_static_check``), and ``Pipeline.check`` /
+``FittedPipeline.check`` return its report, whose verdicts
+``untraceable_nodes`` and ``compile`` read. Left out, with the compile
+plane: the AOT cache of ``compile``.
 """
 
 from __future__ import annotations
@@ -50,7 +52,6 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tupl
 import numpy as np
 import torch
 
-from ..check import lattice
 from ..data.dataset import Dataset, map_leaves
 from ..obs.tracer import current as _trace_current
 from . import analysis
@@ -201,6 +202,54 @@ def fit_instrumentation(op_type: str, span_name: str = "pipeline.fit"):
 
 
 # ---------------------------------------------------------------------------
+# Static checking (check/)
+# ---------------------------------------------------------------------------
+
+
+def _static_check(pipeline: "Pipeline", where: str):
+    """The implicit check at ``and_then`` and fit entry: executes nothing,
+    raises a node-attributed ``PipelineCheckError`` on a proven defect, and
+    fails a pipeline for no other reason (a fault of the checker itself is
+    logged and passed over). ``KEYSTONE_STATIC_CHECK=0`` turns it off."""
+    from .. import check as check_mod
+
+    if not check_mod.check_enabled():
+        return None
+    try:
+        return pipeline.check(span=False)
+    except check_mod.PipelineCheckError:
+        raise
+    except Exception:
+        logger.warning("static check failed internally at %s; continuing unchecked",
+                       where, exc_info=True)
+        return None
+
+
+def _run_check(graph: Graph, source: SourceId, spec: Optional[tuple], span: bool,
+               op_type: str):
+    """The static check of ``graph`` fed ``spec`` at ``source``; with
+    ``span`` and a tracer installed, a ``check.report`` span whose attrs
+    carry the summary and the process's sampling count (a trace shows the
+    check sampled nothing)."""
+    from .. import check as check_mod
+    from .. import cost as cost_mod
+
+    report = check_mod.check_graph(graph, source=source, datum_spec=spec,
+                                   cost_estimator=cost_mod.get_estimator())
+    tracer = _trace_current()
+    if span and tracer is not None:
+        s = report.summary()
+        with tracer.span("check.report", op_type=op_type) as sp:
+            sp.attrs.update(
+                nodes=s["nodes"], segments=s["segments"], barriers=s["barriers"],
+                jit_compilable=s["jit_compilable"], exportable=s["exportable"],
+                verdicts=dict(s["verdicts"]),
+                sampling_total=cost_mod.sampling_executions()["total"],
+            )
+    return report
+
+
+# ---------------------------------------------------------------------------
 # Graph-building helpers
 # ---------------------------------------------------------------------------
 
@@ -292,6 +341,9 @@ class Chainable:
             # is the datum a fitted chain serves: kept as a hint
             if composed._datum_hint is None:
                 composed._datum_hint = datum_spec_of(fit_data[0])
+            # the estimator's data path is known now, so an incompatible
+            # composition raises here, not minutes into the fit's scan
+            _static_check(composed, where="and_then")
             return composed
         if isinstance(nxt, Chainable):
             if fit_data:
@@ -337,6 +389,9 @@ class Pipeline(Chainable):
     def to_pipeline(self) -> "Pipeline":
         return self
 
+    def to_dot(self, name: str = "pipeline") -> str:
+        return self._graph.to_dot(name)
+
     def _compose(self, nxt: "Pipeline") -> "Pipeline":
         """Splice self's sink into nxt's source (the ``and_then`` core)."""
         merged, _, sink_map = self._graph.connect_graph(
@@ -361,6 +416,19 @@ class Pipeline(Chainable):
     def __call__(self, data: Any) -> PipelineResult:
         return self.apply(data)
 
+    # -- static checking ------------------------------------------------
+
+    def check(self, datum_spec: Optional[tuple] = None, *, span: bool = True):
+        """The static check of this graph (``keystone_tpu_torch.check``):
+        specs propagated from the data leaves, a verdict per node and the
+        segment plan, executing zero chunks and zero samples and launching
+        no kernel. Raises a node-attributed ``PipelineCheckError`` on a
+        proven defect; returns the ``CheckReport`` otherwise.
+        ``datum_spec`` is the per-item ``(shape, dtype)`` fed at the source;
+        by default the fit data's hint."""
+        spec = datum_spec if datum_spec is not None else self._datum_hint
+        return _run_check(self._graph, self._source, spec, span, type(self).__name__)
+
     # -- fitting --------------------------------------------------------
 
     def fit(self) -> "FittedPipeline":
@@ -379,7 +447,19 @@ class Pipeline(Chainable):
         closes the cost-model loop (:func:`fit_instrumentation`): the
         solver choice and cache plan are joined with the fit's observed
         per-node costs, and the next fit of this pipeline plans from them
-        with zero sampling executions."""
+        with zero sampling executions.
+
+        Fit entry runs the static checker first: a proven mismatch raises a
+        node-attributed ``PipelineCheckError`` before the optimizer samples
+        anything or a chunk is produced. In ``--check`` mode the fit stops
+        there: the report is printed and ``CheckOnlyExit`` raised."""
+        from .. import check as check_mod
+
+        if check_mod.check_only_mode():
+            report = self.check()
+            print(report.render())
+            raise check_mod.CheckOnlyExit(report)
+        _static_check(self, where="fit")
         with fit_instrumentation(type(self).__name__):
             return self._fit()
 
@@ -554,17 +634,21 @@ class FittedPipeline(Chainable):
         return [op.label for op in self._graph.operators.values()
                 if getattr(op, "batch_coupled", False)]
 
+    def check(self, datum_spec: Optional[tuple] = None, *, span: bool = True):
+        """The static check of the fitted chain (see :meth:`Pipeline.check`),
+        fed the datum recorded at fit time unless ``datum_spec`` is given.
+        Not memoized: a caller may change an operator's flags after the
+        fit."""
+        spec = datum_spec
+        if spec is None and self.datum_shape is not None:
+            spec = (self.datum_shape, self.datum_dtype or "float32")
+        return _run_check(self._graph, self._source, spec, span, type(self).__name__)
+
     def untraceable_nodes(self) -> List[str]:
         """Labels of the nodes that block whole-chain compilation (verdict
-        ``opaque`` or ``stateful``, ``check/lattice.py``), in topological
-        order. Empty: the pipeline compiles."""
-        graph = self._graph
-        return [
-            graph.get_operator(n).label
-            for n in analysis.linearize(graph)
-            if isinstance(n, NodeId) and n in graph.operators
-            and lattice.blocks_jit(lattice.classify(graph.get_operator(n)))
-        ]
+        ``opaque``, ``stateful`` or ``host_callback`` in the static check's
+        report), in topological order. Empty: the pipeline compiles."""
+        return self.check(span=False).untraceable_labels()
 
     @property
     def is_traceable(self) -> bool:
