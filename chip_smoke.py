@@ -22,7 +22,13 @@ K1's launches per replay), the same chain served by ``ServingEngine``
 client threads into buckets 1 / 8 / 32 / 64, one CUDA graph a bucket, K1
 10 times a batch inside the replays and held against its plain version at
 each bucket's shape; ``serve_swap``: a same-contract swap under traffic,
-and a replacement of another datum width refused), one-program apply at
+and a replacement of another datum width refused; ``aot_cifar``: the same
+chain booted against a fresh AOT executable cache, cold (four exported
+programs, each naming K1 ten times) then warm from a pickled clone (four
+programs loaded, no call of the chain's trace function, four captures, K1
+10 times a batch, each bucket's scores bit-equal to the cold boot's);
+``aot_fallback``: one entry overwritten, the next boot exports that bucket
+alone), one-program apply at
 200 FFTs (with the
 featurizer's host launches traced eager against captured), and the KRR
 family on 8000 CIFAR features (the cost-model chooser picks the exact
@@ -100,10 +106,12 @@ of the twelve applications, every check running no CUDA kernel (a
 ``torch.profiler`` trace), allocating nothing, launching no K1 and sampling
 nothing (``check_apps``), and a shape- and a dtype-mismatched ``and_then``
 on card data refused at their nodes before any kernel (``check_rejects``);
-then ``--serve-demo`` at the JAX CLI's defaults (``serve_demo``). Last, the
-card tests of the scan, the weighted fit, the faults, the tracer, the
-checker and the engine, in one
-pytest process.
+then ``--serve-demo`` at the JAX CLI's defaults (``serve_demo``), the
+cold-start probe twice in fresh processes against one cache directory
+(``aot_coldstart``: every bucket exported, then every one loaded) and
+``--sweep-demo`` (``sweep_demo``). Last, the card tests of the scan, the
+weighted fit, the faults, the tracer, the checker, the engine and the AOT
+cache, in one pytest process.
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card it exits non-zero
 and prints no result.
@@ -2467,7 +2475,8 @@ CARD_TEST_FILES = ("tests/test_torch_cuda_streaming.py",
                    "tests/test_torch_cuda_faults.py",
                    "tests/test_torch_cuda_obs.py",
                    "tests/test_torch_cuda_check.py",
-                   "tests/test_torch_cuda_serving.py")
+                   "tests/test_torch_cuda_serving.py",
+                   "tests/test_torch_cuda_aot.py")
 
 
 def card_tests() -> None:
@@ -2620,7 +2629,7 @@ class K1Shapes:
 
         self.shapes, self.profiler_shapes = Counter(), Counter()
         self.profiler_launches = self.profiler_steps = self._inside = 0
-        k1, profile, log = kernel.gaussian_kernel_block, autocache._profile_at_scale, self
+        k1, profile, log = kernel._gaussian_block, autocache._profile_at_scale, self
 
         def counted_k1(X, Xb, gamma):
             if not torch.cuda.is_current_stream_capturing():
@@ -2638,9 +2647,9 @@ class K1Shapes:
                 log.profiler_launches += gk.gaussian_kernel_block.launches - l0
                 log.profiler_steps += bcd._block_update_impl.steps - s0
 
-        self._undo = [(kernel, "gaussian_kernel_block", k1),
+        self._undo = [(kernel, "_gaussian_block", k1),
                       (autocache, "_profile_at_scale", profile)]
-        kernel.gaussian_kernel_block, autocache._profile_at_scale = counted_k1, counted_profile
+        kernel._gaussian_block, autocache._profile_at_scale = counted_k1, counted_profile
         return self
 
     def __exit__(self, *exc) -> None:
@@ -3350,6 +3359,202 @@ def serve_demo_phase(cli, card) -> None:
           and int(ok[3]) == 2, f"--serve-demo: {out[-2000:]}")
 
 
+AOT_PROBE_ROWS = 64  # the rows each boot's bucket programs are held on
+AOT_TRAFFIC = 512  # single-row requests through each boot's engine
+
+
+def _k1_calls(program) -> int:
+    """The K1 operator's calls in an exported program's graph."""
+    return sum(1 for n in program.graph.nodes
+               if "keystone.gaussian_kernel_block" in str(n.target))
+
+
+def _aot_boot(fitted, X_host, eager):
+    """One engine boot against the configured AOT cache: construct, warm
+    up, each bucket's program on the first rows of ``X_host`` (padded as
+    the replica pads them), then ``AOT_TRAFFIC`` single-row requests from
+    16 threads. Returns its numbers and its per-bucket scores."""
+    import numpy as np
+
+    from keystone_tpu_torch.ops import gaussian_kernel as gk
+    from keystone_tpu_torch.serving import ServingEngine
+
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    engine = ServingEngine(fitted, buckets=SERVE_BUCKETS)
+    construct = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        engine.warm_up(required=True)
+        torch.cuda.synchronize()
+        warmup = time.perf_counter() - t0
+        # the programs' constants (a loaded program holds its own copy of
+        # the model) and the captured graphs' pool
+        boot_bytes = torch.cuda.memory_allocated() - before
+        chain_ = engine._compiled
+        probes = {b: chain_(engine.policy.pad(X_host[:b], b))[:b] for b in SERVE_BUCKETS}
+        engine.start(warmup=False)
+        allocated = torch.cuda.memory_allocated()
+        gk.gaussian_kernel_block.launches = 0
+        with concurrent.futures.ThreadPoolExecutor(max_workers=SERVE_CLIENTS) as pool:
+            rows = list(pool.map(lambda r: engine.predict(r, timeout=600.0),
+                                 X_host[:AOT_TRAFFIC]))
+        launches = gk.gaussian_kernel_block.launches
+        grown = torch.cuda.memory_allocated() - allocated
+        served = torch.from_numpy(np.stack(rows))
+        c = engine.metrics.snapshot()["counters"]
+        programs = chain_.dispatcher._by_sig.values() if chain_.dispatcher else ()
+        out = {"construct_seconds": construct, "warmup_seconds": warmup,
+               "compiles": c.get("compiles", 0), "aot_loads": c.get("aot_loads", 0),
+               "captures": chain_.captures, "device": str(chain_.device),
+               "k1_per_program": sorted(_k1_calls(p) for p in programs),
+               "batches": c.get("batches", 0), "k1_launches": launches,
+               "max_abs_dev_from_apply": (served - eager[:AOT_TRAFFIC].cpu()).abs().max().item(),
+               "predictions_equal": bool(torch.equal(served.argmax(1),
+                                                     eager[:AOT_TRAFFIC].cpu().argmax(1))),
+               "boot_allocated_bytes": boot_bytes, "allocated_growth_bytes": grown}
+    finally:
+        engine.shutdown(drain=False)
+    check(out["k1_launches"] == SERVE_BLOCKS * out["batches"],
+          f"K1 launched {out['k1_launches']} times in {out['batches']} batches")
+    check(out["max_abs_dev_from_apply"] <= SERVE_LIMIT and out["predictions_equal"],
+          f"served scores {out['max_abs_dev_from_apply']} off the eager apply")
+    return out, probes
+
+
+def aot_phases(dev, card, scores, X_host, eager) -> dict:
+    """``aot_cifar``: the fitted RandomPatchCifarKernel scores chain served
+    by ``ServingEngine(buckets=(1, 8, 32, 64))`` against a fresh AOT cache,
+    cold (4 exports, each program naming K1 10 times) then warm on a clone
+    from ``serialization.loads(dumps(...))`` (4 loads, 4 captures, no call
+    of the chain's trace function, K1 10 times a batch); each bucket's
+    scores bit-equal cold against warm, and every answer within 1e-5 of the
+    eager apply. ``aot_fallback``: one entry overwritten in its middle; the
+    next boot exports that bucket alone and answers bit-equal. Returns the
+    K1 launches of both boots' traffic."""
+    import numpy as np
+
+    from keystone_tpu_torch import compile as compile_mod
+    from keystone_tpu_torch.utils import serialization
+    from keystone_tpu_torch.workflow.pipeline import FittedPipeline
+
+    root = tempfile.mkdtemp(prefix="keystone-aot-")
+    compile_mod.configure(root)
+    build = FittedPipeline._build_trace_fn
+    traces = []
+
+    def counted(self):
+        fn = build(self)
+
+        def traced(x):
+            traces.append(tuple(x.shape))
+            return fn(x)
+
+        return traced
+
+    try:
+        cache = compile_mod.get_cache()
+        FittedPipeline._build_trace_fn = counted
+        cold, cold_probes = _aot_boot(scores, X_host, eager)
+        cold_traces = len(traces)
+        entries = {key: nbytes for key, nbytes, _ in cache.entries()}
+        t0 = time.perf_counter()
+        clone = serialization.loads(serialization.dumps(scores))
+        clone_seconds = time.perf_counter() - t0
+        traces.clear()
+        warm, warm_probes = _aot_boot(clone, X_host, eager)
+        warm_traces = len(traces)
+        bit_equal = {b: bool(np.array_equal(cold_probes[b], warm_probes[b]))
+                     for b in SERVE_BUCKETS}
+        ledger = cache.ledger
+        emit({"phase": "aot_cifar", "buckets": list(SERVE_BUCKETS), "cold": cold, "warm": warm,
+              "cold_trace_fn_calls": cold_traces, "warm_trace_fn_calls": warm_traces,
+              "clone_seconds": clone_seconds, "entry_bytes": sorted(entries.values()),
+              "cache_bytes": sum(entries.values()), "cache_bound_bytes": cache.max_bytes,
+              "export": [{k: r.get(k) for k in ("shape", "seconds", "save_seconds", "nbytes")}
+                         for r in ledger.entries("export")],
+              "load": [{k: r.get(k) for k in ("shape", "seconds", "nbytes")}
+                       for r in ledger.entries("load")],
+              "evictions": len(ledger.entries("evict")),
+              "probe_bit_equal": bit_equal, "card": card})
+        n = len(SERVE_BUCKETS)
+        check((cold["compiles"], cold["aot_loads"], len(entries)) == (n, 0, n),
+              f"cold boot: {cold['compiles']} exports, {cold['aot_loads']} loads, "
+              f"{len(entries)} entries")
+        check(cold["k1_per_program"] == [SERVE_BLOCKS] * n,
+              f"K1 calls in the exported programs: {cold['k1_per_program']}")
+        check((warm["compiles"], warm["aot_loads"], warm["captures"], warm_traces)
+              == (0, n, n, 0), f"warm boot: {warm}, trace function called {warm_traces} times")
+        check(warm["device"] == cold["device"], f"devices {cold['device']} / {warm['device']}")
+        check(all(bit_equal.values()), f"warm scores differ from cold: {bit_equal}")
+
+        # -- one entry overwritten: that bucket alone is exported again ----
+        bad_key = sorted(entries, key=entries.get)[1]
+        with open(cache.entry_path(bad_key), "r+b") as f:
+            f.seek(entries[bad_key] // 2)
+            f.write(b"\0" * 4096)
+        traces.clear()
+        fallback, fallback_probes = _aot_boot(clone, X_host, eager)
+        fb_equal = {b: bool(np.array_equal(warm_probes[b], fallback_probes[b]))
+                    for b in SERVE_BUCKETS}
+        emit({"phase": "aot_fallback", "overwritten": bad_key, "boot": fallback,
+              "trace_fn_calls": len(traces), "probe_bit_equal": fb_equal,
+              "entries_after": len(cache.entries()), "card": card})
+        check((fallback["compiles"], fallback["aot_loads"]) == (1, n - 1),
+              f"after one corrupt entry: {fallback['compiles']} exports, "
+              f"{fallback['aot_loads']} loads")
+        check(all(fb_equal.values()), f"the re-exported bucket answers differently: {fb_equal}")
+        return {"aot_cifar_cold": cold["k1_launches"], "aot_cifar_warm": warm["k1_launches"]}
+    finally:
+        FittedPipeline._build_trace_fn = build
+        compile_mod.reset()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def aot_coldstart_phase(card) -> None:
+    """``aot_coldstart``: ``python -m keystone_tpu_torch.compile.coldstart``
+    twice in fresh processes on the card against one cache directory: the
+    first exports every bucket, the second loads every one and traces
+    none; both answer as the fitted pipeline's own apply."""
+    root = tempfile.mkdtemp(prefix="keystone-coldstart-")
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs = []
+    try:
+        for _ in range(2):
+            proc = subprocess.run(
+                [sys.executable, "-m", "keystone_tpu_torch.compile.coldstart", "--cache", root],
+                cwd=here, capture_output=True, text=True, timeout=600)
+            check(proc.returncode == 0, f"coldstart: {proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+            runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for run in runs:
+        print(json.dumps(run), flush=True)
+    emit({"phase": "aot_coldstart", "cold": runs[0], "warm": runs[1], "card": card})
+    n = len(runs[0]["buckets"])
+    check((runs[0]["compiles"], runs[0]["aot_loads"]) == (n, 0), f"cold probe {runs[0]}")
+    check((runs[1]["compiles"], runs[1]["aot_loads"], runs[1]["captures"]) == (0, n, n),
+          f"warm probe {runs[1]}")
+    check(runs[0]["outputs_match"] and runs[1]["outputs_match"], "coldstart answers differ")
+
+
+def sweep_demo_phase(cli, card) -> None:
+    """``sweep_demo``: ``--sweep-demo`` at its defaults on the card: the
+    prefix featurized once, every λ from one Gram, absorb, and a hot swap
+    with no failed request."""
+    import io
+
+    fresh_env()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["--sweep-demo"])
+    out = buf.getvalue()
+    emit({"phase": "sweep_demo", "returncode": rc, "lines": out.strip().splitlines()[-4:],
+          "seconds": time.perf_counter() - t0, "card": card})
+    check(rc == 0 and "SWEEP PASS" in out, f"--sweep-demo: {out[-2000:]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3604,6 +3809,8 @@ def main() -> int:
 
     # -- the serving engine on the fitted chain (slice 15) ---------------
     serve_launches = serve_phases(dev, card, scores, Xt_host, eager)
+    # -- the same chain booted cold, then warm, from the AOT cache (slice 16)
+    aot_launches = aot_phases(dev, card, scores, Xt_host, eager)
 
     # -- the KRR family on 8000 of the fit's features: the chooser picks
     # the exact solve, whose kernel is two K1 column blocks ------------
@@ -3789,6 +3996,8 @@ def main() -> int:
 
     check_phases(cli, dev, card)
     serve_demo_phase(cli, card)
+    aot_coldstart_phase(card)
+    sweep_demo_phase(cli, card)
     timit_k1 = timit_phases(cli, dev, card)
     ls_family_phase(dev, card)
     cifar_family_k1 = cifar_family_phases(cli, dev, card)
@@ -3811,7 +4020,7 @@ def main() -> int:
         "plain_ms": fit["plain_ms"], "bound_ms": fit["bound_ms"],
         "bound_by": fit["bound_by"], "library_ms": fit["library_ms"],
         "launches_by_path": {"slice": launches, "compiled_cifar": compiled_launches,
-                             **serve_launches,
+                             **serve_launches, **aot_launches,
                              "krr_family": krr_launches, "timit_full_width": timit_k1,
                              "cifar_family": cifar_family_k1, "voc": voc_k1, **imagenet_k1,
                              **text_k1, **ooc_k1, **weighted_k1, **resumable_k1,

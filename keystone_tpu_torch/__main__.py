@@ -8,12 +8,15 @@ AmazonReviewsPipeline and StupidBackoffPipeline. Each runs on CUDA unless
 ``--device cpu`` is given, but StupidBackoffPipeline, whose language model
 is host numpy.
 
-Three flags of the JAX CLI apply to every application: ``--trace PATH``
+Four flags of the JAX CLI apply to every application: ``--trace PATH``
 records a per-node trace and writes it as Chrome-trace JSON to ``PATH``
 when the application ends, failed or not (also ``KEYSTONE_TRACE``);
 ``--profiles DIR`` keeps the operator-profile store in ``DIR``, from which
 the second fit of a pipeline plans its solver choice and caching with zero
-sampling executions (also ``KEYSTONE_PROFILE_DIR``); and ``--check`` builds
+sampling executions (also ``KEYSTONE_PROFILE_DIR``); ``--aot-cache DIR``
+keeps the AOT executable cache in ``DIR``, so a fitted chain's compiled
+programs load from it instead of being traced again (also
+``KEYSTONE_AOT_CACHE``); and ``--check`` builds
 the application, runs the static checker at its first fit's entry, prints
 the report and ``CHECK OK: ...`` and exits 0 without fitting (a proven
 defect raises ``PipelineCheckError``). On the command line ``--log LEVEL``
@@ -22,9 +25,10 @@ the JAX CLI.
 
 ``python -m keystone_tpu_torch --serve-demo [--device cpu] [flags]`` fits
 the small MnistRandomFFT pipeline and serves synthetic traffic through
-``ServingEngine`` (``serving/demo.py``). The JAX CLI's ``--aot-cache``,
-``--sweep-demo`` and ``--trainer-demo`` come with the compile plane, the
-sweep demo and the trainer.
+``ServingEngine`` (``serving/demo.py``); ``--sweep-demo`` fits a λ grid
+as one merged DAG, absorbs appended rows and hot-swaps the result into a
+live engine (``sweep/demo.py``). The JAX CLI's ``--trainer-demo`` comes
+with the trainer.
 """
 
 from __future__ import annotations
@@ -70,13 +74,14 @@ def _app(argv):
 
 
 def _observed(entry, argv, configure_all: bool, checked):
-    """``entry(argv)`` with ``--trace``, ``--profiles`` and ``--check`` taken
-    out of ``argv`` and applied, the trace written at the end either way.
+    """``entry(argv)`` with ``--trace``, ``--profiles``, ``--aot-cache`` and
+    ``--check`` taken out of ``argv`` and applied, the trace written at the end either way.
     With ``configure_all`` (the command line) logging and phase profiling
     are set up too; a caller of :func:`run` keeps its own. Under
     ``--check`` the first fit stops at its static check: the report's
     summary is printed and ``checked(report)`` returned."""
     from . import check as check_mod
+    from . import compile as compile_mod
     from . import cost
     from .obs import tracer as obs_tracer
     from .utils.obs import configure, export_trace
@@ -84,6 +89,7 @@ def _observed(entry, argv, configure_all: bool, checked):
     flags = argparse.ArgumentParser(add_help=False, allow_abbrev=False)
     flags.add_argument("--trace", default=None, metavar="PATH")
     flags.add_argument("--profiles", default=None, metavar="DIR")
+    flags.add_argument("--aot-cache", default=None, metavar="DIR", dest="aot_cache")
     flags.add_argument("--check", action="store_true", dest="check_only")
     flags.add_argument("--log", "--logLevel", dest="log_level", default=None,
                        choices=["debug", "info", "warning", "error"])
@@ -95,12 +101,14 @@ def _observed(entry, argv, configure_all: bool, checked):
     device = device.parse_known_args(rest)[0].device
     if configure_all:
         configure(args.log_level, profile=args.profile or None, trace=args.trace,
-                  profiles=args.profiles, device=device)
+                  profiles=args.profiles, device=device, aot_cache=args.aot_cache)
     else:
         if args.trace:
             obs_tracer.start(path=args.trace)
         if args.profiles is not None:
             cost.configure(args.profiles, device=device)
+        if args.aot_cache is not None:
+            compile_mod.configure(args.aot_cache)
     if args.check_only:
         check_mod.set_check_only(True)
     try:
@@ -121,8 +129,8 @@ def _observed(entry, argv, configure_all: bool, checked):
 
 def run(argv) -> dict:
     """Run an application and return its result dict (under ``--check``,
-    ``{"check_report": report}``). Only ``--trace``, ``--profiles`` and
-    ``--check`` are configured here: logging and phase profiling stay the
+    ``{"check_report": report}``). Only ``--trace``, ``--profiles``,
+    ``--aot-cache`` and ``--check`` are configured here: logging and phase profiling stay the
     caller's."""
     argv = list(argv)
     return _observed(_app(argv)[0], argv, configure_all=False,
@@ -136,6 +144,11 @@ def main(argv=None) -> int:
 
         argv.remove("--serve-demo")
         return _observed(serve_demo_main, argv, configure_all=True, checked=lambda _: 0)
+    if "--sweep-demo" in argv:
+        from .sweep.demo import main as sweep_demo_main
+
+        argv.remove("--sweep-demo")
+        return _observed(sweep_demo_main, argv, configure_all=True, checked=lambda _: 0)
     return _observed(_app(argv)[1], argv, configure_all=True, checked=lambda _: 0)
 
 

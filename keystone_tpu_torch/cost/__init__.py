@@ -24,7 +24,7 @@ isolated by environment; ``cost/store.py``):
 ``utils.obs.configure(profiles=...)``) turns the store on. Without it the
 subsystem stays cold: choices are the analytic cost model's and nothing
 touches the disk. The JAX package's segment records (``cost/segments.py``)
-come with the compile plane.
+come with segment dispatch (``compile/segment.py``).
 """
 
 from __future__ import annotations

@@ -25,21 +25,17 @@ import torch
 
 from ...data.dataset import Dataset
 from ...linalg.row_matrix import solve_spd
-from ...ops.gaussian_kernel import (
-    gaussian_kernel_block,
-    gaussian_kernel_block_plain as _gaussian_block_plain,
-)
+from ...ops import gaussian_kernel  # noqa: F401  (registers the K1 operator)
 from ...workflow.node_optimization import Optimizable
 from ...workflow.transformer import LabelEstimator, Transformer
 from .cost import AutoSolverFrontDoor, CostModel, combine_cost
 
 
 def _gaussian_block(X: torch.Tensor, Xb: torch.Tensor, gamma: float) -> torch.Tensor:
-    """Kernel-block front door: the CUDA kernel for CUDA tensors (which
-    launches or raises), the plain version for CPU tensors."""
-    if X.is_cuda:
-        return gaussian_kernel_block(X, Xb, gamma)
-    return _gaussian_block_plain(X, Xb, gamma)
+    """Kernel-block front door, the K1 operator on either device: the CUDA
+    kernel for CUDA tensors (which launches or raises), the plain version
+    for CPU tensors; an exported program names it."""
+    return torch.ops.keystone.gaussian_kernel_block(X, Xb, float(gamma))
 
 
 class BlockKernelMatrix:

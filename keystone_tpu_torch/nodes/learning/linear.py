@@ -57,6 +57,8 @@ class LinearMapper(Transformer):
     reads it."""
 
     row_local = True
+    #: fit state the apply never reads: not part of the AOT cache key
+    aot_fingerprint_exclude = ("solver_state",)
 
     def __init__(self, W: torch.Tensor, b: Optional[torch.Tensor] = None,
                  feature_mean: Optional[torch.Tensor] = None, solver_state=None):
@@ -199,6 +201,9 @@ class BlockLinearMapper(Transformer):
     the block means joined, so the apply is one GEMM."""
 
     row_local = True
+    #: fit state the apply never reads, and the stacked forms derived from
+    #: ``xs`` and ``feature_means``: not part of the AOT cache key
+    aot_fingerprint_exclude = ("solver_state", "_W", "_mean")
 
     def __init__(self, xs: Sequence[torch.Tensor], block_size: int,
                  b: Optional[torch.Tensor] = None,

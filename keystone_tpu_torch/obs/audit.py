@@ -9,7 +9,7 @@ estimate, observation and their ratio. A row with ``observed=False`` is a
 finding itself: the node never ran under its planned identity (trace
 fusion absorbed it, which voids its Cacher too). ``segment`` is always
 False here: the JAX package's compiled-segment dispatch, which can subsume
-a node, comes with the compile plane.
+a node, comes with segment dispatch (``compile/segment.py``).
 """
 
 from __future__ import annotations

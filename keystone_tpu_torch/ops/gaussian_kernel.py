@@ -16,13 +16,19 @@ every 32 of d) with the norms, clamp and exp in its epilogue.
   against plain FP32's 1.5e-7 at (10000, 800, 5000) and the CIFAR γ, on an
   H100); one TF32 pass is ~1.3e-5 off.
 
-* :func:`gaussian_kernel_block` launches the kernel; it takes CUDA tensors
-  only and counts its launches in ``gaussian_kernel_block.launches``. A
-  call made while this thread captures a CUDA graph launches nothing: it
-  is counted in :func:`captured_launches`, and whoever replays the graph
-  adds that many to ``launches`` at each replay. Its abstract form: on
-  fake tensors (the static checker's ``FakeTensorMode``) it returns an
-  empty (n, b) float32 fake tensor and counts nothing.
+* ``torch.ops.keystone.gaussian_kernel_block(X, Xb, gamma)`` is K1 as a
+  ``torch.library`` custom operator, so a ``torch.export`` program of a
+  chain that runs K1 names it (``compile/aot.py``). Its CUDA
+  implementation launches the kernel and counts each launch in
+  ``gaussian_kernel_block.launches``; a call made while this thread
+  captures a CUDA graph launches nothing: it is counted in
+  :func:`captured_launches`, and whoever replays the graph adds that many
+  to ``launches`` at each replay. Its CPU implementation is the plain
+  version. Its fake implementation (``torch.export``'s trace, the static
+  checker's ``FakeTensorMode``) returns an empty (n, b) tensor and
+  launches nothing.
+* :func:`gaussian_kernel_block` is the validating front door to the
+  operator for CUDA tensors, and holds the ``launches`` count.
 * :func:`gaussian_kernel_block_plain` is the same function in plain
   PyTorch (port of ``_gaussian_block_xla``, FP32 with TF32 off): what CPU
   tensors run, and the reference the kernel is held against on the card.
@@ -37,7 +43,6 @@ import ctypes
 import threading
 
 import torch
-from torch._subclasses.fake_tensor import is_fake
 
 from . import _build
 
@@ -89,18 +94,37 @@ def _check(lib: ctypes.CDLL, err: int, what: str) -> None:
         raise _build.KernelError(f"gaussian_kernel_block {what} failed: {msg} ({err})")
 
 
-def gaussian_kernel_block(X: torch.Tensor, Xb: torch.Tensor,
-                          gamma: float) -> torch.Tensor:
-    """(n, d), (b, d) float32 CUDA tensors → (n, b) Gaussian kernel block,
-    by the CUDA kernel. Rows may be strided; each row must be contiguous."""
-    if not (X.is_cuda and Xb.is_cuda and X.device == Xb.device):
-        raise ValueError("gaussian_kernel_block takes two tensors on one CUDA device")
-    if X.dtype != torch.float32 or Xb.dtype != torch.float32:
-        raise TypeError("gaussian_kernel_block takes float32 tensors")
+def _check_shapes(X: torch.Tensor, Xb: torch.Tensor) -> None:
     if X.dim() != 2 or Xb.dim() != 2 or X.shape[1] != Xb.shape[1]:
         raise ValueError(
             f"shapes {tuple(X.shape)} and {tuple(Xb.shape)}: want (n, d) and (b, d)"
         )
+
+
+@torch.library.custom_op("keystone::gaussian_kernel_block", mutates_args=(),
+                         device_types="cpu")
+def _k1_op(X: torch.Tensor, Xb: torch.Tensor, gamma: float) -> torch.Tensor:
+    """K1 on CPU tensors: the plain version."""
+    _check_shapes(X, Xb)
+    return gaussian_kernel_block_plain(X, Xb, gamma)
+
+
+@_k1_op.register_fake
+def _k1_fake(X: torch.Tensor, Xb: torch.Tensor, gamma: float) -> torch.Tensor:
+    # a fake tensor carries no data: the block's shape is the answer, and
+    # nothing launches
+    _check_shapes(X, Xb)
+    return X.new_empty((X.shape[0], Xb.shape[0]))
+
+
+@_k1_op.register_kernel("cuda")
+def _k1_launch(X: torch.Tensor, Xb: torch.Tensor, gamma: float) -> torch.Tensor:
+    """K1 on CUDA tensors: the kernel launches or this raises."""
+    if X.device != Xb.device:
+        raise ValueError("gaussian_kernel_block takes two tensors on one CUDA device")
+    if X.dtype != torch.float32 or Xb.dtype != torch.float32:
+        raise TypeError("gaussian_kernel_block takes float32 tensors")
+    _check_shapes(X, Xb)
     n, d = X.shape
     b = Xb.shape[0]
     for t in (X, Xb):
@@ -109,9 +133,7 @@ def gaussian_kernel_block(X: torch.Tensor, Xb: torch.Tensor,
     if max(n, b) > _MAX_ROWS:
         raise ValueError(f"n = {n}, b = {b}: the kernel takes at most {_MAX_ROWS} rows")
     out = torch.empty((n, b), dtype=torch.float32, device=X.device)
-    if n == 0 or b == 0 or is_fake(X) or is_fake(Xb):
-        # a fake tensor (the static checker's abstract evaluation) carries
-        # no data: the block's shape is the answer, and nothing launches
+    if n == 0 or b == 0:
         return out
     lib = _lib()
     with torch.cuda.device(X.device):
@@ -132,6 +154,16 @@ def gaussian_kernel_block(X: torch.Tensor, Xb: torch.Tensor,
     else:
         gaussian_kernel_block.launches += 1
     return out
+
+
+def gaussian_kernel_block(X: torch.Tensor, Xb: torch.Tensor,
+                          gamma: float) -> torch.Tensor:
+    """(n, d), (b, d) float32 CUDA tensors → (n, b) Gaussian kernel block,
+    by the CUDA kernel (through the ``keystone::gaussian_kernel_block``
+    operator). Rows may be strided; each row must be contiguous."""
+    if not (X.is_cuda and Xb.is_cuda and X.device == Xb.device):
+        raise ValueError("gaussian_kernel_block takes two tensors on one CUDA device")
+    return torch.ops.keystone.gaussian_kernel_block(X, Xb, float(gamma))
 
 
 gaussian_kernel_block.launches = 0

@@ -4,9 +4,12 @@ metrics (port of ``keystone_tpu/serving/demo.py``, its engine path).
 
     python -m keystone_tpu_torch --serve-demo [--device cpu] [--requests 64]
 
-prints ``SERVE ok=N/N compiles=... batches=... p50=... p99=...`` and
-``SERVE PASS`` when every answer equals the fitted pipeline's own apply and
-the engine captured once per bucket. The JAX package's ``--replicas N``
+prints ``SERVE ok=N/N compiles=... aot_loads=... batches=... p50=... p99=...``
+and ``SERVE PASS`` when every answer equals the fitted pipeline's own apply
+and every bucket's program arrived once, traced or (with ``--aot-cache``)
+loaded from the AOT cache. ``--expect-zero-compiles`` is the warm-boot
+assertion: against a populated cache, the run fails unless warm-up paid
+zero traces. The JAX package's ``--replicas N``
 (a fleet) and ``--workers N`` (a cluster) come with the fleet and cluster
 slices; here any other value than 1 and 0 raises.
 """
@@ -67,6 +70,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--maxWaitMs", type=float, default=2.0)
     p.add_argument("--clients", type=int, default=8, help="concurrent submitter threads")
     p.add_argument("--device", default=None, help="cpu, or a CUDA device (the default)")
+    p.add_argument("--expect-zero-compiles", action="store_true", dest="expect_zero_compiles",
+                   help="fail unless warm-up paid zero traces: the warm-boot assertion for a "
+                        "populated AOT cache (--aot-cache / KEYSTONE_AOT_CACHE), where every "
+                        "bucket must load its program")
     args = p.parse_args(argv)
     if args.replicas != 1:
         raise SystemExit("--replicas N > 1 serves from a ServingFleet, which comes with the "
@@ -97,13 +104,18 @@ def main(argv: Optional[List[str]] = None) -> int:
     c, lat = snap["counters"], snap["latency"]
     occ = snap["batch_occupancy"]["ratio"]
     compiles = c.get("compiles", 0)
-    print(f"SERVE ok={agree}/{len(data)} compiles={compiles} "
+    aot_loads = c.get("aot_loads", 0)
+    print(f"SERVE ok={agree}/{len(data)} compiles={compiles} aot_loads={aot_loads} "
           f"batches={c.get('batches', 0)} completed={c.get('completed', 0)} "
           f"occupancy={'n/a' if occ is None else format(occ, '.3f')} "
           f"p50={lat.get('p50', 0):.4f}s p99={lat.get('p99', 0):.4f}s", flush=True)
-    # every bucket captured exactly once (the policy keeps distinct sizes)
+    # every bucket's program arrived exactly once, traced or loaded from
+    # the AOT cache (the policy keeps distinct sizes)
     ok = (agree == len(data) and c.get("completed", 0) == len(data)
-          and compiles == len(engine.policy.batch_sizes))
+          and compiles + aot_loads == len(engine.policy.batch_sizes))
+    if args.expect_zero_compiles and compiles != 0:
+        print(f"SERVE FAIL: warm boot paid {compiles} trace(s), expected 0", flush=True)
+        ok = False
     print("SERVE " + ("PASS" if ok else "FAIL"), flush=True)
     return 0 if ok else 1
 

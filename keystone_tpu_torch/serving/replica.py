@@ -18,9 +18,14 @@ never ``fitted.compile()``, which would replace the pipeline's own
 compiled state. On a CPU pipeline the chain runs eagerly with the same
 accounting.
 
-Not ported yet: the AOT executable cache path (``_build_aot_dispatcher``,
-the compile plane), and the flight-recorder, resource-accounting and
-cross-process trace hooks (the serving half of ``obs/``).
+With an AOT executable cache configured (``compile.configure``,
+``--aot-cache``), the chain's per-bucket programs come from
+``compile/aot.py``'s dispatcher: loaded from the cache on a warm boot (the
+``aot_loads`` counter, zero traces), exported and saved on a miss (the
+``compiles`` counter), and captured as one CUDA graph a bucket either way.
+
+Not ported yet: the flight-recorder, resource-accounting and cross-process
+trace hooks (the serving half of ``obs/``), and the fleet's parts.
 """
 
 from __future__ import annotations
@@ -103,11 +108,27 @@ class ServedChain:
     host numpy arrays out. The batch is copied once to where the chain's
     parameters live and run through the private compiled chain (on CUDA a
     graph replay per bucket shape); the output is copied out under the
-    graphs' lock."""
+    graphs' lock.
 
-    def __init__(self, fitted: FittedPipeline, note: Callable[[tuple], None]):
+    With an AOT dispatcher (``compile/aot.py``) the graphs are captured over
+    its per-bucket program, loaded from the cache or freshly exported;
+    without one, over the chain's trace function."""
+
+    def __init__(self, fitted: FittedPipeline, note: Callable[[tuple], None],
+                 dispatcher: Optional[Callable] = None):
         self.device = _param_device(fitted.graph)
-        self._compiled = _Compiled(fitted._build_trace_fn(), note)
+        #: the AOT dispatcher, None when the chain serves without a cache
+        self.dispatcher = dispatcher
+        if dispatcher is None:
+            self._compiled = _Compiled(fitted._build_trace_fn(), note)
+        else:
+            # the dispatcher counts the traces; a capture is not one
+            self._compiled = _Compiled(dispatcher, lambda sig: None)
+
+    @property
+    def captures(self) -> int:
+        """The CUDA graphs captured so far (one per bucket on the card)."""
+        return len(self._compiled._graphs)
 
     def __call__(self, batch: Any) -> Any:
         x = torch.as_tensor(batch).to(self.device)
@@ -115,15 +136,18 @@ class ServedChain:
 
 
 def compile_pipeline(fitted: FittedPipeline, *, metrics: MetricsRegistry,
-                     signatures: list) -> ServedChain:
-    """``fitted`` compiled against private accounting: each capture (each
-    new signature on the CPU) appends its ``(shape, dtype)`` to
-    ``signatures`` and bumps the ``compiles`` counter. Raises
+                     signatures: list, label: str = "serving") -> ServedChain:
+    """``fitted`` compiled against private accounting: each trace paid (each
+    capture, or each new signature on the CPU; with an AOT cache, each
+    export) appends its ``(shape, dtype)`` to ``signatures`` and bumps the
+    ``compiles`` counter, and each program loaded from the cache bumps
+    ``aot_loads`` instead, so a warm boot pays zero traces. Raises
     :class:`NotTraceableError` for a chain that cannot be compiled, here at
     construction and never per request under traffic."""
-    # one static check gives the blockers; the chain is built from the
-    # fitted graph directly
-    blockers = fitted.check(span=False).untraceable_labels()
+    # one static check gives the blockers and the export verdict; the chain
+    # is built from the fitted graph directly
+    report = fitted.check(span=False)
+    blockers = report.untraceable_labels()
     if blockers:
         raise NotTraceableError(blockers)
 
@@ -131,7 +155,14 @@ def compile_pipeline(fitted: FittedPipeline, *, metrics: MetricsRegistry,
         signatures.append(sig)
         metrics.inc("compiles")
 
-    return ServedChain(fitted, note)
+    def note_load(sig):
+        # not a compiled signature: no trace was paid for this bucket
+        metrics.inc("aot_loads")
+
+    dispatcher = fitted._aot_dispatcher(fitted._build_trace_fn(), "auto", note,
+                                        exportable=report.exportable, label=label,
+                                        on_load=note_load)
+    return ServedChain(fitted, note, dispatcher)
 
 
 def serving_report(fitted: FittedPipeline):
@@ -248,14 +279,19 @@ class Replica:
         of requests answered with a result. A failure of the batch fails
         each of its requests with the error (a transient one, such as an
         injected fault, is counted apart: the single engine has no peer to
-        retry on)."""
+        retry on). A fault at the seam that is not transient propagates to
+        :meth:`serve_forever`'s backstop."""
         try:
             # the fault seam, before any future is marked running: a kill
-            # escapes as ReplicaDown, any other fault fails the batch
+            # escapes as ReplicaDown, a transient fault fails the batch
+            # (counted apart), and any other fault reaches the loop's
+            # backstop, which answers "internal batch failure"
             fault_point(REPLICA_BATCH, replica=self.index)
         except ReplicaDown:
             raise
         except Exception as e:
+            if not is_transient(e):
+                raise
             self._fail(batch, e)
             return 0
         now = time.monotonic()

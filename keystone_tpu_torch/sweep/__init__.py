@@ -5,8 +5,9 @@
 graph: the shared featurize prefix runs once, solver structure is shared
 across members (one Gram accumulation prices every λ; BCD members may
 warm-start from their nearest-λ neighbour), and the fitted members come
-back as ordinary ``FittedPipeline``\\ s. The JAX package's sweep demo
-(``sweep/demo.py``) serves its members and comes with the serving tier.
+back as ordinary ``FittedPipeline``\\ s. ``sweep/demo.py`` (the CLI's
+``--sweep-demo``) fits a grid, absorbs appended rows into one member and
+hot-swaps it into a live serving engine.
 """
 
 from .grid import GridSweep, SweepMember, SweepResult, expand_grid

@@ -1,11 +1,12 @@
 """Shared helpers: the readers of the ``KEYSTONE_*`` switches (the port's
-copy of ``keystone_tpu/utils/__init__.py::env_flag``, ``env_int`` and
-``env_float``)."""
+copy of ``keystone_tpu/utils/__init__.py::env_flag``, ``env_int``, ``env_float``
+and ``env_str``)."""
 
 from __future__ import annotations
 
 import logging
 import os
+from typing import Optional
 
 logger = logging.getLogger(__name__)
 
@@ -50,3 +51,13 @@ def env_float(name: str, default: float, minimum: float = 0.0) -> float:
                 _warned_env.add((name, raw))
                 logger.warning("%s=%r is not a number; using %s", name, raw, default)
     return default
+
+
+def env_str(name: str, default: Optional[str] = None) -> Optional[str]:
+    """A ``KEYSTONE_*`` string (a path, a spec): unset or blank gives
+    ``default``, so ``KEYSTONE_X=`` means off rather than an empty path."""
+    raw = os.environ.get(name)
+    if raw is None:
+        return default
+    raw = raw.strip()
+    return raw if raw else default

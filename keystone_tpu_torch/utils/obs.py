@@ -1,5 +1,6 @@
 """Observability configuration: one switch for logs, phase profiling, the
-tracer and the profile store (port of ``keystone_tpu/utils/obs.py``).
+tracer, the profile store and the AOT executable cache (port of
+``keystone_tpu/utils/obs.py``).
 
 * ``configure(level)``: process-wide stdlib logging with a timestamped
   one-line format; every module logs through ``logging.getLogger``.
@@ -11,12 +12,13 @@ tracer and the profile store (port of ``keystone_tpu/utils/obs.py``).
   traced fits learn per-operator throughput, and the second fit of a
   pipeline plans its solver choice and cache plan from evidence, with zero
   sampling executions.
+* ``aot_cache``: install the AOT executable cache (``compile/``): a fitted
+  chain's compiled programs load from it instead of being traced again.
 
 Environment switches, read by ``configure(None)`` and the CLI:
 ``KEYSTONE_LOG=debug|info|warning|error``, ``KEYSTONE_PROFILE=1``,
-``KEYSTONE_TRACE=/path/trace.json``, ``KEYSTONE_PROFILE_DIR=/path/dir``.
-The JAX package's AOT executable cache (``KEYSTONE_AOT_CACHE``) comes with
-the compile plane.
+``KEYSTONE_TRACE=/path/trace.json``, ``KEYSTONE_PROFILE_DIR=/path/dir``,
+``KEYSTONE_AOT_CACHE=/path/dir``.
 """
 
 from __future__ import annotations
@@ -57,8 +59,9 @@ def reset_rate_limits() -> None:
 
 def configure(level: Optional[str] = None, profile: Optional[bool] = None,
               trace: Optional[str] = None, profiles: Optional[str] = None,
-              device=None) -> None:
-    """Configure logging, phase profiling, tracing and the profile store.
+              device=None, aot_cache: Optional[str] = None) -> None:
+    """Configure logging, phase profiling, tracing, the profile store and
+    the AOT executable cache.
 
     ``level=None`` reads ``KEYSTONE_LOG`` (default warning; an unknown
     value there is warned about and ignored, an unknown ``level`` raises).
@@ -69,7 +72,9 @@ def configure(level: Optional[str] = None, profile: Optional[bool] = None,
     ``KEYSTONE_PROFILE_DIR`` and keeps a store already installed.
     ``device`` is where the fits run, which keys the environment of a
     store named here (one from the environment variable keys the default
-    device's).
+    device's). ``aot_cache`` is the AOT executable cache's directory
+    (``""`` turns it off); None follows ``KEYSTONE_AOT_CACHE`` and keeps a
+    cache already installed.
     Idempotent: later calls re-level the root handler, and an installed
     tracer keeps its spans."""
     global _configured
@@ -113,6 +118,13 @@ def configure(level: Optional[str] = None, profile: Optional[bool] = None,
         cost_mod.configure(profiles, device=device)
     else:
         cost_mod.get_store()
+
+    from .. import compile as compile_mod
+
+    if aot_cache is not None:
+        compile_mod.configure(aot_cache)
+    else:
+        compile_mod.get_cache()
 
 
 def export_trace(path: Optional[str] = None) -> Optional[str]:

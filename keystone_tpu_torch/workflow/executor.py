@@ -43,8 +43,8 @@ by the scheduler carries ``queue_wait_seconds`` (ready to started) and
 ``worker``, and nests under the pull that armed it. Off, the cost is one
 ``None`` check a node.
 
-Not ported: the JAX package's compiled-segment dispatch (the compile
-plane).
+Not ported: the JAX package's compiled-segment dispatch
+(``compile/segment.py``, the compile plane's second half).
 """
 
 from __future__ import annotations

@@ -157,6 +157,10 @@ class FusedTransformerOperator(TransformerOperator):
     followed by one slot per step. The last step is the output.
     """
 
+    #: the CUDA graphs and the measured row bytes are memos of this
+    #: process: a warm group fingerprints as a fresh one (AOT cache key)
+    aot_fingerprint_exclude = ("_graphs", "_row_bytes")
+
     def __init__(self, steps: Sequence[Tuple[TransformerOperator, Tuple[int, ...]]],
                  n_inputs: int):
         self.steps = list(steps)

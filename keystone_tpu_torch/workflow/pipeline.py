@@ -581,6 +581,8 @@ class FittedPipeline(Chainable):
     #: the per-item input recorded at fit time, None when not known
     datum_shape: Optional[tuple] = None
     datum_dtype: Optional[str] = None
+    #: the memo of :meth:`fingerprint`
+    _fingerprint: Optional[str] = None
 
     def __init__(self, graph: Graph, source: SourceId, sink: SinkId,
                  seconds: Optional[Dict[str, float]] = None, *,
@@ -595,6 +597,7 @@ class FittedPipeline(Chainable):
             self.datum_dtype = str(datum_dtype)
         self._compiled: Optional[_Compiled] = None
         self._compiled_signatures: List[tuple] = []
+        self._fingerprint: Optional[str] = None
 
     @property
     def graph(self) -> Graph:
@@ -692,25 +695,49 @@ class FittedPipeline(Chainable):
 
         return fn
 
+    def fingerprint(self) -> str:
+        """The content digest of this pipeline: topology, operator
+        identities and fitted-parameter digests, stable across processes
+        (``compile/fingerprint.py``). Raises ``FingerprintError`` when an
+        operator's state has no content-stable form. Memoized: the graph
+        does not change after the fit."""
+        if self._fingerprint is None:
+            from ..compile import pipeline_fingerprint
+
+            self._fingerprint = pipeline_fingerprint(self)
+        return self._fingerprint
+
     def compile(self, strict: bool = True,
-                on_trace: Optional[Callable[[tuple], None]] = None
-                ) -> Optional[Callable]:
+                on_trace: Optional[Callable[[tuple], None]] = None,
+                cache: Any = "auto") -> Optional[Callable]:
         """The whole chain as one program per input signature.
 
         On CUDA input the returned callable captures one CUDA graph per new
         ``(shape, dtype)`` and replays it after; on CPU input it runs the
-        chain eagerly. Either way each new signature is appended to
-        :attr:`compiled_signatures` as ``(shape, dtype name)`` (numpy's
-        spelling, ``'float32'``) and passed to ``on_trace``: the JAX
-        package's accounting of one trace per shape. ``strict=True`` raises
-        :class:`NotTraceableError` naming the blocking nodes;
-        ``strict=False`` returns None for them. The JAX package's ``cache``
-        argument (its AOT executable cache) is not ported."""
-        blockers = self.untraceable_nodes()
+        chain eagerly. ``strict=True`` raises :class:`NotTraceableError`
+        naming the blocking nodes; ``strict=False`` returns None for them.
+
+        Every trace paid (each new signature; with a cache, each export) is
+        appended to :attr:`compiled_signatures` as ``(shape, dtype name)``
+        (numpy's spelling, ``'float32'``) and passed to ``on_trace``: the
+        JAX package's accounting of one trace per shape.
+
+        ``cache`` selects the AOT executable cache (:mod:`keystone_tpu_torch.
+        compile`): ``"auto"`` (the default) is the process's cache
+        (``KEYSTONE_AOT_CACHE`` / ``--aot-cache``), an ``ExecutableCache``
+        is that cache, and None is none. With a cache and a pipeline that
+        fingerprints, each signature first loads a saved ``torch.export``
+        program (a hit pays no trace and leaves :attr:`compiled_signatures`
+        as it was), and a miss exports the chain once and saves it for
+        every later process; the CUDA graph is captured over the program
+        either way."""
+        report = self.check(span=False)
+        blockers = report.untraceable_labels()
         if blockers:
             if strict:
                 raise NotTraceableError(blockers)
             return None
+        fn = self._build_trace_fn()
         # counts belong to the live program: a recompile starts them anew
         self._compiled_signatures = []
         signatures = self._compiled_signatures
@@ -720,8 +747,45 @@ class FittedPipeline(Chainable):
             if on_trace is not None:
                 on_trace(sig)
 
-        self._compiled = _Compiled(self._build_trace_fn(), note)
+        aot = self._aot_dispatcher(fn, cache, note, exportable=report.exportable,
+                                   label="pipeline.compile")
+        if aot is None:
+            self._compiled = _Compiled(fn, note)
+        else:
+            # the dispatcher counts the traces; a capture over its program
+            # is not one
+            self._compiled = _Compiled(aot, lambda sig: None)
         return self._compiled
+
+    def _aot_dispatcher(self, fn: Callable, cache: Any, note_trace: Callable, *,
+                        exportable: Optional[bool], label: str,
+                        on_load: Optional[Callable] = None):
+        """The cache-first per-signature dispatcher over ``fn``, or None
+        when there is no cache, the checker proved the chain cannot export,
+        or the pipeline cannot be fingerprinted (then the chain compiles
+        as it would without a cache)."""
+        from .. import compile as compile_mod
+
+        if cache == "auto":
+            cache = compile_mod.get_cache()
+        if cache is None:
+            return None
+        if exportable is False:
+            logger.info("aot cache skipped (static checker: the chain does not export)")
+            return None
+        try:
+            digest = self.fingerprint()
+        except compile_mod.FingerprintError as e:
+            logger.info("aot cache skipped (pipeline not fingerprintable): %s", e)
+            return None
+        except Exception:
+            # a fingerprint walk that fails (self-referential state, exotic
+            # objects) costs the cache, never the compile
+            logger.warning("aot cache skipped (fingerprinting failed)", exc_info=True)
+            return None
+        return compile_mod.AotDispatcher(
+            fn, digest, cache, on_trace=note_trace, on_load=on_load, label=label,
+            expected_exportable=bool(exportable), device=_param_device(self._graph))
 
     @property
     def compiled_signatures(self) -> List[tuple]:

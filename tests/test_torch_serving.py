@@ -377,6 +377,43 @@ def test_a_fault_at_the_replica_batch_seam_fails_its_batch_and_the_worker_serves
     assert engine.metrics.count("batch_errors") == 1
 
 
+def test_a_fatal_fault_at_the_replica_batch_seam_is_answered_as_jax_answers(engines):
+    """``replica.batch=fatal@0`` through both engines on the same chain: the
+    fault is not transient, so the seam re-raises it and the loop's
+    backstop answers the batch ``EngineStopped("internal batch failure")``
+    with ``batch_errors`` 0; the next batch is served in both."""
+    from keystone_tpu import faults as jfaults
+    from keystone_tpu.serving.errors import EngineStopped as JEngineStopped
+    from keystone_tpu.workflow.transformer import FunctionNode as JFunctionNode
+    from keystone_tpu_torch.faults import plan
+
+    def answers(engine, install, clear, stopped):
+        install()
+        try:
+            with pytest.raises(stopped) as err:
+                engine.predict(np.ones(2, np.float32), timeout=WAIT)
+            served = float(np.asarray(engine.predict(np.ones(2, np.float32), timeout=WAIT)))
+        finally:
+            clear()
+        return (str(err.value), engine.metrics.count("batch_errors"),
+                engine.metrics.count("batch_transient"), served)
+
+    j_fitted = (JFunctionNode(batch_fn=_double, label="double")
+                >> JFunctionNode(batch_fn=lambda X: X.sum(axis=1), label="rowsum")).fit()
+    j_engine = JServingEngine(j_fitted, buckets=(4,), datum_shape=(2,))
+    try:
+        j_engine.start()
+        want = answers(j_engine,
+                       lambda: jfaults.install(jfaults.parse_plan("replica.batch=fatal@0")),
+                       jfaults.clear, JEngineStopped)
+    finally:
+        j_engine.shutdown(drain=False)
+    engine = engines(_toy_fitted(), buckets=(4,), datum_shape=(2,)).start()
+    got = answers(engine, lambda: plan.install(plan.parse_plan("replica.batch=fatal@0")),
+                  plan.clear, EngineStopped)
+    assert got == want == ("internal batch failure", 0, 0, 4.0)
+
+
 # ---------------------------------------------------------------------------
 # hot swap
 # ---------------------------------------------------------------------------
