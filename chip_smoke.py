@@ -28,12 +28,24 @@ programs, each naming K1 ten times) then warm from a pickled clone (four
 programs loaded, no call of the chain's trace function, four captures, K1
 10 times a batch, each bucket's scores bit-equal to the cold boot's);
 ``aot_fallback``: one entry overwritten, the next boot exports that bucket
-alone), one-program apply at
-200 FFTs (with the
-featurizer's host launches traced eager against captured), and the KRR
+alone; ``segment_cifar``: segment dispatch, on by default, runs the same
+chain as one eager program a batch, bit-equal to node dispatch
+(``KEYSTONE_SEGMENT_COMPILE=0``) and K1 10 a run as there, then against an
+AOT cache of its own a
+cold executor exports the segment (each program naming K1 10 times) and a
+warm one loads it with no trace, bit-equal; ``segment_prewarm``: the
+manifest's programs under an element budget; ``flight_fault``: an
+``aot.read`` fault plan, the flight dump holding the injection and its
+recovery instant, and the memory watermark against the allocator's peak),
+one-program apply at 200 FFTs (with the featurizer's host launches traced
+eager against captured; ``segment_apply_mnist``: a first apply with
+segments on against off, the plan and the digests timed apart;
+``segment_mnist``: the same run with segments off, its predictions and
+steps equal), and the KRR
 family on 8000 CIFAR features (the cost-model chooser picks the exact
 solve, which builds its kernel from K1 blocks). Then TimitPipeline: a small
-run on the card against the CPU, and the JAX CLI's defaults (50 cosine
+run on the card against the CPU, and the JAX CLI's defaults (then
+``segment_apply_timit`` on its fitted chain; 50 cosine
 branches of 4096, d = 204,800, five sweeps of 50 blocks over a 40.96 GB
 feature matrix of 50000 synthetic frames), which runs no hand-written
 kernel, with a traced sweep of its block solve; and the least-squares family on those frames, where the cost model
@@ -70,7 +82,9 @@ at TIMIT's 2,228,224 rows (d 16,384 and 8,192, drawn on the card chunk by
 chunk, against their planted models); TimitPipeline fitted over all
 2,228,224 synthetic frames at d = 16,384 (4 cosine branches), the 146 GB
 design matrix never whole (20 block steps, 21 scans of 34 chunks, peak
-below 32 GB); a snapshot fit on 16 chunks of those frames with 2 more
+below 32 GB; its segments on the chunked path, and ``segment_chunked``: the
+same fit under node dispatch, the same model); a snapshot fit on 16 chunks
+of those frames with 2 more
 absorbed, against a fit on all 18; the least-squares family on the chunked
 frames; and the chunked fit against the in-memory one at 200,000 frames.
 Then the out-of-core weighted fit: ImageNetSiftLcsFV at
@@ -109,9 +123,9 @@ on card data refused at their nodes before any kernel (``check_rejects``);
 then ``--serve-demo`` at the JAX CLI's defaults (``serve_demo``), the
 cold-start probe twice in fresh processes against one cache directory
 (``aot_coldstart``: every bucket exported, then every one loaded) and
-``--sweep-demo`` (``sweep_demo``). Last, the card tests of the scan, the
-weighted fit, the faults, the tracer, the checker, the engine and the AOT
-cache, in one pytest process.
+``--sweep-demo`` (``sweep_demo``). Last, the card tests of the scan, segment
+dispatch, the weighted fit, the faults, the tracer, the checker, the engine
+and the AOT cache, in one pytest process.
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card it exits non-zero
 and prints no result.
@@ -359,15 +373,17 @@ def check(cond: bool, what: str) -> None:
 
 def fresh_env():
     """Reset the port's fit-once state, drop the fused groups' shared CUDA
-    graphs, the optimize memo's plans and the profile store, so a phase
-    holds no device memory of the one before it and learns nothing from
-    it."""
+    graphs, the segment dispatchers, the optimize memo's plans and the
+    profile store, so a phase holds no device memory of the one before it
+    and learns nothing from it."""
     from keystone_tpu_torch import cost
+    from keystone_tpu_torch.compile import segment
     from keystone_tpu_torch.workflow import fusion, optimizers
     from keystone_tpu_torch.workflow.env import PipelineEnv
 
     PipelineEnv.get_or_create().reset()
     fusion.clear_graph_cache()
+    segment.reset_dispatchers()
     optimizers.clear_memo()
     cost.reset()
 
@@ -534,7 +550,10 @@ def timit_phases(cli, dev, card) -> int:
     check([len(g) for g in fused_steps(fit_graph)] == [full_steps, full_steps],
           f"fit-graph fused groups {[len(g) for g in fused_steps(fit_graph)]}")
     check(timit_k1 == 0, f"TimitPipeline launched K1 {timit_k1} times; its path has no kernel")
-    del fitted, out, fit_graph, probe
+    Xte = timit.synthetic_timit(10000, timit.TimitConfig().num_classes,
+                               seed=2).data.to_array().to(dev)
+    segment_apply_cost("timit", fitted, Xte, card)
+    del fitted, out, fit_graph, probe, Xte
 
     # -- where a sweep's time goes: 5 block steps at the full-width shape,
     # traced (random data, so the Grams are well conditioned at λ 0) ---
@@ -1538,6 +1557,7 @@ def out_of_core_phases(dev, card) -> dict:
         TSQRLeastSquaresEstimator,
     )
     from keystone_tpu_torch import faults
+    from keystone_tpu_torch.compile import segment
     from keystone_tpu_torch.nodes.util import ClassLabelIndicators, MaxClassifier
     from keystone_tpu_torch.pipelines import timit
     from keystone_tpu_torch.utils import timing
@@ -1713,6 +1733,7 @@ def out_of_core_phases(dev, card) -> dict:
     steps0 = bcd.solve_blockwise_l2_streaming.block_steps
     chunked = LabeledData(train_labels, ChunkedDataset.from_array(frames, OOC_CHUNK))
     phases = {}
+    segment.reset_path_counts()  # the segment runs' paths, counted untraced
     with Probe() as probe, ScanLog() as scans:
         probe.watch_fit(Pipeline)
         probe.watch(BlockLeastSquaresEstimator, "fit")
@@ -1720,6 +1741,7 @@ def out_of_core_phases(dev, card) -> dict:
         scorer, tr_err, te_err, seconds = timit.run(chunked, test, conf, dev, phases)
         fit_graph = probe.last["RuleExecutor.execute:fit"][0]
         fitted = scorer.and_then(MaxClassifier()).fit()
+    segment_paths = Counter(segment.path_counts())
     peak = torch.cuda.max_memory_allocated()
     steps = bcd.solve_blockwise_l2_streaming.block_steps - steps0
     fit_scans = [s for s in scans if s.label in ("column_means", "bcd.stream")]
@@ -1765,7 +1787,38 @@ def out_of_core_phases(dev, card) -> dict:
           f"fitted chain {chain(fitted)}")
     check([len(g) for g in fused_steps(fit_graph)] == [full_steps, full_steps],
           f"fit-graph fused groups {[len(g) for g in fused_steps(fit_graph)]}")
+    mapper_on = next(op for op in fitted.graph.operators.values()
+                     if isinstance(op, BlockLinearMapper))
+    Xtest = test.data.to_array().to(dev)
+    preds_on = fitted.apply(Xtest).to_array()
     del scorer, fitted, fit_graph, feat_only, probe, chunked
+
+    # -- segment_chunked: that fit's segments ran the chunked path; the same
+    # fit under node dispatch gives the same model
+    name, t0 = start("segment_chunked")
+    chunked = LabeledData(train_labels, ChunkedDataset.from_array(frames, OOC_CHUNK))
+
+    def node_fit():
+        scorer_, tr_, te_, seconds_ = timit.run(chunked, test, conf, dev, {})
+        fitted_ = scorer_.and_then(MaxClassifier()).fit()
+        return fitted_, tr_, te_, seconds_, fitted_.apply(Xtest).to_array()
+
+    fitted_off, tr_off, te_off, seconds_off, preds_off = with_env(
+        "KEYSTONE_SEGMENT_COMPILE", "0", node_fit)
+    mapper_off = next(op for op in fitted_off.graph.operators.values()
+                      if isinstance(op, BlockLinearMapper))
+    W_on, W_off = mapper_on._W, mapper_off._W
+    w_dev = ((W_on - W_off).abs() - (2e-4 + 2e-3 * W_off.abs())).max().item()
+    finish(name, t0, {
+        "paths_on": dict(segment_paths), "train_error": [tr_err, tr_off],
+        "test_error": [te_err, te_off], "run_seconds": [seconds, seconds_off],
+        "W_max_abs_dev": (W_on - W_off).abs().max().item(), "W_bit_equal": bool(torch.equal(W_on, W_off)),
+        "W_rtol": 2e-3, "W_atol": 2e-4, "predictions_equal": bool(torch.equal(preds_on, preds_off))})
+    check(segment_paths.get("chunked", 0) >= 1 and set(segment_paths) <= {"chunked", "compiled"},
+          f"exec.segment paths {dict(segment_paths)}")
+    check(w_dev <= 0, f"W with segments {w_dev} beyond rtol 2e-3 / atol 2e-4 of node dispatch")
+    check(bool(torch.equal(preds_on, preds_off)), "segment and node dispatch predict differently")
+    del fitted_off, mapper_on, mapper_off, W_on, W_off, preds_on, preds_off, Xtest, chunked
 
     # -- absorb_timit: a snapshot fit on 16 chunks, 2 more absorbed ------
     name, t0 = start("absorb_timit")
@@ -2471,6 +2524,7 @@ BCD_WARM_LIMIT = 1.02  # a warm member's objective against a cold fit's (the JAX
 # the card tests of the out-of-core scan, the weighted fit, the faults and
 # the tracer: one pytest process, which reaches the card once
 CARD_TEST_FILES = ("tests/test_torch_cuda_streaming.py",
+                   "tests/test_torch_cuda_segment.py",
                    "tests/test_torch_cuda_weighted_streaming.py",
                    "tests/test_torch_cuda_faults.py",
                    "tests/test_torch_cuda_obs.py",
@@ -2664,9 +2718,10 @@ class K1Shapes:
 
 
 class SweepLog:
-    """While entered: the full-size runs of ``cls.batch_transform`` (a
-    result of ``rows`` rows; with ``keep``, the first one's result is kept,
-    and its memory with it), and each BlockLeastSquaresEstimator fit's λ,
+    """While entered: the full-size runs of a ``cls`` node (a result of
+    ``rows`` rows from its ``batch_transform``, or a dispatched segment
+    holding it run on ``rows`` rows; with ``keep``, the first one's result
+    is kept, and its memory with it), and each BlockLeastSquaresEstimator fit's λ,
     warm start and block steps, the steps counted on the fit's own thread
     (a sweep's fits overlap)."""
 
@@ -2674,13 +2729,14 @@ class SweepLog:
         self.cls, self.rows, self.keep = cls, rows, keep
 
     def __enter__(self) -> "SweepLog":
+        from keystone_tpu_torch.compile.segment import SegmentBinding
         from keystone_tpu_torch.linalg import bcd
         from keystone_tpu_torch.nodes.learning.linear import BlockLeastSquaresEstimator
 
         self.featurized, self.features, self.fits = 0, None, []
         local, lock, log = threading.local(), threading.Lock(), self
-        step, fit, bt = (bcd._block_update_impl, BlockLeastSquaresEstimator.fit,
-                         self.cls.batch_transform)
+        step, fit, bt, seg_run = (bcd._block_update_impl, BlockLeastSquaresEstimator.fit,
+                                  self.cls.batch_transform, SegmentBinding.run)
 
         def counted_step(*args, **kwargs):
             local.steps = getattr(local, "steps", 0) + 1
@@ -2706,11 +2762,25 @@ class SweepLog:
                         log.features = out
             return out
 
+        def counted_segment(binding, datasets):
+            # a segment runs its members without their batch_transform (its
+            # fallback path calls it, and is counted there)
+            outs, path = seg_run(binding, datasets)
+            if (path != "fallback" and datasets and len(datasets[0]) == log.rows
+                    and any(isinstance(op, log.cls) for op, _ in binding.steps)):
+                with lock:
+                    log.featurized += 1
+                    if log.keep and log.features is None and len(binding.steps) == 1:
+                        log.features = outs[0]
+            return outs, path
+
         self._step, self._undo = (bcd, step, counted_step), [
-            (BlockLeastSquaresEstimator, "fit", fit), (self.cls, "batch_transform", bt)]
+            (BlockLeastSquaresEstimator, "fit", fit), (self.cls, "batch_transform", bt),
+            (SegmentBinding, "run", seg_run)]
         bcd._block_update_impl = counted_step
         BlockLeastSquaresEstimator.fit = logged_fit
         self.cls.batch_transform = counted_bt
+        SegmentBinding.run = counted_segment
         return self
 
     def __exit__(self, *exc) -> None:
@@ -2913,6 +2983,8 @@ def observe_phases(cli, dev, card, slice_ref, mnist_ref) -> dict:
         with open(path) as f:
             events = json.load(f)["traceEvents"]
         nodes = [e for e in events if e["ph"] == "X" and "node" in e["args"]]
+        # a dispatched segment's captures are counted in its exec.segment span
+        segments = [e for e in events if e["ph"] == "X" and e["name"] == "exec.segment"]
         # K1 runs in the KRR fit and in the applies of its model, which the
         # application's lazy pulls make through delegating nodes
         k1_nodes = [e for e in nodes if e["args"].get("op_type") in
@@ -2929,7 +3001,8 @@ def observe_phases(cli, dev, card, slice_ref, mnist_ref) -> dict:
             "node_spans_with_sync": sum(1 for e in nodes if e["args"].get("sync_ms")),
             "k1_node_spans": [{k: e["args"].get(k) for k in ("op_type", "cache", "sync_ms")}
                               for e in k1_nodes],
-            "compiles": sum(e["args"].get("compiles", 0) for e in nodes),
+            "segment_paths": sorted(e["args"].get("path") for e in segments),
+            "compiles": sum(e["args"].get("compiles", 0) for e in nodes + segments),
             "top_spans": {k: v["seconds"] for k, v in sorted(
                 tracer.span_summary().items(), key=lambda kv: -kv[1]["seconds"])[:8]},
         }
@@ -2946,7 +3019,8 @@ def observe_phases(cli, dev, card, slice_ref, mnist_ref) -> dict:
               and sum(bool(e["sync_ms"]) for e in r["k1_node_spans"]
                       if e["op_type"] == "DelegatingOperator") >= 2,
               f"{run}: the K1-bearing node spans {r['k1_node_spans']}")
-        check(r["compiles"] >= 1, f"{run}: no CUDA-graph capture counted in the node spans")
+        check(r["compiles"] >= 1,
+              f"{run}: no CUDA-graph capture counted in the node and segment spans")
         check(r["k1_launches"] == SLICE_LAUNCHES, f"{run}: K1 launched {r['k1_launches']} times")
         check(r["test_error"] < 0.7, f"{run}: test error {r['test_error']}")
     check(runs["second"]["sampling_executions"]["total"] == 0,
@@ -3511,6 +3585,298 @@ def aot_phases(dev, card, scores, X_host, eager) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+SEGMENT_SPLIT = 2500  # segment_prewarm's second signature: the first rows of the test set
+SEGMENT_LIMIT = 1e-5  # an exported segment's scores against node dispatch's
+
+
+def _segment_programs():
+    """(dispatcher, its programs' callables) of every live segment
+    dispatcher."""
+    from keystone_tpu_torch.compile import segment
+
+    return [(d, [p.fn for p in d._by_sig.values()]) for d in segment._DISPATCHERS.values()]
+
+
+def _segment_apply(fitted, X):
+    """(scores, K1 launches, exec.segment paths, seconds) of one apply,
+    synchronized, under a tracer."""
+    from keystone_tpu_torch.obs import tracer as trace_mod
+    from keystone_tpu_torch.ops import gaussian_kernel as gk
+
+    tracer = trace_mod.install(trace_mod.Tracer())
+    try:
+        torch.cuda.synchronize()
+        gk.gaussian_kernel_block.launches = 0
+        t0 = time.perf_counter()
+        out = fitted.apply(X).to_array()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        paths = [sp.attrs.get("path") for sp in tracer.spans() if sp.name == "exec.segment"]
+        return out, gk.gaussian_kernel_block.launches, paths, seconds
+    finally:
+        trace_mod.reset()
+
+
+def segment_phases(card, scores, Xt, labels) -> dict:
+    """Segment dispatch of the fitted full-width RandomPatchCifarKernel
+    scores chain (the fused featurizer, the scaler and the K1 mapper, one
+    segment that is not row-local, so one program a batch).
+
+    ``segment_cifar``: the 10000 test rows applied three times with
+    segments on (each run eager: a whole batch is never captured) and once
+    with ``KEYSTONE_SEGMENT_COMPILE=0``: every run bit-equal to node
+    dispatch, predictions equal, test error < 0.7, the spans' path
+    ``compiled``, K1 10 launches a run. Then against a fresh
+    AOT cache directory of its own: a cold executor exports one program a
+    signature (the 10000 rows, then the first 2500), each naming K1 10
+    times; a warm one loads both, traces 0, and answers bit-equal.
+    ``segment_prewarm``: ``prewarm_segment_artifacts`` with a budget of
+    2500 rows of elements warms the 2500-row program and skips the other;
+    a later executor traces 0. ``flight_fault``: a ``KEYSTONE_FAULTS`` plan
+    on ``aot.read`` degrades the first cache read to a miss (one export
+    again) and the flight dump holds ``fault.inject`` and
+    ``aot.read_degraded``; then the memory watermark after a scan against
+    the allocator's peak over the same window. Returns the K1 launches of
+    each run."""
+    from keystone_tpu_torch import compile as compile_mod
+    from keystone_tpu_torch import faults
+    from keystone_tpu_torch.compile import segment
+    from keystone_tpu_torch.data.chunked import ChunkedDataset
+    from keystone_tpu_torch.obs import flight, resource
+    from keystone_tpu_torch.obs.flight import SITE_INSTANTS
+    from keystone_tpu_torch.obs.ledger import CompileLedger
+    from keystone_tpu_torch.ops import gaussian_kernel as gk
+
+    launches = {}
+    segment.reset_dispatchers()
+    runs = {}
+    for run in ("on_first", "on_second", "on_third"):
+        runs[run] = _segment_apply(scores, Xt)
+    runs["off"] = with_env("KEYSTONE_SEGMENT_COMPILE", "0", lambda: _segment_apply(scores, Xt))
+    node = runs["off"][0]
+    preds = {k: r[0].argmax(1) for k, r in runs.items()}
+    test_error = (preds["on_first"].cpu() != labels).float().mean().item()
+    devs = {k: (r[0] - node).abs().max().item() for k, r in runs.items()}
+    launches.update({f"segment_cifar_{k}": r[1] for k, r in runs.items()})
+    row = {"phase": "segment_cifar", "rows": int(Xt.shape[0]), "test_error": test_error,
+           "seconds": {k: r[3] for k, r in runs.items()},
+           "k1_launches": {k: r[1] for k, r in runs.items()},
+           "paths": {k: r[2] for k, r in runs.items()},
+           "max_abs_dev_from_node_dispatch": devs, "limit": SEGMENT_LIMIT,
+           "eager_bit_equal_node": bool(torch.equal(runs["on_first"][0], node)),
+           "predictions_equal": all(bool(torch.equal(p, preds["off"])) for p in preds.values())}
+    check(test_error < 0.7, f"segment_cifar test error {test_error}")
+    check(all(runs[k][2] == ["compiled"] for k in ("on_first", "on_second", "on_third"))
+          and runs["off"][2] == [], f"exec.segment paths {row['paths']}")
+    check(set(row["k1_launches"].values()) == {SERVE_BLOCKS}, f"K1 launches {row['k1_launches']}")
+    check(row["eager_bit_equal_node"] and max(devs.values()) == 0.0 and row["predictions_equal"],
+          f"segment scores off node dispatch: {devs}")
+
+    root = tempfile.mkdtemp(prefix="keystone-segment-aot-")
+    try:
+        cache = compile_mod.configure(root)
+        segment.reset_dispatchers()
+        cold = {"full": _segment_apply(scores, Xt), "split": _segment_apply(scores, Xt[:SEGMENT_SPLIT])}
+        ((disp, programs),) = _segment_programs()
+        cold_counts = (disp.traced_count, disp.loaded_count)
+        k1_per_program = sorted(_k1_calls(p) for p in programs)
+        entries = {key: nbytes for key, nbytes, _ in cache.entries()}
+        segment.reset_dispatchers()  # a new process's view of the cache
+        warm = {"full": _segment_apply(scores, Xt), "split": _segment_apply(scores, Xt[:SEGMENT_SPLIT])}
+        ((disp, _),) = _segment_programs()
+        warm_counts = (disp.traced_count, disp.loaded_count)
+        bit_equal = {k: bool(torch.equal(cold[k][0], warm[k][0])) for k in cold}
+        ledger = CompileLedger.for_cache_root(cache.root)
+        row["aot"] = {
+            "cold_traced_loaded": cold_counts, "warm_traced_loaded": warm_counts,
+            "k1_per_program": k1_per_program, "entry_bytes": sorted(entries.values()),
+            "cache_bytes": sum(entries.values()), "cache_bound_bytes": cache.max_bytes,
+            "evictions": len(ledger.entries("evict")),
+            "trace": [{k: r.get(k) for k in ("seconds", "inputs")} for r in ledger.entries("trace")
+                      if r.get("kind") == "segment"],
+            "export": [{k: r.get(k) for k in ("seconds", "save_seconds", "nbytes")}
+                       for r in ledger.entries("export") if r.get("kind") == "segment"],
+            "load": [{k: r.get(k) for k in ("seconds", "nbytes")}
+                     for r in ledger.entries("load") if r.get("kind") == "segment"],
+            "seconds": {f"{w}_{k}": r[3] for w, runs_ in (("cold", cold), ("warm", warm))
+                        for k, r in runs_.items()},
+            "k1_launches": {f"{w}_{k}": r[1] for w, runs_ in (("cold", cold), ("warm", warm))
+                            for k, r in runs_.items()},
+            "cold_max_abs_dev_from_node_dispatch": (cold["full"][0] - node).abs().max().item(),
+            "warm_bit_equal_cold": bit_equal}
+        launches.update({f"segment_cifar_aot_{k}": v for k, v in row["aot"]["k1_launches"].items()})
+        row["card"] = card
+        emit(row)
+        check(cold_counts == (2, 0) and warm_counts == (0, 2),
+              f"traced/loaded cold {cold_counts}, warm {warm_counts}")
+        check(k1_per_program == [SERVE_BLOCKS, SERVE_BLOCKS],
+              f"K1 calls in the exported segment programs: {k1_per_program}")
+        check(all(bit_equal.values()), f"warm segment scores differ from cold: {bit_equal}")
+        check(row["aot"]["cold_max_abs_dev_from_node_dispatch"] <= SEGMENT_LIMIT,
+              f"the exported segment is {row['aot']['cold_max_abs_dev_from_node_dispatch']} off")
+
+        # -- segment_prewarm: the manifest's programs under an element budget
+        segment.reset_dispatchers()
+        budget = SEGMENT_SPLIT * int(Xt[0].numel())
+        gk.gaussian_kernel_block.launches = 0
+        t0 = time.perf_counter()
+        warmed = segment.prewarm_segment_artifacts(cache, max_elements=budget)
+        prewarm_seconds = time.perf_counter() - t0
+        launches["segment_prewarm"] = gk.gaussian_kernel_block.launches
+        sigs = [s for d in compile_mod.segment_digests(cache)
+                for s in compile_mod.segment_signatures(cache, d)]
+        over = [s for s in sigs if sum(math.prod(shape) for shape, _ in s) > budget]
+        later = {"full": _segment_apply(scores, Xt), "split": _segment_apply(scores, Xt[:SEGMENT_SPLIT])}
+        ((disp, _),) = _segment_programs()
+        later_counts = (disp.traced_count, disp.loaded_count)
+        launches.update({f"segment_prewarm_later_{k}": r[1] for k, r in later.items()})
+        emit({"phase": "segment_prewarm", "max_elements": budget,
+              "signatures": [[list(sh) for sh, _ in s] for s in sigs],
+              "over_budget": len(over), "warmed": warmed, "seconds": prewarm_seconds,
+              "later_traced_loaded": later_counts,
+              "later_bit_equal_cold": {k: bool(torch.equal(later[k][0], cold[k][0])) for k in later},
+              "card": card})
+        check(len(sigs) == 2 and len(over) == 1 and warmed == 1,
+              f"prewarm warmed {warmed} of {len(sigs)} signatures, {len(over)} over budget")
+        check(later_counts == (0, 2), f"after prewarm: traced/loaded {later_counts}")
+
+        # -- flight_fault: an aot.read fault, its instants in the flight dump
+        flight_dir = tempfile.mkdtemp(prefix="keystone-flight-")
+        segment.reset_dispatchers()
+        flight.reset()
+        faults.clear()
+        plan = "aot.read=transient@0"
+        out = with_env("KEYSTONE_FAULTS", plan,
+                       lambda: _segment_apply(scores, Xt[:SEGMENT_SPLIT]))
+        launches["flight_fault"] = out[1]
+        ((disp, _),) = _segment_programs()
+        fault_counts = (disp.traced_count, disp.loaded_count)
+        path = flight.dump("flight_fault", path=os.path.join(flight_dir, "flight.json"))
+        with open(path) as f:
+            doc = json.load(f)
+        names = [e["name"] for e in doc["entries"]]
+        injected = [e for e in doc["entries"] if e["name"] == "fault.inject"]
+        # the watermark: a scan of card chunks, sampled at its end, against
+        # the allocator's peak over the same window
+        resource.reset()
+        X = torch.randn(64 * 4096, 1024, device=Xt.device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ds = ChunkedDataset.from_chunk_fn(lambda i: X[i * 4096:(i + 1) * 4096], 64, 64 * 4096)
+        total = sum(float((c * 2.0).sum()) for c in ds.chunks())
+        torch.cuda.synchronize()
+        wm_peak = resource.watermark().peak
+        peak = torch.cuda.max_memory_allocated()
+        del X, ds
+        emit({"phase": "flight_fault", "plan": plan, "traced_loaded": fault_counts,
+              "dump": path, "entries": len(doc["entries"]), "names": sorted(set(names)),
+              "fault_inject": [e.get("attrs") for e in injected],
+              "recovery_instant": SITE_INSTANTS["aot.read"],
+              "bit_equal_cold": bool(torch.equal(out[0], cold["split"][0])),
+              "watermark_peak_bytes": wm_peak, "max_memory_allocated_bytes": peak,
+              "watermark_over_peak": wm_peak / peak, "scan_sum": total, "card": card})
+        check(fault_counts == (1, 0), f"a degraded read exports again: {fault_counts}")
+        check([e["attrs"].get("site") for e in injected] == ["aot.read"],
+              f"fault.inject instants {injected}")
+        check(SITE_INSTANTS["aot.read"] in names, f"no {SITE_INSTANTS['aot.read']} in {names}")
+        check(abs(wm_peak - peak) <= 0.05 * peak,
+              f"the watermark's peak {wm_peak} B is more than 5 % off the allocator's {peak} B")
+        shutil.rmtree(flight_dir, ignore_errors=True)
+    finally:
+        faults.clear()
+        compile_mod.reset()
+        segment.reset_dispatchers()
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def segment_apply_cost(name, fitted, X, card) -> None:
+    """``segment_apply_<name>``: the first apply of a fitted chain (its
+    segment plan dropped) with segments on against the same apply with them
+    off, in one run: off, on (the first: it plans and captures its row
+    chunks), on (the second: the plan kept, the graphs replayed), off
+    again. Beside them the planning alone and the segments' digests alone:
+    with no cache and no profile store a plan computes no digest, so what a
+    first apply adds is its planning and its captures. The predictions of
+    both dispatches equal."""
+    from keystone_tpu_torch.compile import segment
+    from keystone_tpu_torch.workflow.executor import GraphExecutor
+    from keystone_tpu_torch.workflow.pipeline import _bind_source, attach_data
+
+    def timed(run):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        value = run()
+        torch.cuda.synchronize()
+        return value, time.perf_counter() - t0
+
+    def apply():
+        return fitted.apply(X).to_array()
+
+    def node_apply():
+        return with_env("KEYSTONE_SEGMENT_COMPILE", "0", apply)
+
+    segment.reset_dispatchers()
+    fitted._segment_plan = None
+    seconds = {}
+    y_off, seconds["off"] = timed(node_apply)
+    segment.reset_path_counts()
+    y_on, seconds["on_first"] = timed(apply)
+    _, seconds["on_second"] = timed(apply)
+    paths = segment.path_counts()
+    _, seconds["off_again"] = timed(node_apply)
+    graph = _bind_source(fitted.graph, fitted._source, attach_data, X)
+    plan, plan_seconds = timed(lambda: GraphExecutor(graph, optimize=False)
+                               ._plan_segment_bindings())
+    bindings = list({id(b): b for b in plan.values()}.values())
+    _, digest_seconds = timed(lambda: [b.digest for b in bindings])
+    equal = bool(torch.equal(y_on, y_off))
+    emit({"phase": f"segment_apply_{name}", "rows": int(X.shape[0]), "seconds": seconds,
+          "plan_seconds": plan_seconds, "digest_seconds": digest_seconds,
+          "segments": [len(b) for b in bindings], "paths_on": paths,
+          "predictions_equal": equal, "card": card})
+    check(equal, f"{name}: segment and node dispatch predict differently")
+    check(paths.get("compiled", 0) == 2 and set(paths) == {"compiled"},
+          f"{name}: segment paths {paths}")
+    segment.reset_dispatchers()
+    del plan, bindings, graph
+
+
+def segment_mnist_phase(cli, bcd, card, on, preds_on, Xm) -> None:
+    """``segment_mnist``: MnistRandomFFT at 200 FFTs run again through the
+    command line with ``KEYSTONE_SEGMENT_COMPILE=0``, against the run with
+    segments on (``mnist_full_width``, whose peak is the gated one): test
+    errors < 0.35, 50 block steps each, the test predictions equal. First,
+    ``segment_apply_mnist`` (:func:`segment_apply_cost`) on the run's
+    fitted chain."""
+    from keystone_tpu_torch.nodes.util import MaxClassifier
+
+    segment_apply_cost("mnist", on["scorer"].and_then(MaxClassifier()).fit(), Xm, card)
+
+    def node_run():
+        out = cli_run(cli, bcd, MNIST_FULL)
+        preds = out["scorer"].and_then(MaxClassifier()).fit().apply(Xm).to_array()
+        return out, preds
+
+    off, preds_off = with_env("KEYSTONE_SEGMENT_COMPILE", "0", node_run)
+    feature_bytes = 60000 * MNIST_FULL_FFTS * 512 * 4
+    equal = bool(torch.equal(preds_off.cpu(), preds_on))
+    emit({"phase": "segment_mnist", "num_ffts": MNIST_FULL_FFTS,
+          "test_error": {"on": on["test_error"], "off": off["test_error"]},
+          "block_steps": {"on": on["block_steps"], "off": off["block_steps"]},
+          "seconds": {"on": on["seconds"], "off": off["seconds"]},
+          "phase_seconds": {"on": on["phases"], "off": off["phases"]},
+          "peak_mem_gb": {"on": on["peak_mem_bytes"] / 1e9, "off": off["peak_mem_bytes"] / 1e9},
+          "peak_over_features_on": on["peak_mem_bytes"] / feature_bytes,
+          "predictions_equal": equal, "card": card})
+    check(on["test_error"] < 0.35 and off["test_error"] < 0.35,
+          f"test errors {on['test_error']} / {off['test_error']}")
+    check(on["block_steps"] == off["block_steps"] == MNIST_FULL_STEPS,
+          f"block steps {on['block_steps']} / {off['block_steps']}")
+    check(on["peak_mem_bytes"] < 1.5 * feature_bytes, f"peak {on['peak_mem_bytes']} B with segments")
+    check(equal, "segment and node dispatch predict differently at 200 FFTs")
+
+
 def aot_coldstart_phase(card) -> None:
     """``aot_coldstart``: ``python -m keystone_tpu_torch.compile.coldstart``
     twice in fresh processes on the card against one cache directory: the
@@ -3770,7 +4136,8 @@ def main() -> int:
 
     # -- one-program apply of the fitted full-width CIFAR chain ----------
     scores = out["scorer"].fit()  # fit-once: the run's fits, no new one
-    Xt_host = synthetic_cifar(10000, seed=2).data.to_array().numpy()  # the CLI's test set
+    cifar_test = synthetic_cifar(10000, seed=2)  # the CLI's test set
+    Xt_host = cifar_test.data.to_array().numpy()
     Xt = torch.from_numpy(Xt_host).to(dev)
     secs = {}
     t0 = clock()
@@ -3811,6 +4178,9 @@ def main() -> int:
     serve_launches = serve_phases(dev, card, scores, Xt_host, eager)
     # -- the same chain booted cold, then warm, from the AOT cache (slice 16)
     aot_launches = aot_phases(dev, card, scores, Xt_host, eager)
+    # -- segment dispatch of the same chain, exported and prewarmed (slice 17)
+    segment_launches = segment_phases(card, scores, Xt, cifar_test.labels.to_array())
+    del cifar_test
 
     # -- the KRR family on 8000 of the fit's features: the chooser picks
     # the exact solve, whose kernel is two K1 column blocks ------------
@@ -3973,7 +4343,10 @@ def main() -> int:
     check(traces["captured"]["host_launches"] * 10 < traces["eager"]["host_launches"],
           f"host launches {traces['captured']['host_launches']} captured, "
           f"{traces['eager']['host_launches']} eager")
-    del fitted, out, Xm, Xtr, fused, mtrain, mtest
+    del fitted, Xtr, fused, mtrain, mtest
+    # -- the same application with segments off: answers and steps equal
+    segment_mnist_phase(cli, bcd, card, out, mnist_ref["predictions"], Xm)
+    del out, Xm
 
     # -- the optimizer at 200 FFTs, cold: composing digests every sign ----
     fresh_env()
@@ -4020,7 +4393,7 @@ def main() -> int:
         "plain_ms": fit["plain_ms"], "bound_ms": fit["bound_ms"],
         "bound_by": fit["bound_by"], "library_ms": fit["library_ms"],
         "launches_by_path": {"slice": launches, "compiled_cifar": compiled_launches,
-                             **serve_launches, **aot_launches,
+                             **serve_launches, **aot_launches, **segment_launches,
                              "krr_family": krr_launches, "timit_full_width": timit_k1,
                              "cifar_family": cifar_family_k1, "voc": voc_k1, **imagenet_k1,
                              **text_k1, **ooc_k1, **weighted_k1, **resumable_k1,

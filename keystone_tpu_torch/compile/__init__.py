@@ -1,5 +1,5 @@
-"""AOT pipeline compilation with a persistent executable cache (port of
-``keystone_tpu/compile/``, without segment dispatch).
+"""AOT pipeline compilation with a persistent executable cache, and
+segment dispatch (port of ``keystone_tpu/compile/``).
 
 A :class:`~keystone_tpu_torch.workflow.pipeline.FittedPipeline` boots like
 an offline artifact: the first process to compile a (pipeline, input
@@ -13,7 +13,13 @@ Layout of a cache directory::
 
     <dir>/entries/<pipeline-digest>-<signature-digest>.aot   # a saved program
     <dir>/manifest/<pipeline-digest>/<signature>.json        # what it exported
+    <dir>/manifest-segments/<segment-digest>/<signatures>.json  # a segment's exports
     <dir>/compile-ledger.ndjson                              # every trace/load
+
+A segment entry (``compile/segment.py``) is keyed by the segment's content
+digest and its input-signature tuple, under the same ``entries/`` and
+LRU bound: the executor's segment dispatch exports each segment program it
+runs, so a warm fit or apply loads them and traces nothing.
 
 There is no XLA compilation-cache layer under it (the JAX package layers
 ``<dir>/xla``): the saved program is the whole warm-boot state.
@@ -37,7 +43,22 @@ from .fingerprint import (
     environment_key,
     pipeline_fingerprint,
 )
-from .manifest import exported_signatures, record_export
+from .manifest import (
+    exported_signatures,
+    record_export,
+    record_segment,
+    segment_digests,
+    segment_signatures,
+)
+from .segment import (
+    SegmentBinding,
+    SegmentDispatcher,
+    bind_segment,
+    dispatcher_for,
+    lower_segment,
+    prewarm_segment_artifacts,
+    reset_dispatchers,
+)
 
 __all__ = [
     "AotDispatcher",
@@ -51,8 +72,18 @@ __all__ = [
     "get_cache",
     "pipeline_fingerprint",
     "record_export",
+    "record_segment",
     "reset",
+    "reset_dispatchers",
+    "segment_digests",
+    "segment_signatures",
     "signature_of",
+    "SegmentBinding",
+    "SegmentDispatcher",
+    "bind_segment",
+    "dispatcher_for",
+    "lower_segment",
+    "prewarm_segment_artifacts",
 ]
 
 logger = logging.getLogger(__name__)

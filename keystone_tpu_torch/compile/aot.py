@@ -78,6 +78,16 @@ def _load_program(payload: bytes) -> Callable:
     return torch.export.load(io.BytesIO(payload)).module()
 
 
+def _without_example_inputs(exported: Any) -> Any:
+    """``exported`` with no example inputs to save: a row chunk is a view,
+    and saving it would write its whole base tensor into the entry."""
+    try:
+        exported.example_inputs = None
+    except (AttributeError, TypeError, ValueError):
+        logger.debug("aot: example inputs kept in the saved program", exc_info=True)
+    return exported
+
+
 class AotDispatcher:
     """Resolves one callable per input signature, cache-first.
 
@@ -264,7 +274,7 @@ class AotDispatcher:
         payload = b""
         try:
             buf = io.BytesIO()
-            torch.export.save(exported, buf)
+            torch.export.save(_without_example_inputs(exported), buf)
             payload = buf.getvalue()
             self._cache.store(
                 key,

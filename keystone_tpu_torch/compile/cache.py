@@ -158,13 +158,13 @@ class ExecutableCache:
                     "aot cache: transient read fault for %s — degrading "
                     "to a miss", key,
                 )
-                # the recovery instant for the aot.read fault site: the
-                # degrade-to-miss verdict is visible in a trace, not only
-                # in the log stream (the JAX package also records it in
-                # its flight recorder, which comes with the serving half
-                # of obs/)
+                # the recovery instant of the aot.read fault site, in the
+                # flight ring always and in a trace when tracing: the
+                # degrade-to-miss verdict is not only in the log stream
+                from ..obs import flight
                 from ..obs.tracer import current as _trace_current
 
+                flight.record_instant("aot.read_degraded", key=key)
                 tracer = _trace_current()
                 if tracer is not None:
                     tracer.instant(

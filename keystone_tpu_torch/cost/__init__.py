@@ -18,13 +18,15 @@ isolated by environment; ``cost/store.py``):
   implementation for one pipeline;
 * ``plan/<graph-fp>``: per-node observed seconds and bytes (and the
   measured estimate-against-observed ``ratio``) for one pipeline, what the
-  cache planner plans from with zero sampling executions.
+  cache planner plans from with zero sampling executions;
+* ``plan/segment/<digest>``: one dispatched segment's compiles, runs and
+  seconds, and whether the evidence demoted it to node dispatch
+  (``cost/segments.py``).
 
 ``KEYSTONE_PROFILE_DIR=<dir>`` (or the CLI's ``--profiles``, or
 ``utils.obs.configure(profiles=...)``) turns the store on. Without it the
 subsystem stays cold: choices are the analytic cost model's and nothing
-touches the disk. The JAX package's segment records (``cost/segments.py``)
-come with segment dispatch (``compile/segment.py``).
+touches the disk.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import os
 import threading
 from typing import Dict, Optional
 
+from . import segments
 from .chooser import SolverChoice, SolverChooser
 from .model import CostEstimator, ShapeSignature, op_key
 from .replan import PendingPlan, current_plan, finalize, graph_fingerprint, pending_plan
@@ -43,7 +46,7 @@ __all__ = [
     "CostEstimator", "PendingPlan", "ProfileStore", "ShapeSignature", "SolverChoice",
     "SolverChooser", "configure", "count_sampling", "current_plan", "finalize",
     "get_estimator", "get_store", "graph_fingerprint", "op_key", "pending_plan",
-    "profile_environment", "reset", "reset_sampling", "sampling_executions",
+    "profile_environment", "reset", "reset_sampling", "sampling_executions", "segments",
 ]
 
 logger = logging.getLogger(__name__)

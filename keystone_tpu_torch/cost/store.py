@@ -133,6 +133,18 @@ class ProfileStore:
             raise
         return path
 
+    def update(self, key: str, fn: Callable[[Optional[Dict]], Dict]) -> Optional[Dict]:
+        """Read, modify and write one record: ``fn`` gets the current record
+        (None on a miss) and returns its replacement. A failure is logged
+        and gives None: evidence must never fail a fit."""
+        try:
+            record = fn(self.load(key))
+            self.store(key, record)
+            return record
+        except Exception:
+            logger.warning("profile store: update of %s failed", key, exc_info=True)
+            return None
+
     def load(self, key: str) -> Optional[Dict]:
         """One record, checked; None on a miss, a corrupt record (which is
         deleted) or another environment's record (which is kept)."""

@@ -298,9 +298,11 @@ def active_plan() -> Optional[FaultPlan]:
 
 
 def fault_point(site: str, **attrs) -> None:
-    """The hook: nothing without a plan; with one, raises the scheduled
-    typed error for this invocation of ``site``. ``attrs`` is the matching
-    context (``replica=index``)."""
+    """The hook: nothing without a plan; with one, records a
+    ``fault.inject`` instant (in the flight ring and, when tracing, the
+    tracer) and raises the scheduled typed error for this invocation of
+    ``site``. ``attrs`` is the matching context (``replica=index``) and
+    goes on the instant."""
     plan = active_plan()
     if plan is None:
         return
@@ -309,6 +311,19 @@ def fault_point(site: str, **attrs) -> None:
         return
     invocation = plan.injected.get(site, 1) - 1
     logger.warning("fault injected: site=%s kind=%s attrs=%s", site, kind, attrs)
+    try:
+        from ..obs import flight
+        from ..obs.tracer import current as _trace_current
+
+        # every injection goes into the always-on flight ring, so that a
+        # post-mortem dump shows the plan's hits with tracing off
+        flight.record_instant("fault.inject", site=site, kind=kind, **attrs)
+        tracer = _trace_current()
+        if tracer is not None:
+            tracer.instant("fault.inject", op_type="FaultPlan", site=site, kind=kind, **attrs)
+    except Exception:
+        # recording must never change what the fault does
+        logger.debug("fault.inject instant not recorded", exc_info=True)
     if kind == "kill":
         raise ReplicaKilled(f"injected kill at {site}")
     if kind == "fatal":

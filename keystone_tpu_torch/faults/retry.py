@@ -13,7 +13,8 @@ retries a scan may take; ``KEYSTONE_SCAN_RETRY_BACKOFF`` the base backoff
 in seconds (default 0.05), doubled each attempt up to
 :data:`MAX_BACKOFF_S`. Only errors classified transient retry: the typed
 :class:`TransientError` and the standard library's ``ConnectionError``
-and ``TimeoutError`` (``faults.plan.is_transient``).
+and ``TimeoutError`` (``faults.plan.is_transient``). Each retry records
+a ``retry.attempt`` instant when tracing.
 """
 
 from __future__ import annotations
@@ -61,6 +62,18 @@ class RetryBudget:
         delay = min(self.backoff_s * (2 ** (attempt - 1)), MAX_BACKOFF_S)
         logger.warning("%s: transient failure at %s, retry %d/%d in %.3f s (%s)",
                        self.label, site, attempt, self.budget, delay, exc)
+        try:
+            from ..obs.tracer import current as _trace_current
+
+            # the recovery instant of the scan seams (``obs.flight.SITE_INSTANTS``)
+            tracer = _trace_current()
+            if tracer is not None:
+                tracer.instant("retry.attempt", op_type="RetryBudget", site=site,
+                               attempt=attempt, budget=self.budget, delay_s=round(delay, 4),
+                               label=self.label)
+        except Exception:
+            # recording must never change what the retry does
+            logger.debug("retry.attempt instant not recorded", exc_info=True)
         return delay
 
 

@@ -9,11 +9,16 @@ planner's estimates with what each node was observed to cost.
 
 Enable with ``KEYSTONE_TRACE=/path/trace.json`` (or the CLI's ``--trace
 PATH``); off, every instrumentation point is one ``current() is None``
-check. The serving half of the JAX package's ``obs/`` (flight recorder,
-Prometheus export, ledger, resource sampling, trace contexts) comes with
-the serving tier.
+check.
+
+Always on beside it: the flight recorder (``flight``, a bounded ring of
+span summaries and instants, dumped atomically when asked) and the
+device-memory watermark (``resource``), sampled at a scan's end and at a
+served batch. The Prometheus export and the cross-process trace contexts
+come with the fleet.
 """
 
+from . import flight, resource
 from .audit import cache_audit, log_cache_audit, observed_by_node
 from .export import format_top_spans, to_chrome_trace, write_chrome_trace
 from .scan import SCAN_SPAN, record_scan_span
@@ -39,6 +44,7 @@ __all__ = [
     "cheap_nbytes",
     "current",
     "export",
+    "flight",
     "format_top_spans",
     "install",
     "install_if_absent",
@@ -46,6 +52,7 @@ __all__ = [
     "observed_by_node",
     "record_scan_span",
     "reset",
+    "resource",
     "start",
     "stop",
     "suspended",

@@ -7,9 +7,9 @@ predicted fit seconds, the executor's spans record what each node cost,
 and :func:`cache_audit` joins the two: one row per estimated node with
 estimate, observation and their ratio. A row with ``observed=False`` is a
 finding itself: the node never ran under its planned identity (trace
-fusion absorbed it, which voids its Cacher too). ``segment`` is always
-False here: the JAX package's compiled-segment dispatch, which can subsume
-a node, comes with segment dispatch (``compile/segment.py``).
+fusion absorbed it, which voids its Cacher too), unless ``segment`` says
+that a segment dispatch ran it inside one ``exec.segment`` span, which is
+what segment dispatch is for.
 """
 
 from __future__ import annotations
@@ -52,6 +52,17 @@ def observed_by_node(tracer: Tracer, start: int = 0) -> Dict[str, dict]:
     return out
 
 
+def segment_member_ids(tracer: Tracer, start: int = 0) -> set:
+    """The node ids run inside a dispatched segment (each ``exec.segment``
+    span carries its members' ``node_ids``): such nodes record no span of
+    their own, by design."""
+    out: set = set()
+    for sp in tracer.spans()[start:]:
+        if sp.name == "exec.segment":
+            out.update(str(nid) for nid in sp.attrs.get("node_ids") or ())
+    return out
+
+
 def _ratio(observed: Optional[float], estimated: Optional[float]) -> Optional[float]:
     if observed is None or not estimated:
         return None
@@ -69,6 +80,7 @@ def cache_audit(tracer: Optional[Tracer] = None) -> List[dict]:
     if tracer is None:
         return []
     observed = observed_by_node(tracer)
+    in_segment = segment_member_ids(tracer)
     rows = []
     for node_id, est in tracer.estimates.items():
         obs = observed.get(node_id)
@@ -89,7 +101,9 @@ def cache_audit(tracer: Optional[Tracer] = None) -> List[dict]:
             "bytes_ratio": _ratio(obs_bytes, est["est_bytes"]),
             "cache_hits": 0 if obs is None else obs["hits"],
             "observed": obs is not None,
-            "segment": False,
+            # unobserved because a segment dispatch ran it: expected, not a
+            # finding
+            "segment": obs is None and node_id in in_segment,
         }
         if est.get("kind") == "solver":
             row["solver"] = est.get("solver")
@@ -121,6 +135,9 @@ def log_cache_audit(tracer: Optional[Tracer] = None) -> List[dict]:
             r["node"], label[:40], "[cached]" if r["cacher"] else "        ",
             fmt(r["est_seconds"]), fmt(r["est_bytes"]), fmt(r["obs_seconds"]),
             fmt(r["obs_bytes"]), fmt(r["seconds_ratio"]), fmt(r["bytes_ratio"]),
-            r["cache_hits"], "" if r["observed"] else " NEVER OBSERVED (fused away or unexecuted)",
+            r["cache_hits"],
+            "" if r["observed"] else (
+                " SUBSUMED BY SEGMENT (run inside a dispatched segment)" if r["segment"]
+                else " NEVER OBSERVED (fused away or unexecuted)"),
         )
     return rows

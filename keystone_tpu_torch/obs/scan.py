@@ -10,10 +10,10 @@ bytes, the queue's peak occupancy and the chunk count. A scan that
 overlaps well reads ``seconds`` near max(producer, consumer) work, not
 their sum, and the stall counters say which side bounded it.
 
-Left out: the JAX package's memory-watermark seam
-(``resource.sample_memory()``) waits for ``obs/resource.py`` with the
-serving half of ``obs/``; the per-lane child spans wait for laned scans
-(``parallel/``).
+A scan's end is an allocation peak (staged chunks and the accumulators
+alive), so the device-memory watermark (``resource.sample_memory()``) is
+sampled there, traced or not. Left out: the per-lane child spans wait for
+laned scans (``parallel/``).
 """
 
 from __future__ import annotations
@@ -29,7 +29,10 @@ SCAN_SPAN = "scan.pipeline"
 
 def record_scan_span(stats) -> Optional[Span]:
     """Record one finished scan's counters as a complete span; returns it,
-    or None when tracing is off."""
+    or None when tracing is off. Samples the memory watermark either way."""
+    from . import resource
+
+    resource.sample_memory()
     tracer = current()
     if tracer is None:
         return None

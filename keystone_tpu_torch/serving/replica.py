@@ -24,8 +24,12 @@ With an AOT executable cache configured (``compile.configure``,
 ``aot_loads`` counter, zero traces), exported and saved on a miss (the
 ``compiles`` counter), and captured as one CUDA graph a bucket either way.
 
-Not ported yet: the flight-recorder, resource-accounting and cross-process
-trace hooks (the serving half of ``obs/``), and the fleet's parts.
+Each batch leaves one span summary in the always-on flight recorder
+(``obs/flight.py``) and samples the device-memory watermark
+(``obs/resource.py``). Not ported yet: the per-request cost split by
+tenant (the port's requests carry no tenant until the fleet's
+quality-of-service identity), the cross-process trace hooks, and the
+fleet's parts.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ import numpy as np
 import torch
 
 from ..faults import REPLICA_BATCH, ReplicaDown, fault_point, is_transient
+from ..obs import flight, resource
 from ..obs.tracer import current as _trace_current
 from ..utils import timing
 from ..workflow.pipeline import FittedPipeline, NotTraceableError, _Compiled, _param_device
@@ -323,6 +328,7 @@ class Replica:
         padded = self._policy.pad(np.stack(rows), bucket)
         compiled = self._compiled  # one read: the whole batch runs on it
         tracer = _trace_current()
+        t0 = time.perf_counter()
         try:
             # the span is not named "serve.batch" (the phase's name), so an
             # export joining phases and spans has no clash
@@ -340,6 +346,10 @@ class Replica:
         except Exception as e:  # a batch-level failure: every member errors
             self._fail(valid, e)
             return 0
+        # with tracing off, this summary is what a post-mortem dump shows the
+        # replica doing in the seconds before its trigger
+        flight.record_span("serve.microbatch", time.perf_counter() - t0, items=len(valid),
+                           bucket=bucket, replica=self.index)
 
         done = time.monotonic()
         for i, r in enumerate(valid):
@@ -350,6 +360,8 @@ class Replica:
             self._metrics.observe_latency(done - r.enqueued, priority=r.priority)
         self._metrics.inc("completed", len(valid))
         self._metrics.observe_batch(len(valid), bucket, replica=self.index)
+        # the batch seam of the device-memory watermark (throttled)
+        resource.sample_memory()
         return len(valid)
 
     def _fail(self, requests: Sequence[_Request], error: Exception) -> None:

@@ -51,7 +51,7 @@ import torch
 
 from ..data.dataset import Dataset
 from ..obs import tracer as obs_tracer
-from ..ops._build import KernelError
+from ..ops import DEVICE_FAULTS
 from . import analysis
 from .executor import GraphExecutor
 from .graph import Graph, NodeId
@@ -67,10 +67,6 @@ AUTOCACHE_ACTIVE = "autocache_active"
 
 #: the budget off the card
 _HOST_BUDGET_BYTES = 4 << 30
-
-#: what a sampled pull lets propagate: the card's faults, not the node's
-_DEVICE_FAULTS = (KernelError, torch.cuda.OutOfMemoryError) + (
-    (torch.AcceleratorError,) if hasattr(torch, "AcceleratorError") else ())
 
 
 @dataclass
@@ -124,7 +120,7 @@ def _profile_at_scale(graph: Graph, sample_size: int) -> Dict[NodeId, Profile]:
                 value = executor.execute(gid).get()
                 _sync_device()
                 elapsed = time.perf_counter_ns() - t0
-            except _DEVICE_FAULTS:
+            except DEVICE_FAULTS:
                 raise
             except Exception as e:
                 logger.debug("profiling skipped %s: %s", gid, e)

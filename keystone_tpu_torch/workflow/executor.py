@@ -43,31 +43,53 @@ by the scheduler carries ``queue_wait_seconds`` (ready to started) and
 ``worker``, and nests under the pull that armed it. Off, the cost is one
 ``None`` check a node.
 
-Not ported: the JAX package's compiled-segment dispatch
-(``compile/segment.py``, the compile plane's second half).
+Segment dispatch (``compile/segment.py``), on by default: the first pull
+of an executor plans the optimized graph's maximal traceable segments
+(``check/segments.py``), binds each eligible one, and keys the bindings by
+their output nodes. A pull of such an output builds one thunk for the
+whole segment, which forces the segment's external inputs and runs the
+members as one program (per row chunk when they are all row-local;
+captured as CUDA graphs on the card; exported into the AOT cache when one
+is configured), under one ``exec.segment`` span whose ``path`` says which
+runtime path served it. A segment one of whose nodes already holds a
+result (a fit's next executor keeps its predecessor's) is not run again:
+the pull takes node dispatch from that result. The members emit no node spans of their
+own. ``KEYSTONE_SEGMENT_COMPILE=0``, read per pull, restores node
+dispatch. Planning that fails in Python leaves the executor on node
+dispatch; a kernel or device fault propagates.
 """
 
 from __future__ import annotations
 
 import heapq
+import logging
 import os
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 from ..obs.tracer import current as _trace_current
 from ..utils import env_flag, env_int
 from .env import PipelineEnv
-from .expressions import Expression
+from .expressions import DatasetExpression, Expression
 from .graph import Graph, GraphId, NodeId, SinkId, SourceId
 from .operators import DatasetOperator, DatumOperator, EstimatorOperator, ExpressionOperator
 from .rules import Annotations
 
 
+logger = logging.getLogger(__name__)
+
+
 def parallel_enabled() -> bool:
     """The ``KEYSTONE_PAR_EXEC`` kill switch (default on), read per pull."""
     return env_flag("KEYSTONE_PAR_EXEC", True)
+
+
+def segment_compile_enabled() -> bool:
+    """The ``KEYSTONE_SEGMENT_COMPILE`` switch (default on), read per pull:
+    off, every node is dispatched on its own, with no executor rebuilt."""
+    return env_flag("KEYSTONE_SEGMENT_COMPILE", True)
 
 
 def exec_workers() -> int:
@@ -76,6 +98,9 @@ def exec_workers() -> int:
     return env_int("KEYSTONE_EXEC_WORKERS", min(8, os.cpu_count() or 1))
 
 
+#: the transient-table key of this pull's segment outputs (node -> binding)
+_SEGMENT_OUTPUTS = "__segment_outputs__"
+
 #: per-thread scheduler task context: the worker forcing a node publishes
 #: its queue wait and name here, for the node's span to pick up
 _TASK_CTX = threading.local()
@@ -83,7 +108,8 @@ _TASK_CTX = threading.local()
 
 class GraphExecutor:
     def __init__(self, graph: Graph, optimize: bool = True,
-                 parallel: Optional[bool] = None):
+                 parallel: Optional[bool] = None,
+                 segment_plan: Optional[Dict[NodeId, Any]] = None):
         self._input_graph = graph
         self._optimize = optimize
         self._optimized: Optional[Graph] = None
@@ -94,6 +120,22 @@ class GraphExecutor:
         #: guards building the expression web, so that concurrent pulls
         #: see one ``_state``
         self._build_lock = threading.Lock()
+        #: the segment-dispatch table, output node -> SegmentBinding, planned
+        #: at the first pull with segments on (None: not planned; {}: nothing
+        #: eligible). ``segment_plan`` seeds it with a plan a caller cached: a
+        #: FittedPipeline splices an identical graph each apply (node ids are
+        #: deterministic, operators shared), so its first apply's plan holds
+        #: for every later one, which then skips the fingerprints
+        self._seg_bindings: Optional[Dict[NodeId, Any]] = segment_plan
+        #: a seeded plan is checked against this graph at the first pull
+        self._seg_seeded = segment_plan is not None
+
+    @property
+    def segment_plan(self) -> Optional[Dict[NodeId, Any]]:
+        """The planned segment-dispatch table (None until a pull with
+        segments on plans it), reusable by an executor over an identically
+        spliced graph."""
+        return self._seg_bindings
 
     @property
     def input_graph(self) -> Graph:
@@ -134,19 +176,31 @@ class GraphExecutor:
 
     def execute(self, graph_id: GraphId) -> Expression:
         with self._build_lock:
+            segments: Optional[Dict[NodeId, Any]] = None
+            if segment_compile_enabled():
+                if self._seg_seeded:
+                    self._seg_seeded = False
+                    if not all(b.holds_for(self.graph) for b in set(self._seg_bindings.values())):
+                        logger.debug("segment plan does not fit this graph — planning anew")
+                        self._seg_bindings = None
+                if self._seg_bindings is None:
+                    self._seg_bindings = self._plan_segment_bindings()
+                segments = self._seg_bindings or None
             built: Dict[NodeId, Expression] = {}
-            expr = self._execute(graph_id, {}, built)
+            transient: Dict[Any, Any] = {}
+            expr = self._execute(graph_id, transient, built, segments)
             if self._use_parallel():
-                self._arm_concurrent(expr, built)
+                self._arm_concurrent(expr, built, transient.get(_SEGMENT_OUTPUTS, {}))
         return expr
 
-    def _execute(self, graph_id: GraphId, transient: Dict[NodeId, Expression],
-                 built: Dict[NodeId, Expression]) -> Expression:
+    def _execute(self, graph_id: GraphId, transient: Dict[Any, Any],
+                 built: Dict[NodeId, Expression],
+                 segments: Optional[Dict[NodeId, Any]] = None) -> Expression:
         graph = self.graph  # optimize before anything runs
         if isinstance(graph_id, SourceId):
             raise ValueError(f"cannot execute unconnected {graph_id}")
         if isinstance(graph_id, SinkId):
-            return self._execute(graph.get_sink_dependency(graph_id), transient, built)
+            return self._execute(graph.get_sink_dependency(graph_id), transient, built, segments)
         tracer = _trace_current()
         expr = self._state.get(graph_id)
         if expr is not None:
@@ -159,7 +213,15 @@ class GraphExecutor:
             if tracer is not None:
                 _trace_hit(tracer, graph, graph_id, "transient")
             return expr
-        deps = [self._execute(d, transient, built) for d in graph.get_dependencies(graph_id)]
+        if segments is not None:
+            binding = segments.get(graph_id)
+            if binding is not None:
+                expr = self._execute_segment(binding, graph_id, transient, built, segments)
+                if expr is not None:
+                    return expr
+                # a datum pull, or a member that holds a result: node dispatch
+        deps = [self._execute(d, transient, built, segments)
+                for d in graph.get_dependencies(graph_id)]
         op = graph.get_operator(graph_id)
         retained = self._retain(graph, graph_id)
         if tracer is None:
@@ -179,7 +241,75 @@ class GraphExecutor:
             PipelineEnv.get_or_create().state[prefix] = expr
         return expr
 
-    def _arm_concurrent(self, root_expr: Expression, built: Dict[NodeId, Expression]) -> None:
+    # -- segment dispatch ----------------------------------------------------
+
+    def _plan_segment_bindings(self) -> Dict[NodeId, Any]:
+        """This executor's segment-dispatch table: the planner's segments of
+        the optimized graph, each eligible one lowered by
+        ``compile/segment.py`` and keyed by its output nodes (its interior
+        nodes get no thunk of their own). A Python-level failure leaves an
+        empty table, node dispatch; a kernel or device fault propagates."""
+        from ..check import lattice
+        from ..check.segments import plan_segments
+        from ..compile.segment import bind_segment
+        from ..ops import is_device_fault
+
+        try:
+            graph = self.graph
+            verdicts = {n: lattice.classify(graph.get_operator(n)) for n in graph.nodes}
+            planned, _ = plan_segments(graph, verdicts, {})
+            table: Dict[NodeId, Any] = {}
+            for seg in planned:
+                binding = bind_segment(graph, seg, annotations=self._annotations)
+                if binding is not None:
+                    for out in binding.outputs:
+                        table[out] = binding
+            return table
+        except Exception as e:
+            if is_device_fault(e):
+                raise
+            logger.warning("segment planning failed — node dispatch for this executor",
+                           exc_info=True)
+            return {}
+
+    def _execute_segment(self, binding: Any, graph_id: NodeId, transient: Dict[Any, Any],
+                         built: Dict[NodeId, Expression],
+                         segments: Dict[NodeId, Any]) -> Optional[Expression]:
+        """Build (or reuse, within this pull) the one bundle expression of
+        ``binding`` and return the expression of its output ``graph_id``;
+        None when this pull's inputs are not datasets (a datum pull)."""
+        outs_key = ("__segment_outs__", binding.index)
+        out_exprs = transient.get(outs_key)
+        if out_exprs is None:
+            if any(n in self._state or n in transient for n in binding.nodes):
+                # a member holds a result already (a fit's next executor keeps
+                # what its predecessor computed): node dispatch reads it, where
+                # the segment would compute every member again
+                return None
+            in_exprs = [self._execute(d, transient, built, segments) for d in binding.inputs]
+            if not all(isinstance(e, DatasetExpression) for e in in_exprs):
+                return None
+            bundle = _segment_bundle(binding, in_exprs)
+            graph = self.graph
+            out_exprs = {}
+            for j, out in enumerate(binding.outputs):
+                oe = DatasetExpression(lambda j=j: bundle.get()[j])
+                out_exprs[out] = oe
+                built[out] = oe
+                if self._retain(graph, out):
+                    self._state[out] = oe
+                else:
+                    transient[out] = oe
+                prefix = self._annotations.get(out)
+                if prefix is not None:
+                    PipelineEnv.get_or_create().state[prefix] = oe
+            transient[outs_key] = out_exprs
+            transient.setdefault(_SEGMENT_OUTPUTS, {}).update(
+                {out: binding for out in binding.outputs})
+        return out_exprs.get(graph_id)
+
+    def _arm_concurrent(self, root_expr: Expression, built: Dict[NodeId, Expression],
+                        segment_outputs: Optional[Dict[NodeId, Any]] = None) -> None:
         """Wrap the pull root's thunk so that its first forcing runs every
         other pending node of this pull through the worker pool, then the
         root on the calling thread. A pull whose pending nodes never have
@@ -198,7 +328,12 @@ class GraphExecutor:
         children: Dict[NodeId, List[NodeId]] = {n: [] for n in sched}
         for n in sched:
             ds = []
-            for d in graph.get_dependencies(n):
+            # a segment output of this pull: its graph dependencies are the
+            # segment's interior nodes, absent from ``built``, so its
+            # scheduling edges are the segment's external inputs
+            dep_src = (segment_outputs[n].inputs if segment_outputs and n in segment_outputs
+                       else graph.get_dependencies(n))
+            for d in dep_src:
                 if isinstance(d, NodeId) and d in in_sched and d not in ds:
                     ds.append(d)
             deps_of[n] = ds
@@ -235,6 +370,31 @@ class GraphExecutor:
 
         root_expr.map_thunk(wrap)
         root_expr._sched_armed = True
+
+
+def _segment_bundle(binding: Any, in_exprs: List[Expression]) -> Expression:
+    """The segment's one lazy thunk: force the input expressions (outside
+    the segment's span, so upstream spans keep their own time), then run the
+    whole segment under one ``exec.segment`` span, the span that stands for
+    the members' node spans."""
+
+    def run_bundle():
+        xs = [e.get() for e in in_exprs]
+        tracer = _trace_current()
+        if tracer is None:
+            return binding.run(xs)[0]
+        with tracer.span("exec.segment", op_type="Segment", segment=binding.index,
+                         nodes=len(binding.node_ids), node_ids=list(binding.node_ids),
+                         digest=(binding.known_digest or "")[:16], label=binding.label) as sp:
+            outs, path = binding.run(xs)
+            sp.attrs["path"] = path
+            if path != "chunked":
+                # a chunked output is a lazy scan: waiting on it here would
+                # run the whole out-of-core pass inside this span
+                sp.sync_on(tuple(d.payload for d in outs))
+        return outs
+
+    return Expression(run_bundle)
 
 
 def _trace_hit(tracer, graph: Graph, graph_id: NodeId, store: str) -> None:

@@ -248,12 +248,15 @@ class FusedTransformerOperator(TransformerOperator):
         :meth:`chunk_rows` runs them chunk by chunk into one output, so a
         whole-chain program (``FittedPipeline.compile``) holding this group
         keeps its intermediates to a chunk as well."""
-        if xs and is_fake(first_leaf(xs[0])):
-            # the static checker's abstract evaluation: shapes only, so the
-            # whole batch at once
-            return _run_steps(self.steps, self.last_use, xs)
         n = int(first_leaf(xs[0]).shape[0]) if xs else 0
-        rows = self.chunk_rows(xs) if xs else 1
+        if xs and is_fake(first_leaf(xs[0])):
+            # fake tensors (the static checker, a torch.export trace) measure
+            # nothing: the row chunks a real run measured for this signature
+            # are kept, else the whole batch runs at once
+            known = self._row_bytes.get(signature(tuple(_rows(x, 0, 1) for x in xs)))
+            rows = chunk_rows(known) if known is not None and self.row_local else n
+        else:
+            rows = self.chunk_rows(xs) if xs else 1
         if n > rows:
             return forward_in_row_chunks(
                 lambda *c: _run_steps(self.steps, self.last_use, c), xs, n, rows)

@@ -598,6 +598,11 @@ class FittedPipeline(Chainable):
         self._compiled: Optional[_Compiled] = None
         self._compiled_signatures: List[tuple] = []
         self._fingerprint: Optional[str] = None
+        #: the segment-dispatch plan, kept across applies: each apply splices
+        #: an identical graph (deterministic node ids, shared operators), so
+        #: the first apply's plan holds for the later ones, which skip the
+        #: fingerprints and the lattice
+        self._segment_plan: Optional[dict] = None
 
     @property
     def graph(self) -> Graph:
@@ -609,20 +614,38 @@ class FittedPipeline(Chainable):
             p._datum_hint = (self.datum_shape, self.datum_dtype)
         return p
 
+    def _executor(self, graph: Graph, data: Any) -> GraphExecutor:
+        """The executor of one apply, seeded with the cached segment plan.
+        The plan holds for a single-leaf splice only: a PipelineResult
+        splices its whole prefix graph, whose node ids do not line up with
+        the plan's, so it neither reads nor leaves a plan."""
+        plain = not isinstance(data, PipelineResult)
+        return GraphExecutor(graph, optimize=False,
+                             segment_plan=self._segment_plan if plain else None)
+
+    def _keep_plan(self, executor: GraphExecutor, data: Any) -> None:
+        if self._segment_plan is None and not isinstance(data, PipelineResult):
+            self._segment_plan = executor.segment_plan
+
     def apply(self, data: Any) -> Dataset:
         graph = _bind_source(self._graph, self._source, attach_data, data)
-        executor = GraphExecutor(graph, optimize=False)
+        executor = self._executor(graph, data)
         tracer = _trace_current()
         if tracer is None:
-            return executor.execute(self._sink).get()
-        with tracer.span("pipeline.apply", op_type=type(self).__name__) as sp:
             value = executor.execute(self._sink).get()
-            sp.sync_on(value)
+        else:
+            with tracer.span("pipeline.apply", op_type=type(self).__name__) as sp:
+                value = executor.execute(self._sink).get()
+                sp.sync_on(value)
+        self._keep_plan(executor, data)
         return value
 
     def apply_datum(self, datum: Any) -> Any:
         graph = _bind_source(self._graph, self._source, attach_datum, datum)
-        return GraphExecutor(graph, optimize=False).execute(self._sink).get()
+        executor = self._executor(graph, datum)
+        value = executor.execute(self._sink).get()
+        self._keep_plan(executor, datum)
+        return value
 
     def __call__(self, data: Any) -> Any:
         return self.apply(data)
@@ -864,6 +887,7 @@ class FittedPipeline(Chainable):
         # pickle), and its signatures with it
         state["_compiled"] = None
         state["_compiled_signatures"] = []
+        state["_segment_plan"] = None  # lowered closures do not pickle
         return state
 
     # -- incremental refit ----------------------------------------------

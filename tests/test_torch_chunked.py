@@ -338,8 +338,11 @@ def test_a_fused_group_runs_per_chunk_on_the_consumer_in_bounded_shapes():
 @pytest.mark.parametrize("parallel", ["1", "0"])
 def test_the_executor_keeps_chunked_branches_lazy_until_consumed(monkeypatch, parallel):
     """The concurrent scheduler forces independent branches on its pool;
-    on chunked input that builds their chains and produces no chunk."""
+    on chunked input that builds their chains and produces no chunk. The
+    branches are nodes of their own under node dispatch only: segment
+    dispatch runs them and the join as one segment (the test below)."""
     monkeypatch.setenv("KEYSTONE_PAR_EXEC", parallel)
+    monkeypatch.setenv("KEYSTONE_SEGMENT_COMPILE", "0")
     X = np.random.default_rng(6).standard_normal((50, 4)).astype(np.float32)
     produced = []
 
@@ -360,6 +363,38 @@ def test_the_executor_keeps_chunked_branches_lazy_until_consumed(monkeypatch, pa
                                np.concatenate([X, 2 * X, 3 * X], axis=1), rtol=1e-6)
     # one scan of the source for each branch of the zip
     assert sorted(produced) == sorted(list(range(5)) * 3)
+
+
+def test_a_segment_of_chunked_branches_scans_its_source_once():
+    """Segment dispatch runs the three branches and their join as one
+    segment per chunk: lazy until consumed, the same answer, one scan of
+    the source where node dispatch makes one a branch."""
+    from keystone_tpu_torch.obs import tracer as tracer_mod
+
+    X = np.random.default_rng(6).standard_normal((50, 4)).astype(np.float32)
+    produced = []
+
+    def chunk_fn(i):
+        produced.append(i)
+        return X[10 * i:10 * i + 10]
+
+    branches = []
+    for k in range(3):
+        b = FunctionNode(batch_fn=lambda x, k=k: x * (k + 1.0))
+        b.no_fuse = True
+        branches.append(b)
+    tracer = tracer_mod.install(tracer_mod.Tracer())
+    try:
+        out = Pipeline.gather(branches).and_then(VectorCombiner()).apply(
+            ChunkedDataset.from_chunk_fn(chunk_fn, 5, 50)).get()
+        assert isinstance(out, ChunkedDataset) and produced == []
+        np.testing.assert_allclose(out.to_array().numpy(),
+                                   np.concatenate([X, 2 * X, 3 * X], axis=1), rtol=1e-6)
+        paths = [s.attrs["path"] for s in tracer.spans() if s.name == "exec.segment"]
+    finally:
+        tracer_mod.reset()
+    assert paths == ["chunked"]
+    assert produced == list(range(5))
 
 
 def test_the_fit_graph_reads_chunked_input_lazily_into_a_streaming_fit():

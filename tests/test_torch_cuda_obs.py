@@ -14,6 +14,7 @@ Tolerance: none; every comparison is exact.
 import pytest
 import torch
 
+from keystone_tpu_torch.compile import segment
 from keystone_tpu_torch.data.dataset import Dataset
 from keystone_tpu_torch.nodes.util.core import Cacher
 from keystone_tpu_torch.obs import tracer as trace_mod
@@ -33,10 +34,12 @@ def clean():
     trace_mod.reset()
     PipelineEnv.get_or_create().reset()
     fusion.clear_graph_cache()
+    segment.reset_dispatchers()
     yield
     trace_mod.reset()
     PipelineEnv.get_or_create().reset()
     fusion.clear_graph_cache()
+    segment.reset_dispatchers()
 
 
 @pytest.fixture
