@@ -22,7 +22,14 @@ K1's launches per replay), the same chain served by ``ServingEngine``
 client threads into buckets 1 / 8 / 32 / 64, one CUDA graph a bucket, K1
 10 times a batch inside the replays and held against its plain version at
 each bucket's shape; ``serve_swap``: a same-contract swap under traffic,
-and a replacement of another datum width refused; ``aot_cifar``: the same
+and a replacement of another datum width refused; ``fleet_cifar``: the same
+chain and traffic from a ``ServingFleet`` of 4 replicas co-resident on the
+card, each with its own stream and CUDA graphs (4 compiles, 16 captures,
+every replica busy, K1 exactly 10 a batch); ``fleet_swap``: under traffic a
+canaried swap to the same chain promotes and a candidate with scaled KRR
+weights rolls back (``CanaryMismatch``, the flight dump); ``fleet_supervision``:
+a fault plan kills one replica and quarantines another, no admitted request
+lost; ``aot_cifar``: the same
 chain booted against a fresh AOT executable cache, cold (four exported
 programs, each naming K1 ten times) then warm from a pickled clone (four
 programs loaded, no call of the chain's trace function, four captures, K1
@@ -120,12 +127,13 @@ of the twelve applications, every check running no CUDA kernel (a
 ``torch.profiler`` trace), allocating nothing, launching no K1 and sampling
 nothing (``check_apps``), and a shape- and a dtype-mismatched ``and_then``
 on card data refused at their nodes before any kernel (``check_rejects``);
-then ``--serve-demo`` at the JAX CLI's defaults (``serve_demo``), the
+then ``--serve-demo`` at the JAX CLI's defaults (``serve_demo``) and with
+``--replicas 2`` (``serve_demo_fleet``), the
 cold-start probe twice in fresh processes against one cache directory
 (``aot_coldstart``: every bucket exported, then every one loaded) and
 ``--sweep-demo`` (``sweep_demo``). Last, the card tests of the scan, segment
-dispatch, the weighted fit, the faults, the tracer, the checker, the engine
-and the AOT cache, in one pytest process.
+dispatch, the weighted fit, the faults, the tracer, the checker, the engine,
+the fleet and the AOT cache, in one pytest process.
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card it exits non-zero
 and prints no result.
@@ -2530,6 +2538,7 @@ CARD_TEST_FILES = ("tests/test_torch_cuda_streaming.py",
                    "tests/test_torch_cuda_obs.py",
                    "tests/test_torch_cuda_check.py",
                    "tests/test_torch_cuda_serving.py",
+                   "tests/test_torch_cuda_fleet.py",
                    "tests/test_torch_cuda_aot.py")
 
 
@@ -3262,7 +3271,8 @@ def serve_phases(dev, card, scores, X_host, eager) -> dict:
     its plain version at (b, 800, 5000) for each bucket b. ``serve_swap``:
     a same-contract swap under traffic recaptures every bucket and serves
     on; a replacement of another datum width raises
-    ``ContractMismatchError``. Returns the K1 launches of each."""
+    ``ContractMismatchError``. Returns the K1 launches of each, and
+    ``serve_cifar``'s requests per second, latency and occupancy."""
     import numpy as np
 
     from keystone_tpu_torch.check import ContractMismatchError
@@ -3359,6 +3369,8 @@ def serve_phases(dev, card, scores, X_host, eager) -> dict:
               f"captures {compiles_at_start} at start, {c.get('compiles')} after traffic")
         check(launches["serve_cifar"] == SERVE_BLOCKS * c.get("batches", 0),
               f"K1 launched {launches['serve_cifar']} times in {c.get('batches')} batches")
+        engine_ref = {"requests_per_second": len(X_host) / wall, "latency_s": snap["latency"],
+                      "occupancy": snap["batch_occupancy"]["ratio"]}
 
         # -- a same-contract swap under traffic, then another width -------
         gk.gaussian_kernel_block.launches = 0
@@ -3409,7 +3421,7 @@ def serve_phases(dev, card, scores, X_host, eager) -> dict:
               f"a replacement of another width was not refused: {refused}")
     finally:
         engine.shutdown(drain=False)
-    return launches
+    return launches, engine_ref
 
 
 def serve_demo_phase(cli, card) -> None:
@@ -3431,6 +3443,295 @@ def serve_demo_phase(cli, card) -> None:
           "seconds": time.perf_counter() - t0, "card": card})
     check(rc == 0 and "SERVE PASS" in out and ok is not None and ok[1] == ok[2]
           and int(ok[3]) == 2, f"--serve-demo: {out[-2000:]}")
+
+
+FLEET_REPLICAS = 4  # co-resident on the one card, each with its own stream and graphs
+FLEET_SWAP_CLIENTS = 4
+FLEET_FAULT_ROWS = 2000  # single-row requests through the fault plan
+FLEET_PLAN = "replica.batch#1=kill@3;replica.batch#2=transient@0,1,2"
+FLEET_BAD_SCALE = 1.01  # the rolled-back candidate's KRR weights, scaled
+FLEET_FLIGHT_RING = 1 << 14  # flight entries a fleet phase keeps
+
+
+def _flight_dumps(folder, trigger) -> list:
+    import glob
+
+    return sorted(glob.glob(os.path.join(folder, f"keystone-flight-*-{trigger}-*.json")))
+
+
+def _scaled_scores(scores, scale):
+    """``scores`` with its KRR weights scaled by ``scale``: a valid chain of
+    the same contract whose answers differ."""
+    from keystone_tpu_torch.nodes.learning.kernel import KernelBlockLinearMapper
+    from keystone_tpu_torch.workflow.pipeline import FittedPipeline
+
+    node, mapper = next((n, op) for n, op in scores.graph.operators.items()
+                        if isinstance(op, KernelBlockLinearMapper))
+    bad = KernelBlockLinearMapper(mapper.train_X, mapper.W * scale, mapper.gamma,
+                                  mapper.block_size)
+    return FittedPipeline(scores.graph.set_operator(node, bad), scores._source, scores._sink,
+                          datum_shape=scores.datum_shape, datum_dtype=scores.datum_dtype)
+
+
+def fleet_phases(card, scores, X_host, eager, engine_ref) -> dict:
+    """``fleet_cifar``: the fitted RandomPatchCifarKernel scores chain
+    served by ``ServingFleet(replicas=4, buckets=(1, 8, 32, 64))``, the four
+    replicas co-resident on the card, every one of the ``X_host`` rows a
+    single-row request from 16 client threads: each answer within 1e-5 of
+    ``eager`` and every argmax equal, 4 compiles (one a bucket) and 16
+    captures (one a bucket and replica), none under traffic, every replica
+    busy, K1 exactly 10 launches a batch; its rate beside ``serve_cifar``'s.
+    ``fleet_swap``: under 4 clients, a canaried swap (a quarter of the
+    batches mirrored) to the same chain promotes version 2 with no request
+    failed, then a candidate whose KRR weights are scaled by 1.01 raises
+    ``CanaryMismatch``; version 2 serves on within 1e-5, and the flight
+    dump holds ``serve.canary_rollback``. ``fleet_supervision``: under the
+    plan ``replica.batch#1=kill@3;replica.batch#2=transient@0,1,2``,
+    replica 1 is killed once and restarted (``fault.replica_restart`` in
+    the flight ring), replica 2 fails three batches and is quarantined (its
+    dump written), and every admitted request is answered within 1e-5, K1
+    10 a batch. Returns the K1 launches of each."""
+    import numpy as np
+
+    from keystone_tpu_torch import faults
+    from keystone_tpu_torch.obs import flight
+    from keystone_tpu_torch.ops import gaussian_kernel as gk
+    from keystone_tpu_torch.serving import CanaryMismatch, ServingFleet
+    from keystone_tpu_torch.utils import timing
+    from keystone_tpu_torch.workflow.pipeline import FittedPipeline, clock
+
+    eager_host = eager.cpu()
+    launches = {}
+    flight_dir = tempfile.mkdtemp(prefix="keystone-fleet-flight-")
+    prior = {k: os.environ.get(k) for k in ("KEYSTONE_FLIGHT_DIR", "KEYSTONE_FLIGHT_RING")}
+    os.environ["KEYSTONE_FLIGHT_DIR"] = flight_dir
+    # a ring that holds a whole phase: each batch records a span, and the
+    # restart instants must still be there after 2000 requests
+    os.environ["KEYSTONE_FLIGHT_RING"] = str(FLEET_FLIGHT_RING)
+
+    def served(rows, idx):
+        got = torch.from_numpy(np.stack(rows))
+        want = eager_host[idx]
+        return ((got - want).abs().max().item(),
+                bool(torch.equal(got.argmax(1), want.argmax(1))))
+
+    try:
+        # -- fleet_cifar: 4 replicas, the whole test set ------------------
+        fleet = ServingFleet(scores, replicas=FLEET_REPLICAS, buckets=SERVE_BUCKETS)
+        try:
+            timing.reset()
+            t0 = clock()
+            fleet.start()
+            start_seconds = clock() - t0
+            compiles_at_start, captures_at_start = fleet.metrics.count("compiles"), fleet.captures
+            gk.gaussian_kernel_block.launches = 0
+            t0 = time.perf_counter()
+            with concurrent.futures.ThreadPoolExecutor(max_workers=SERVE_CLIENTS) as pool:
+                rows = list(pool.map(lambda r: fleet.predict(r, timeout=600.0), X_host))
+            wall = time.perf_counter() - t0
+            launches["fleet_cifar"] = gk.gaussian_kernel_block.launches
+            snap = fleet.metrics.snapshot()
+            captures = fleet.captures
+            streams = len({id(r.stream) for r in fleet.replicas if r.stream is not None})
+        finally:
+            fleet.shutdown(drain=False)
+        dev_max, preds_equal = served(rows, slice(None))
+        c = snap["counters"]
+        per_replica = {k: {f: v[f] for f in ("batches", "items", "occupancy")}
+                       for k, v in snap["replicas"].items()}
+        emit({"phase": "fleet_cifar", "replicas": FLEET_REPLICAS, "streams": streams,
+              "requests": len(X_host), "clients": SERVE_CLIENTS, "buckets": list(SERVE_BUCKETS),
+              "answered": len(rows), "completed": c.get("completed", 0),
+              "compiles": c.get("compiles", 0), "compiles_at_start": compiles_at_start,
+              "captures": captures, "captures_at_start": captures_at_start,
+              "start_seconds": start_seconds, "batches": c.get("batches", 0),
+              "per_replica": per_replica, "steals": c.get("steals", 0),
+              "shed": c.get("shed", 0), "k1_launches": launches["fleet_cifar"],
+              "k1_launches_per_batch": SERVE_BLOCKS, "max_abs_dev_from_apply": dev_max,
+              "limit": SERVE_LIMIT, "predictions_equal": preds_equal, "wall_seconds": wall,
+              "requests_per_second": len(X_host) / wall,
+              "latency_s": snap["latency"], "queue_age_s": snap["queue_age"],
+              "occupancy": snap["batch_occupancy"]["ratio"],
+              "serve_batch_phase": snap["phases"].get("serve.batch"),
+              "serve_cifar": engine_ref, "card": card})
+        check(len(rows) == len(X_host) == c.get("completed", 0),
+              f"{c.get('completed', 0)} of {len(X_host)} requests answered")
+        check(dev_max <= SERVE_LIMIT, f"fleet scores {dev_max} off the eager apply")
+        check(preds_equal, "fleet predictions differ from the eager apply's")
+        check(compiles_at_start == c.get("compiles") == len(SERVE_BUCKETS),
+              f"compiles {compiles_at_start} at start, {c.get('compiles')} after traffic")
+        check(captures_at_start == captures == FLEET_REPLICAS * len(SERVE_BUCKETS)
+              and streams == FLEET_REPLICAS,
+              f"captures {captures_at_start} at start, {captures} after, {streams} streams")
+        check(len(per_replica) == FLEET_REPLICAS
+              and all(r["batches"] >= 1 for r in per_replica.values()),
+              f"an idle replica: {per_replica}")
+        check(launches["fleet_cifar"] == SERVE_BLOCKS * c.get("batches", 0),
+              f"K1 launched {launches['fleet_cifar']} times in {c.get('batches')} batches")
+
+        # -- fleet_swap: a canary that promotes, then one that rolls back --
+        fleet = ServingFleet(scores, replicas=FLEET_REPLICAS, buckets=SERVE_BUCKETS)
+        stop = threading.Event()
+        answers, errors = [], []
+
+        def hammer(k):
+            i = k
+            while not stop.is_set():
+                try:
+                    answers.append((i % 64, fleet.predict(X_host[i % 64], timeout=600.0)))
+                except Exception as e:  # counted: the phase fails on any
+                    errors.append(repr(e))
+                i += FLEET_SWAP_CLIENTS
+
+        try:
+            fleet.start()
+            flight.reset()
+            gk.gaussian_kernel_block.launches = 0
+            t0 = clock()
+            with concurrent.futures.ThreadPoolExecutor(max_workers=FLEET_SWAP_CLIENTS) as pool:
+                workers = [pool.submit(hammer, k) for k in range(FLEET_SWAP_CLIENTS)]
+                try:
+                    same = FittedPipeline(scores.graph, scores._source, scores._sink,
+                                          datum_shape=scores.datum_shape,
+                                          datum_dtype=scores.datum_dtype)
+                    promoted = fleet.swap(same, canary_fraction=0.25, canary_timeout_s=120.0)
+                    try:
+                        fleet.swap(_scaled_scores(scores, FLEET_BAD_SCALE),
+                                   canary_fraction=0.25, canary_timeout_s=120.0)
+                        rollback = None
+                    except CanaryMismatch as e:
+                        rollback = e.report
+                    version = fleet.model_version
+                    after = [fleet.predict(r, timeout=600.0) for r in X_host[:64]]
+                finally:
+                    stop.set()
+                    for w in workers:
+                        w.result(timeout=600)
+            swap_seconds = clock() - t0
+            launches["fleet_swap"] = gk.gaussian_kernel_block.launches
+            c = fleet.metrics.snapshot()["counters"]
+        finally:
+            fleet.shutdown(drain=False)
+        after_dev, after_equal = served(after, slice(0, 64))
+        during = max(((torch.from_numpy(a) - eager_host[i]).abs().max().item()
+                      for i, a in answers), default=0.0)
+        dumps = _flight_dumps(flight_dir, "canary_rollback")
+        dumped = []
+        if dumps:
+            with open(dumps[-1]) as f:
+                dumped = [e["name"] for e in json.load(f)["entries"]]
+        emit({"phase": "fleet_swap", "replicas": FLEET_REPLICAS, "clients": FLEET_SWAP_CLIENTS,
+              "promoted": {k: promoted[k] for k in ("version", "buckets_warmed", "compiles",
+                                                    "replicas_flipped", "canary")},
+              "rollback": rollback, "bad_scale": FLEET_BAD_SCALE, "version_after": version,
+              "answers_during_swaps": len(answers), "failed": len(errors),
+              "errors": errors[:5], "submitted": c.get("submitted"),
+              "completed": c.get("completed"), "batches": c.get("batches"),
+              "max_abs_dev_during_swaps": during, "max_abs_dev_after": after_dev,
+              "canary_pass": c.get("canary_pass", 0), "canary_fail": c.get("canary_fail", 0),
+              "swaps": c.get("swaps", 0), "k1_launches": launches["fleet_swap"],
+              "flight_dump": dumps[-1] if dumps else None,
+              "dump_holds_rollback": "serve.canary_rollback" in dumped,
+              "seconds": swap_seconds, "card": card})
+        check(not errors and c.get("completed") == c.get("submitted"),
+              f"requests failed or dropped across the swaps: {errors[:3]}, "
+              f"{c.get('completed')} of {c.get('submitted')}")
+        check(promoted["version"] == 2 and promoted["canary"]["mismatches"] == 0
+              and promoted["canary"]["batches_compared"] >= 1,
+              f"the same chain's canary: {promoted}")
+        check(rollback is not None and rollback["mismatches"] >= 1 and version == 2,
+              f"the scaled candidate was not rolled back: {rollback}, version {version}")
+        check(c.get("canary_pass") == 1 and c.get("canary_fail") == 1 and c.get("swaps") == 1,
+              f"canary counters {c}")
+        check(during <= SERVE_LIMIT and after_dev <= SERVE_LIMIT and after_equal,
+              f"scores {during} off during the swaps, {after_dev} after")
+        check(bool(dumps) and "serve.canary_rollback" in dumped,
+              f"no rollback dump holding serve.canary_rollback in {flight_dir}")
+        check(launches["fleet_swap"] % SERVE_BLOCKS == 0
+              and launches["fleet_swap"] >= SERVE_BLOCKS * c.get("batches", 0),
+              f"K1 launched {launches['fleet_swap']} times in {c.get('batches')} batches")
+
+        # -- fleet_supervision: a kill and a quarantine under the plan ----
+        fleet = ServingFleet(scores, replicas=FLEET_REPLICAS, buckets=SERVE_BUCKETS)
+        try:
+            fleet.start()
+            flight.reset()
+            faults.install(faults.parse_plan(FLEET_PLAN))
+            gk.gaussian_kernel_block.launches = 0
+            t0 = time.perf_counter()
+            with concurrent.futures.ThreadPoolExecutor(max_workers=SERVE_CLIENTS) as pool:
+                rows = list(pool.map(lambda r: fleet.predict(r, timeout=600.0),
+                                     X_host[:FLEET_FAULT_ROWS]))
+            wall = time.perf_counter() - t0
+            launches["fleet_supervision"] = gk.gaussian_kernel_block.launches
+            c = fleet.metrics.snapshot()["counters"]
+            report = fleet.version_report()
+            ring = [e["name"] for e in flight.recorder().entries()]
+        finally:
+            faults.clear()
+            fleet.shutdown(drain=False)
+        dev_max, preds_equal = served(rows, slice(0, FLEET_FAULT_ROWS))
+        quarantine_dumps = _flight_dumps(flight_dir, "replica_quarantine")
+        restarts = {i: r["restarts"] for i, r in report["replicas"].items()}
+        emit({"phase": "fleet_supervision", "plan": FLEET_PLAN, "requests": FLEET_FAULT_ROWS,
+              "answered": len(rows), "submitted": c.get("submitted"),
+              "completed": c.get("completed"), "restarts": c.get("restarts", 0),
+              "restarts_by_replica": restarts, "requeues": c.get("requeues", 0),
+              "quarantined": c.get("quarantined", 0),
+              "batch_transient": c.get("batch_transient", 0),
+              "batch_errors": c.get("batch_errors", 0), "batches": c.get("batches"),
+              "replica_restart_instants": ring.count("fault.replica_restart"),
+              "quarantine_dump": quarantine_dumps[-1] if quarantine_dumps else None,
+              "max_abs_dev_from_apply": dev_max, "predictions_equal": preds_equal,
+              "k1_launches": launches["fleet_supervision"], "wall_seconds": wall,
+              "card": card})
+        check(len(rows) == FLEET_FAULT_ROWS == c.get("completed") == c.get("submitted"),
+              f"{c.get('completed')} of {FLEET_FAULT_ROWS} admitted requests answered")
+        check(dev_max <= SERVE_LIMIT and preds_equal, f"scores {dev_max} off under faults")
+        check(restarts.get(1) == 1 and c.get("quarantined") == 1
+              and c.get("batch_transient") == 3 and c.get("batch_errors", 0) == 0,
+              f"kill and quarantine: restarts {restarts}, counters {c}")
+        check(ring.count("fault.replica_restart") >= 2 and bool(quarantine_dumps),
+              f"restart instants {ring.count('fault.replica_restart')}, "
+              f"quarantine dumps {quarantine_dumps}")
+        check(launches["fleet_supervision"] == SERVE_BLOCKS * c.get("batches", 0),
+              f"K1 launched {launches['fleet_supervision']} times in {c.get('batches')} "
+              "batches")
+    finally:
+        for k, v in prior.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        flight.reset()
+        shutil.rmtree(flight_dir, ignore_errors=True)
+    return launches
+
+
+def serve_demo_fleet_phase(cli, card) -> None:
+    """``serve_demo_fleet``: ``--serve-demo --replicas 2`` on the card:
+    every answer equal to the pipeline's own apply, one compile a bucket,
+    and each replica at one batch or more."""
+    import io
+    import re
+
+    fresh_env()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["--serve-demo", "--replicas", "2"])
+    out = buf.getvalue()
+    line = next((ln for ln in out.splitlines() if ln.startswith("SERVE ok=")), "")
+    ok = re.match(r"SERVE ok=(\d+)/(\d+) compiles=(\d+) .* replicas=2 .*"
+                  r"per_replica_batches=(\{.*\})", line)
+    per_replica = json.loads(ok[4].replace("'", '"')) if ok else {}
+    emit({"phase": "serve_demo_fleet", "returncode": rc, "line": line,
+          "per_replica_batches": per_replica, "seconds": time.perf_counter() - t0,
+          "card": card})
+    check(rc == 0 and "SERVE PASS" in out and ok is not None and ok[1] == ok[2]
+          and int(ok[3]) == 2 and len(per_replica) == 2
+          and all(b >= 1 for b in per_replica.values()),
+          f"--serve-demo --replicas 2: {out[-2000:]}")
 
 
 AOT_PROBE_ROWS = 64  # the rows each boot's bucket programs are held on
@@ -4175,7 +4476,9 @@ def main() -> int:
     compiled_launches = sum(k1.values())
 
     # -- the serving engine on the fitted chain (slice 15) ---------------
-    serve_launches = serve_phases(dev, card, scores, Xt_host, eager)
+    serve_launches, engine_ref = serve_phases(dev, card, scores, Xt_host, eager)
+    # -- the same chain from a fleet of 4 co-resident replicas (slice 18)
+    fleet_launches = fleet_phases(card, scores, Xt_host, eager, engine_ref)
     # -- the same chain booted cold, then warm, from the AOT cache (slice 16)
     aot_launches = aot_phases(dev, card, scores, Xt_host, eager)
     # -- segment dispatch of the same chain, exported and prewarmed (slice 17)
@@ -4369,6 +4672,7 @@ def main() -> int:
 
     check_phases(cli, dev, card)
     serve_demo_phase(cli, card)
+    serve_demo_fleet_phase(cli, card)
     aot_coldstart_phase(card)
     sweep_demo_phase(cli, card)
     timit_k1 = timit_phases(cli, dev, card)
@@ -4393,7 +4697,8 @@ def main() -> int:
         "plain_ms": fit["plain_ms"], "bound_ms": fit["bound_ms"],
         "bound_by": fit["bound_by"], "library_ms": fit["library_ms"],
         "launches_by_path": {"slice": launches, "compiled_cifar": compiled_launches,
-                             **serve_launches, **aot_launches, **segment_launches,
+                             **serve_launches, **fleet_launches, **aot_launches,
+                             **segment_launches,
                              "krr_family": krr_launches, "timit_full_width": timit_k1,
                              "cifar_family": cifar_family_k1, "voc": voc_k1, **imagenet_k1,
                              **text_k1, **ooc_k1, **weighted_k1, **resumable_k1,

@@ -132,6 +132,12 @@ class AotDispatcher:
     # -- introspection --------------------------------------------------
 
     @property
+    def digest(self) -> str:
+        """The pipeline's content fingerprint: the model identity the
+        serving fleet publishes with each version."""
+        return self._digest
+
+    @property
     def loaded_count(self) -> int:
         """Signatures resolved from the cache (zero traces paid)."""
         return self._loaded

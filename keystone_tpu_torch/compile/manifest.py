@@ -11,8 +11,8 @@ of them BEFORE admitting traffic, instead of discovering bucket shapes
 one cold first-request at a time. The manifest is that index: one tiny
 JSON file per (pipeline digest, signature), written whenever an export
 lands, listed by :func:`exported_signatures` at deploy time (the JAX
-package's ``ServingFleet.start()`` pre-warms every entry per replica; the
-port's fleet comes with the fleet slice).
+package's ``ServingFleet.start()`` pre-warms every entry, and so does the
+port's).
 
 One file per signature — not one mutable list per pipeline — so
 concurrent exporters (N replicas, N processes) never read-modify-write

@@ -14,12 +14,15 @@ check.
 Always on beside it: the flight recorder (``flight``, a bounded ring of
 span summaries and instants, dumped atomically when asked) and the
 device-memory watermark (``resource``), sampled at a scan's end and at a
-served batch. The Prometheus export and the cross-process trace contexts
-come with the fleet.
+served batch. ``context`` carries one request's trace identity
+(:class:`TraceContext`, :class:`Sampler`) into the serving fleet's spans.
+The Prometheus export and the export's cross-process stitching come with
+``cluster/``.
 """
 
 from . import flight, resource
 from .audit import cache_audit, log_cache_audit, observed_by_node
+from .context import Sampler, TraceContext, new_trace_id, sample_rate
 from .export import format_top_spans, to_chrome_trace, write_chrome_trace
 from .scan import SCAN_SPAN, record_scan_span
 from .span import Span, cheap_nbytes, sync_value
@@ -38,7 +41,9 @@ from .tracer import (
 
 __all__ = [
     "SCAN_SPAN",
+    "Sampler",
     "Span",
+    "TraceContext",
     "Tracer",
     "cache_audit",
     "cheap_nbytes",
@@ -49,10 +54,12 @@ __all__ = [
     "install",
     "install_if_absent",
     "log_cache_audit",
+    "new_trace_id",
     "observed_by_node",
     "record_scan_span",
     "reset",
     "resource",
+    "sample_rate",
     "start",
     "stop",
     "suspended",

@@ -21,8 +21,9 @@ Dumps are atomic (a temporary file and ``os.replace``) into
 ``KEYSTONE_FLIGHT_DIR`` (default: the system's temporary directory), keep
 the newest ``KEYSTONE_FLIGHT_KEEP`` auto-named files (32), and never raise
 into the path that asked for them. :func:`install_sigquit_dump` dumps on
-SIGQUIT. The JAX package's other triggers (replica quarantine, worker
-death, canary rollback, trainer park) come with the fleet and the process
+SIGQUIT. The serving fleet dumps on a replica's quarantine, on a replica
+down for good, on a canary rollback and on a device fault; the JAX
+package's other triggers (worker death, trainer park) come with the process
 tier.
 
 ``SITE_INSTANTS`` is the observability contract: every fault site of

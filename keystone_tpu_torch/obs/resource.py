@@ -6,8 +6,7 @@ batch's measured device seconds split equally across its coalesced
 members (every member's answer came out of one program run, so the equal
 split is the charge whose sums give back the replica's busy time), with
 queue seconds and payload bytes charged per member. The serving replica
-charges no tenant yet: the port's requests carry no tenant identity until
-the fleet's quality-of-service slice.
+charges each batch to its requests' (tenant, priority) identities.
 
 :class:`MemoryWatermark` samples live device bytes at the seams where
 allocations peak (a scan's end, a served batch) through

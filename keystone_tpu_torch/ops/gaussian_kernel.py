@@ -20,8 +20,9 @@ every 32 of d) with the norms, clamp and exp in its epilogue.
   ``torch.library`` custom operator, so a ``torch.export`` program of a
   chain that runs K1 names it (``compile/aot.py``). Its CUDA
   implementation launches the kernel and counts each launch in
-  ``gaussian_kernel_block.launches``; a call made while this thread
-  captures a CUDA graph launches nothing: it is counted in
+  ``gaussian_kernel_block.launches`` (through :func:`count_launches`,
+  exact under concurrent serving replicas); a call made while this
+  thread captures a CUDA graph launches nothing: it is counted in
   :func:`captured_launches`, and whoever replays the graph adds that many
   to ``launches`` at each replay. Its CPU implementation is the plain
   version. Its fake implementation (``torch.export``'s trace, the static
@@ -152,7 +153,7 @@ def _k1_launch(X: torch.Tensor, Xb: torch.Tensor, gamma: float) -> torch.Tensor:
     if torch.cuda.is_current_stream_capturing():
         _captured.launches = captured_launches() + 1
     else:
-        gaussian_kernel_block.launches += 1
+        count_launches(1)
     return out
 
 
@@ -167,6 +168,20 @@ def gaussian_kernel_block(X: torch.Tensor, Xb: torch.Tensor,
 
 
 gaussian_kernel_block.launches = 0
+
+#: serializes the additions to ``gaussian_kernel_block.launches``: serving
+#: replicas launch K1 and replay graphs holding it from several threads, and
+#: ``+=`` on an attribute is a read and a write another thread can split
+_LAUNCH_LOCK = threading.Lock()
+
+
+def count_launches(n: int) -> None:
+    """Add ``n`` launches to ``gaussian_kernel_block.launches``, exactly
+    under any number of threads. Readers read the attribute and a caller
+    may set it to 0 between runs, as before."""
+    with _LAUNCH_LOCK:
+        gaussian_kernel_block.launches += n
+
 
 #: per thread: the launches recorded into CUDA graphs captured on it
 _captured = threading.local()

@@ -1,17 +1,22 @@
 """``--serve-demo``: fit a small pipeline, push synthetic traffic through
-:class:`~keystone_tpu_torch.serving.engine.ServingEngine` and print the
-metrics (port of ``keystone_tpu/serving/demo.py``, its engine path).
+:class:`~keystone_tpu_torch.serving.engine.ServingEngine` (or, with
+``--replicas N``, a :class:`~keystone_tpu_torch.serving.fleet.ServingFleet`)
+and print the metrics (port of ``keystone_tpu/serving/demo.py``, its
+in-process paths).
 
-    python -m keystone_tpu_torch --serve-demo [--device cpu] [--requests 64]
+    python -m keystone_tpu_torch --serve-demo [--device cpu] [--requests 64] [--replicas N]
 
 prints ``SERVE ok=N/N compiles=... aot_loads=... batches=... p50=... p99=...``
 and ``SERVE PASS`` when every answer equals the fitted pipeline's own apply
 and every bucket's program arrived once, traced or (with ``--aot-cache``)
 loaded from the AOT cache. ``--expect-zero-compiles`` is the warm-boot
 assertion: against a populated cache, the run fails unless warm-up paid
-zero traces. The JAX package's ``--replicas N``
-(a fleet) and ``--workers N`` (a cluster) come with the fleet and cluster
-slices; here any other value than 1 and 0 raises.
+zero traces. With ``--replicas N`` the line adds ``replicas=... shed=...
+steals=... per_replica_batches=...``, and the run passes when every bucket's
+program arrived (``compiles + aot_loads`` at least the buckets: the
+manifest's pre-warm may add more) and every replica ran a batch. The JAX
+package's ``--workers N`` (a cluster) comes with ``cluster/``; here any
+other value than 0 raises.
 """
 
 from __future__ import annotations
@@ -62,7 +67,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--nTrain", type=int, default=2048)
     p.add_argument("--requests", type=int, default=64)
     p.add_argument("--replicas", type=int, default=1,
-                   help="1: the single-worker ServingEngine (a fleet of N comes later)")
+                   help="1: the single-worker ServingEngine; N > 1: a ServingFleet of N "
+                        "replicas (co-resident on one card)")
     p.add_argument("--workers", type=int, default=env_int("KEYSTONE_WORKERS", 0, minimum=0),
                    help="0: in-process serving (the multi-process cluster comes later)")
     p.add_argument("--buckets", default="8,32", help="comma-separated batch-size buckets")
@@ -75,9 +81,6 @@ def main(argv: Optional[List[str]] = None) -> int:
                         "populated AOT cache (--aot-cache / KEYSTONE_AOT_CACHE), where every "
                         "bucket must load its program")
     args = p.parse_args(argv)
-    if args.replicas != 1:
-        raise SystemExit("--replicas N > 1 serves from a ServingFleet, which comes with the "
-                         "fleet slice (serving/fleet.py); use --replicas 1")
     if args.workers:
         raise SystemExit("--workers N serves from a multi-process ClusterRouter, which comes "
                          "with the cluster slice (cluster/); use --workers 0")
@@ -85,14 +88,17 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     from .. import device as pick_device
     from .engine import ServingEngine
+    from .fleet import ServingFleet
 
     dev = pick_device(args.device)
     fitted, test_data = build_demo_fitted(num_ffts=args.numFFTs, block_size=args.blockSize,
                                           lam=args.lam, n_train=args.nTrain,
                                           n_test=args.requests, device=dev)
     data = test_data[:args.requests]
-    engine = ServingEngine(fitted, buckets=buckets, datum_shape=data.shape[1:],
-                           max_queue=args.maxQueue, max_wait_ms=args.maxWaitMs)
+    serve = ServingFleet if args.replicas > 1 else ServingEngine
+    kwargs = {"replicas": args.replicas} if args.replicas > 1 else {}
+    engine = serve(fitted, buckets=buckets, datum_shape=data.shape[1:],
+                   max_queue=args.maxQueue, max_wait_ms=args.maxWaitMs, **kwargs)
     with engine:
         with ThreadPoolExecutor(max_workers=args.clients) as pool:
             preds = list(pool.map(lambda row: engine.predict(row, timeout=60.0), data))
@@ -105,14 +111,27 @@ def main(argv: Optional[List[str]] = None) -> int:
     occ = snap["batch_occupancy"]["ratio"]
     compiles = c.get("compiles", 0)
     aot_loads = c.get("aot_loads", 0)
+    per_replica = {idx: row["batches"] for idx, row in snap.get("replicas", {}).items()}
     print(f"SERVE ok={agree}/{len(data)} compiles={compiles} aot_loads={aot_loads} "
           f"batches={c.get('batches', 0)} completed={c.get('completed', 0)} "
           f"occupancy={'n/a' if occ is None else format(occ, '.3f')} "
-          f"p50={lat.get('p50', 0):.4f}s p99={lat.get('p99', 0):.4f}s", flush=True)
-    # every bucket's program arrived exactly once, traced or loaded from
-    # the AOT cache (the policy keeps distinct sizes)
-    ok = (agree == len(data) and c.get("completed", 0) == len(data)
-          and compiles + aot_loads == len(engine.policy.batch_sizes))
+          f"p50={lat.get('p50', 0):.4f}s p99={lat.get('p99', 0):.4f}s"
+          + (f" replicas={args.replicas} shed={c.get('shed', 0)} steals={c.get('steals', 0)} "
+             f"per_replica_batches={per_replica}" if args.replicas > 1 else ""), flush=True)
+    ok = agree == len(data) and c.get("completed", 0) == len(data)
+    n_buckets = len(engine.policy.batch_sizes)
+    if args.replicas == 1:
+        # every bucket's program arrived exactly once, traced or loaded from
+        # the AOT cache (the policy keeps distinct sizes)
+        ok = ok and compiles + aot_loads == n_buckets
+    else:
+        # one program a bucket, however many replicas; the manifest's
+        # pre-warm may add signatures beyond the buckets
+        ok = ok and compiles + aot_loads >= n_buckets
+        # the fleet spreads the load: every replica ran a batch
+        if len(per_replica) < args.replicas or any(b < 1 for b in per_replica.values()):
+            print(f"SERVE FAIL: idle replica (batches {per_replica})", flush=True)
+            ok = False
     if args.expect_zero_compiles and compiles != 0:
         print(f"SERVE FAIL: warm boot paid {compiles} trace(s), expected 0", flush=True)
         ok = False

@@ -107,7 +107,7 @@ class ServingEngine:
         # the worker loop lives in replica.py; the engine's
         # gather-then-dispatch batching is the replica's batch source
         self._replica = Replica(self._compile_for(fitted), self._policy, self._metrics,
-                                log_interval_s=log_interval_s)
+                                span_name="serve.microbatch", log_interval_s=log_interval_s)
         self._queue: "queue.Queue[_Request]" = queue.Queue(maxsize=max_queue)
         self._max_wait = max_wait_ms / 1000.0
         self._log_interval = log_interval_s

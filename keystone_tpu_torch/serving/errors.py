@@ -18,6 +18,15 @@ class QueueFull(ServingError):
     time (backpressure by load-shedding, never unbounded growth)."""
 
 
+class Shed(ServingError):
+    """The request's deadline cannot be met given the fleet's queue depth
+    and learned batch service time, so it was refused at admission, before
+    it took a queue slot and card time only to expire. :class:`DeadlineExceeded`
+    is the late detection of the same condition at batch time; a shed
+    request never entered the system, so its caller can retry elsewhere at
+    once or degrade."""
+
+
 class DeadlineExceeded(ServingError):
     """The request's deadline passed while it waited in the queue; it was
     dropped before wasting a batch slot on an answer nobody is waiting
@@ -35,8 +44,20 @@ class EngineClosed(ServingError):
 
 
 class EngineStopped(EngineClosed):
-    """The engine has been stopped: admission saw the closed flag (the
+    """The engine or fleet has been stopped: admission saw the closed flag (the
     check and the enqueue are atomic against shutdown, so a submit either
     lands before the close and is answered by the drain, or gets this;
     never a stranded future). Subclasses :class:`EngineClosed`; the
     distinct type tells an orderly stop from other ways of closing."""
+
+
+class CanaryMismatch(ServingError):
+    """A canaried :meth:`ServingFleet.swap` rolled back: the candidate's
+    outputs (or its latency) diverged from the live model's on mirrored
+    traffic. The fleet still serves the old model; nothing was promoted.
+    ``report`` carries the evidence (batches compared, mismatch details,
+    latency ratio)."""
+
+    def __init__(self, message: str, report: dict = None):
+        super().__init__(message)
+        self.report = report or {}

@@ -999,8 +999,14 @@ def test_log_flag_levels_root_logger():
 
 
 @pytest.mark.parametrize("flag", [["--replicas", "2"], ["--workers", "2"]])
-def test_serve_demo_names_the_later_slice_for_a_fleet_or_a_cluster(flag):
+def test_serve_demo_names_the_later_slice_for_a_fleet_or_a_cluster(flag, capsys):
+    """``--workers N`` (a cluster) still names the slice it comes with;
+    ``--replicas N`` now serves from the fleet (``tests/test_torch_fleet.py``)."""
     from keystone_tpu_torch.serving.demo import main
 
+    if flag[0] == "--replicas":
+        assert main([*DEMO[1:], "--requests", "16", *flag]) == 0
+        assert "replicas=2" in capsys.readouterr().out
+        return
     with pytest.raises(SystemExit, match="slice"):
         main(["--device", "cpu", *flag])
