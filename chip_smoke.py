@@ -29,7 +29,15 @@ every replica busy, K1 exactly 10 a batch); ``fleet_swap``: under traffic a
 canaried swap to the same chain promotes and a candidate with scaled KRR
 weights rolls back (``CanaryMismatch``, the flight dump); ``fleet_supervision``:
 a fault plan kills one replica and quarantines another, no admitted request
-lost; ``aot_cifar``: the same
+lost; ``cluster_cifar``: the same chain and traffic from a ``ClusterRouter``
+over 2 worker processes on the card, the chain shipped as host bytes, a fresh
+AOT cache (K1 exactly 10 a batch in the workers, none in this process), then
+on it ``cluster_supervision`` (a SIGKILLed worker respawned warm, no admitted
+request lost) and ``cluster_scale`` (the autoscaler's actuator verbs and one
+tick) while a traced router boots over the warm cache for ``cluster_warm``
+(0 traces, 4 loads a worker) and ``cluster_trace`` (each request's hops
+stitched across 3 process tracks, one ``/metrics`` scrape), and
+``cluster_boots``; ``aot_cifar``: the same
 chain booted against a fresh AOT executable cache, cold (four exported
 programs, each naming K1 ten times) then warm from a pickled clone (four
 programs loaded, no call of the chain's trace function, four captures, K1
@@ -90,18 +98,18 @@ chunk, against their planted models); TimitPipeline fitted over all
 2,228,224 synthetic frames at d = 16,384 (4 cosine branches), the 146 GB
 design matrix never whole (20 block steps, 21 scans of 34 chunks, peak
 below 32 GB; its segments on the chunked path, and ``segment_chunked``: the
-same fit under node dispatch, the same model); a snapshot fit on 16 chunks
+same fit under node dispatch, the same model); a snapshot fit on 8 chunks
 of those frames with 2 more
-absorbed, against a fit on all 18; the least-squares family on the chunked
+absorbed, against a fit on all 10; the least-squares family on the chunked
 frames; and the chunked fit against the in-memory one at 200,000 frames.
 Then the out-of-core weighted fit: ImageNetSiftLcsFV at
-the reference's widths on 20,480 synthetic 256² images drawn on the card
+the reference's widths on 10,240 synthetic 256² images drawn on the card
 chunk by chunk (their descriptor stacks never whole, 3 featurize scans); the
 weighted solver streamed at ImageNet's 1,281,167 training rows of a planted
 class-mean model (126 scans), each held against a float64 per-class solve
 (argmax agreement and the scores' deviation, each gated);
 and the same draw at 100,000 rows streamed against in memory. Then
-resumable fits: the absorb phase's 16-chunk snapshot fit
+resumable fits: the absorb phase's 8-chunk snapshot fit
 as a checkpointed λ grid, killed by a fault plan (transient chunk and
 staging faults, then a fatal one) and run again, bit-equal to the
 uninterrupted fit and drawing only the chunks after the last save; its
@@ -128,12 +136,14 @@ of the twelve applications, every check running no CUDA kernel (a
 nothing (``check_apps``), and a shape- and a dtype-mismatched ``and_then``
 on card data refused at their nodes before any kernel (``check_rejects``);
 then ``--serve-demo`` at the JAX CLI's defaults (``serve_demo``) and with
-``--replicas 2`` (``serve_demo_fleet``), the
-cold-start probe twice in fresh processes against one cache directory
-(``aot_coldstart``: every bucket exported, then every one loaded) and
-``--sweep-demo`` (``sweep_demo``). Last, the card tests of the scan, segment
-dispatch, the weighted fit, the faults, the tracer, the checker, the engine,
-the fleet and the AOT cache, in one pytest process.
+``--replicas 2`` (``serve_demo_fleet``), and ``--sweep-demo``
+(``sweep_demo``). Last, the card tests of the scan, segment dispatch, the
+weighted fit, the faults, the tracer, the checker, the engine, the fleet,
+the AOT cache and the stall model served eagerly by a cluster worker, in
+one pytest process, with ``--serve-demo --workers 2``
+(``serve_demo_cluster``) and the cold-start probe twice in fresh processes
+against one cache directory (``aot_coldstart``: every bucket exported, then
+every one loaded) running beside them.
 Each phase prints one JSON line; any failure raises and exits non-zero.
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card it exits non-zero
 and prints no result.
@@ -250,7 +260,12 @@ SOLVE_CHECK_CLASSES, SOLVE_CHECK_AGREEMENT = 8, 0.95
 SOLVE_CHECK_DEV_LIMIT = 1e-3
 
 
+_STARTED = time.perf_counter()
+
+
 def emit(obj: dict) -> None:
+    if "phase" in obj:  # the run's timeline: seconds since the script began
+        obj = dict(obj, elapsed_s=round(time.perf_counter() - _STARTED, 3))
     print(json.dumps(obj), flush=True)
 
 
@@ -1433,15 +1448,18 @@ OVERLAP_CHUNKS, OVERLAP_ROWS, OVERLAP_D, OVERLAP_TAIL = 16, 4096, 256, 1500
 # takes the next, which only a producer thread can overlap
 OVERLAP_WIDTH, OVERLAP_TURNS = 4096, 6
 RAGGED_ROWS = [512, 480, 500, 300, 450, 200]
-# absorb (slice 11): a snapshot fit of the out-of-core featurizer on 16
-# chunks of the frames, 2 more absorbed; λ as TIMIT's fallback
-ABSORB_CHUNKS, ABSORB_APPENDED, ABSORB_LAMBDA = 16, 2, TIMIT_FALLBACK_LAMBDA
-# resumable fits (slice 12): the absorb phase's 16-chunk snapshot fit as a
-# checkpointed λ grid (λ 100 is absorb's), saved every 4 chunks, killed at
-# chunk 9's pull (after the save at 8) under transient chunk and staging
-# faults, then run again with the transients only; the fatal clause counts
-# the pulls the transient clause does not take, so its index is the chunk's
-RESUME_LAMBDAS, RESUME_EVERY, RESUME_KILL_CHUNK = (10.0, 100.0, 1000.0), 4, 9
+# absorb (slice 11): a snapshot fit of the out-of-core featurizer on 8
+# chunks of the frames, 2 more absorbed; λ as TIMIT's fallback (16 chunks
+# until the cluster phases needed the time limit's room; 8 keep a save in
+# the resumed run below, and every transient of its plan fires in each run)
+ABSORB_CHUNKS, ABSORB_APPENDED, ABSORB_LAMBDA = 8, 2, TIMIT_FALLBACK_LAMBDA
+# resumable fits (slice 12): the absorb phase's snapshot fit as a
+# checkpointed λ grid (λ 100 is absorb's), saved every 2 chunks, killed at
+# chunk 5's pull (after the saves at 2 and 4) under transient chunk and
+# staging faults, then run again with the transients only (a save at 6);
+# the fatal clause counts the pulls the transient clause does not take, so
+# its index is the chunk's
+RESUME_LAMBDAS, RESUME_EVERY, RESUME_KILL_CHUNK = (10.0, 100.0, 1000.0), 2, 5
 RESUME_TRANSIENTS = "scan.chunk=transient@2,5;scan.stage=transient@3"
 RESUME_RETRIES = "4"
 # the checkpointed TSQR on the raw frames: saved every 4 chunks, killed at
@@ -1828,7 +1846,7 @@ def out_of_core_phases(dev, card) -> dict:
     check(bool(torch.equal(preds_on, preds_off)), "segment and node dispatch predict differently")
     del fitted_off, mapper_on, mapper_off, W_on, W_off, preds_on, preds_off, Xtest, chunked
 
-    # -- absorb_timit: a snapshot fit on 16 chunks, 2 more absorbed ------
+    # -- absorb_timit: a snapshot fit on 8 chunks, 2 more absorbed -------
     name, t0 = start("absorb_timit")
     draws = Counter()
 
@@ -1885,7 +1903,7 @@ def out_of_core_phases(dev, card) -> dict:
         "seconds_by_step": secs, "state_phases_by_step": state_phases,
         "chunk_draws_fit": fit_draws, "chunk_draws_absorb": absorb_draws,
         "absorbed_vs_scratch_max_abs_dev": devs, "limit": 1e-6,
-        "moved_from_the_16_chunk_fit": moved, "test_predictions_equal": preds_equal,
+        "moved_from_the_snapshot_fit": moved, "test_predictions_equal": preds_equal,
         "state_rows": state.n, "host_gram_gb": state.gram.nbytes / 1e9})
     check(fit_draws == {i: 1 for i in range(ABSORB_CHUNKS)},
           f"the snapshot fit drew the chunks {fit_draws}")
@@ -1896,7 +1914,7 @@ def out_of_core_phases(dev, card) -> dict:
     check(state.n == total * OOC_CHUNK, f"the absorbed state holds {state.n} rows")
     del updated, scratch, state, Xt
 
-    # -- resume_timit: the 16-chunk snapshot fit as a checkpointed λ grid,
+    # -- resume_timit: the snapshot fit as a checkpointed λ grid,
     # killed under a fault plan and run again --------------------------
     name, t0 = start("resume_timit")
     feats = fitted.prefix_features(frame_chunks(0, ABSORB_CHUNKS))
@@ -1936,22 +1954,27 @@ def out_of_core_phases(dev, card) -> dict:
         "lambdas": RESUME_LAMBDAS, "checkpoint_every": RESUME_EVERY,
         "kill_chunk": RESUME_KILL_CHUNK, "scan_retries": int(RESUME_RETRIES), "runs": runs,
         "state_equal": state_equal,
-        "w_equal_to_the_16_chunk_fit": bool(torch.equal(got.W, models["fitted"].W)),
+        "w_equal_to_the_snapshot_fit": bool(torch.equal(got.W, models["fitted"].W)),
         "members_equal_to_state_solve": members_equal,
         "host_state_gb_per_member": ref_state.gram.nbytes / 1e9,
         "disk_free_gb": shutil.disk_usage(ckpt_dir).free / 1e9,
         "peak_host_gb": host_peak_gb()})
     kill, resume = runs["kill"], runs["resume"]
+    kill_saves = list(range(RESUME_EVERY, RESUME_KILL_CHUNK + 1, RESUME_EVERY))
+    last = kill_saves[-1]
     check(kill["error"] is not None and "FatalFaultInjected" in kill["error"],
           f"the kill run ended with {kill['error']}")
-    check([sv["chunk"] for sv in kill["saves"]] == [4, 8] and kill["checkpoint_files"] == 1,
-          f"the kill run saved at {[sv['chunk'] for sv in kill['saves']]}")
+    check([sv["chunk"] for sv in kill["saves"]] == kill_saves and kill["checkpoint_files"] == 1,
+          f"the kill run saved at {[sv['chunk'] for sv in kill['saves']]}, want {kill_saves}")
     check(kill["chunk_draws"] == {i: 1 for i in range(RESUME_KILL_CHUNK)},
           f"the kill run drew {kill['chunk_draws']}")
-    check(resume["chunk_draws"] == {i: 1 for i in range(8, ABSORB_CHUNKS)},
-          f"the resumed run drew {resume['chunk_draws']}; the 8 after the save at 8, once")
-    check([sv["chunk"] for sv in resume["saves"]] == [12],
-          f"the re-run saved at {[sv['chunk'] for sv in resume['saves']]}; at 12 only")
+    check(resume["chunk_draws"] == {i: 1 for i in range(last, ABSORB_CHUNKS)},
+          f"the resumed run drew {resume['chunk_draws']}; those after the save at {last}, once")
+    resume_saves = list(range(last + RESUME_EVERY, ABSORB_CHUNKS, RESUME_EVERY))
+    check(bool(resume_saves) and [sv["chunk"] for sv in resume["saves"]] == resume_saves,
+          f"the re-run saved at {[sv['chunk'] for sv in resume['saves']]}, want {resume_saves}")
+    check(all(r["transients"] == {"scan.chunk": 2, "scan.stage": 1} for r in runs.values()),
+          f"every transient of the plan in each run: {[r['transients'] for r in runs.values()]}")
     check(all(r["retries_by_site"] == r["transients"] for r in runs.values()),
           f"retries by site against the plans' transients: {runs}")
     check(resume["checkpoint_files"] == 0, "the completed grid left its checkpoint")
@@ -2199,13 +2222,13 @@ def out_of_core_phases(dev, card) -> dict:
 
 
 # The out-of-core weighted fit (slice 11). ImageNetSiftLcsFV at the
-# reference's widths on 20,480 synthetic 256² images drawn on the card in
-# chunks of 64 (their SIFT and LCS stacks, ~165 GB, twice the card), 1e6
+# reference's widths on 10,240 synthetic 256² images drawn on the card in
+# chunks of 64 (their SIFT and LCS stacks, ~83 GB, above the card), 1e6
 # samples a codebook as the full-width ImageNet phase takes; the weighted
 # solver at ImageNet's training count over a planted class-mean model
 # (1,281,167 × 4096, 21 GB over the cache budget), streamed; and the same
 # draw at 100,000 rows streamed against in memory
-IN_OOC_TRAIN, IN_OOC_TEST, IN_OOC_CHUNK = 20480, 1000, 64
+IN_OOC_TRAIN, IN_OOC_TEST, IN_OOC_CHUNK = 10240, 1000, 64
 IN_OOC_PEAK_LIMIT = 40e9
 WLS_N, WLS_D, WLS_K, WLS_CHUNK, WLS_TEST = 1_281_167, 4096, 1000, 65536, 10_000
 WLS_MEMORY_ROWS = 100_000
@@ -2374,7 +2397,7 @@ def solve_check_controls(dev, card) -> None:
 
 def weighted_out_of_core_phases(dev, card) -> dict:
     """The out-of-core weighted fit: ImageNetSiftLcsFV at the reference's
-    widths on 20,480 card-drawn training images that are never whole as
+    widths on 10,240 card-drawn training images that are never whole as
     descriptors; the weighted solver at ImageNet's training count, streamed;
     the same draw at 100,000 rows streamed against in memory. Returns the K1
     launches of each path (none reaches K1)."""
@@ -2529,8 +2552,9 @@ BCD_LAMBDAS = (100.0, 1000.0, 10000.0)
 BCD_WARM_LIMIT = 1.02  # a warm member's objective against a cold fit's (the JAX test's)
 
 
-# the card tests of the out-of-core scan, the weighted fit, the faults and
-# the tracer: one pytest process, which reaches the card once
+# the card tests of the out-of-core scan, the weighted fit, the faults, the
+# tracer, the serving tiers and the stall model served eagerly on the card
+# by a cluster worker: one pytest process, which reaches the card once
 CARD_TEST_FILES = ("tests/test_torch_cuda_streaming.py",
                    "tests/test_torch_cuda_segment.py",
                    "tests/test_torch_cuda_weighted_streaming.py",
@@ -2539,7 +2563,8 @@ CARD_TEST_FILES = ("tests/test_torch_cuda_streaming.py",
                    "tests/test_torch_cuda_check.py",
                    "tests/test_torch_cuda_serving.py",
                    "tests/test_torch_cuda_fleet.py",
-                   "tests/test_torch_cuda_aot.py")
+                   "tests/test_torch_cuda_aot.py",
+                   "tests/test_torch_cuda_cluster.py::test_b_the_stall_survives_on_the_card")
 
 
 def card_tests() -> None:
@@ -3473,7 +3498,7 @@ def _scaled_scores(scores, scale):
                           datum_shape=scores.datum_shape, datum_dtype=scores.datum_dtype)
 
 
-def fleet_phases(card, scores, X_host, eager, engine_ref) -> dict:
+def fleet_phases(card, scores, X_host, eager, engine_ref) -> tuple:
     """``fleet_cifar``: the fitted RandomPatchCifarKernel scores chain
     served by ``ServingFleet(replicas=4, buckets=(1, 8, 32, 64))``, the four
     replicas co-resident on the card, every one of the ``X_host`` rows a
@@ -3490,7 +3515,8 @@ def fleet_phases(card, scores, X_host, eager, engine_ref) -> dict:
     replica 1 is killed once and restarted (``fault.replica_restart`` in
     the flight ring), replica 2 fails three batches and is quarantined (its
     dump written), and every admitted request is answered within 1e-5, K1
-    10 a batch. Returns the K1 launches of each."""
+    10 a batch. Returns the K1 launches of each, and ``fleet_cifar``'s
+    requests per second, latency and batches."""
     import numpy as np
 
     from keystone_tpu_torch import faults
@@ -3554,6 +3580,8 @@ def fleet_phases(card, scores, X_host, eager, engine_ref) -> dict:
               "occupancy": snap["batch_occupancy"]["ratio"],
               "serve_batch_phase": snap["phases"].get("serve.batch"),
               "serve_cifar": engine_ref, "card": card})
+        fleet_ref = {"requests_per_second": len(X_host) / wall, "latency_s": snap["latency"],
+                     "batches": c.get("batches", 0)}
         check(len(rows) == len(X_host) == c.get("completed", 0),
               f"{c.get('completed', 0)} of {len(X_host)} requests answered")
         check(dev_max <= SERVE_LIMIT, f"fleet scores {dev_max} off the eager apply")
@@ -3705,7 +3733,7 @@ def fleet_phases(card, scores, X_host, eager, engine_ref) -> dict:
                 os.environ[k] = v
         flight.reset()
         shutil.rmtree(flight_dir, ignore_errors=True)
-    return launches
+    return launches, fleet_ref
 
 
 def serve_demo_fleet_phase(cli, card) -> None:
@@ -3732,6 +3760,527 @@ def serve_demo_fleet_phase(cli, card) -> None:
           and int(ok[3]) == 2 and len(per_replica) == 2
           and all(b >= 1 for b in per_replica.values()),
           f"--serve-demo --replicas 2: {out[-2000:]}")
+
+
+CLUSTER_WORKERS = 2  # worker processes, each one replica, all on the one card
+CLUSTER_WARM_ROWS = 512  # single-row requests through the warm router
+CLUSTER_FAULT_ROWS = 2000  # single-row requests while worker 1 is killed
+CLUSTER_TRACE_ROWS = 64  # traced requests, each stitched across the processes
+CLUSTER_SPAWN_S = 300.0  # a cold worker loads the 164 MB chain and exports 4 programs
+ROUTER_HOPS = {"rpc.admission", "rpc.send", "rpc.request"}
+WORKER_HOPS = {"cluster.handle", "serve.queue", "serve.replica"}
+
+
+def cluster_chain(path, report, device=None):
+    """The cluster phases' model factory, run in each worker process: the
+    fitted chain whose bytes ``path`` holds (``cluster.worker.model_bytes``,
+    the tensors as host bytes), loaded onto the worker's ``device``. It also
+    notes K1's launch count and the fleet's batch count when the worker's
+    fleet is ready, and writes them with both counts now, the worker's peak
+    allocated bytes and its boot stamps to ``report/k1-<pid>.json`` on
+    SIGUSR2 and at exit: K1's launches live in the worker processes, and the
+    wire carries no count of them."""
+    import atexit
+    import signal
+
+    from keystone_tpu_torch.cluster.worker import load_model_bytes
+    from keystone_tpu_torch.ops import gaussian_kernel as gk
+    from keystone_tpu_torch.serving import fleet as fleet_mod
+
+    marks = {"pid": os.getpid(), "factory_unix": time.time()}
+    fleets = []  # the worker's one fleet, once started
+    start = fleet_mod.ServingFleet.start
+
+    on_card = torch.cuda.is_available()
+
+    def marked_start(self, *args, **kwargs):
+        out = start(self, *args, **kwargs)
+        if on_card:
+            torch.cuda.synchronize()
+        fleets.append(self)
+        marks.update(at_ready=gk.gaussian_kernel_block.launches,
+                     batches_ready=self.metrics.count("batches"), ready_unix=time.time(),
+                     ready_allocated=torch.cuda.memory_allocated() if on_card else 0)
+        return out
+
+    fleet_mod.ServingFleet.start = marked_start
+
+    def write(*_):
+        row = dict(marks, launches_now=gk.gaussian_kernel_block.launches,
+                   batches_now=fleets[0].metrics.count("batches") if fleets else 0,
+                   written_unix=time.time(),
+                   peak_allocated=torch.cuda.max_memory_allocated() if on_card else 0)
+        tmp = os.path.join(report, f".k1-{os.getpid()}.json")
+        with open(tmp, "w") as f:
+            json.dump(row, f)
+        os.replace(tmp, os.path.join(report, f"k1-{os.getpid()}.json"))
+
+    atexit.register(write)
+    signal.signal(signal.SIGUSR2, write)  # the factory runs on the main thread
+    with open(path, "rb") as f:
+        fitted = load_model_bytes(f.read(), device)
+    marks["loaded_unix"] = time.time()
+    return fitted
+
+
+def _worker_rows(report) -> dict:
+    """pid -> the row each exited worker wrote (``cluster_chain``)."""
+    import glob
+
+    rows = {}
+    for path in glob.glob(os.path.join(report, "k1-*.json")):
+        with open(path) as f:
+            row = json.load(f)
+        rows[row["pid"]] = row
+    return rows
+
+
+def _worker_batches(snap) -> dict:
+    out = {}
+    for key, row in snap.get("replicas", {}).items():
+        w = key.split("/")[0]
+        out[w] = out.get(w, 0) + row.get("batches", 0)
+    return out
+
+
+def _wait_for(cond, timeout: float, what: str) -> float:
+    """Poll ``cond`` until it holds; the seconds it took. Fails the phase
+    after ``timeout``."""
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"timed out after {timeout:.0f}s waiting for {what}")
+        time.sleep(0.05)
+    return time.perf_counter() - t0
+
+
+def cluster_phases(card, scores, X_host, eager, engine_ref, fleet_ref) -> dict:
+    """The fitted RandomPatchCifarKernel scores chain served by a
+    ``ClusterRouter`` over worker processes on the card (buckets 1 / 8 / 32 /
+    64), shipped to the workers as host bytes and loaded by
+    :func:`cluster_chain`. ``cluster_cifar``: 2 workers, one replica each, a
+    fresh AOT cache (cold); the ``X_host`` rows as single-row requests from
+    16 client threads: each answer within 1e-5 of ``eager``, every argmax
+    equal, both workers busy, K1 exactly 10 a batch in each worker and none
+    in this process; requests per second and p50 / p99 beside
+    ``serve_cifar`` and ``fleet_cifar``. Then, while a second, traced router
+    (sample rate 1.0, ``metrics_port=0``) boots over the same cache,
+    ``cluster_supervision`` on the first: under 2000 requests worker 1 is
+    killed (SIGKILL) once and respawned once, warm (0 compiles); no admitted
+    request fails, every answer within 1e-5, a ``worker_down`` flight dump;
+    and ``cluster_scale``: ``scale_up_slot()`` (called while worker 1
+    respawns) adds a worker that boots warm and serves batches;
+    ``begin_drain`` of worker 0 under traffic loses no request; one
+    ``Autoscaler`` tick on a hand-made breach row decides ``scale.up`` (its
+    half-born slot is then reaped). On the second router, ``cluster_warm``:
+    every ``ready`` reports 0 compiles and 4 AOT loads, 512 rows within
+    1e-5; ``cluster_trace``: 64 more requests; every traced request's router
+    hops (``rpc.admission``, ``rpc.send``, ``rpc.request``) and worker hops
+    (``cluster.handle``, ``serve.queue``, ``serve.replica``) under its trace
+    id in the stitched trace, on 3 process tracks; one scrape of
+    ``/metrics`` whose merged ``completed`` equals the requests answered.
+    ``cluster_boots``: each worker's boot seconds (cold; the four warm boots
+    side by side), split into the interpreter and handshake, the load and
+    the warm-up, and its allocated bytes on the card. Returns the K1
+    launches of each router, as the workers counted them."""
+    import signal
+
+    import numpy as np
+    import urllib.request
+
+    from keystone_tpu_torch.autoscale import Autoscaler, ScalePolicy
+    from keystone_tpu_torch.cluster import ClusterRouter
+    from keystone_tpu_torch.cluster.worker import model_bytes
+    from keystone_tpu_torch.obs import flight
+    from keystone_tpu_torch.obs import tracer as trace_mod
+    from keystone_tpu_torch.ops import gaussian_kernel as gk
+    from keystone_tpu_torch.serving.slo import SloBreach
+
+    eager_host = eager.cpu()
+    launches = {}
+    work = tempfile.mkdtemp(prefix="keystone-cluster-")
+    aot_dir, flight_dir = os.path.join(work, "aot"), os.path.join(work, "flight")
+    os.makedirs(flight_dir)
+    prior = {k: os.environ.get(k) for k in ("KEYSTONE_FLIGHT_DIR", "KEYSTONE_FLIGHT_RING")}
+    os.environ["KEYSTONE_FLIGHT_DIR"] = flight_dir  # the workers inherit it
+    os.environ["KEYSTONE_FLIGHT_RING"] = str(FLEET_FLIGHT_RING)
+
+    def serve(router, idx, clients=SERVE_CLIENTS):
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(max_workers=clients) as pool:
+            rows = list(pool.map(lambda i: router.predict(X_host[i], timeout=600.0), idx))
+        wall = time.perf_counter() - t0
+        got = torch.from_numpy(np.stack(rows))
+        want = eager_host[list(idx)]
+        return (len(rows), wall, (got - want).abs().max().item(),
+                bool(torch.equal(got.argmax(1), want.argmax(1))))
+
+    def new_router(report, **kwargs):
+        os.makedirs(report, exist_ok=True)
+        return ClusterRouter(("factory", "chip_smoke:cluster_chain",
+                              {"path": chain_path, "report": report}),
+                             workers=CLUSTER_WORKERS, replicas_per_worker=1,
+                             buckets=SERVE_BUCKETS, aot_cache=aot_dir,
+                             spawn_timeout_s=CLUSTER_SPAWN_S, health_interval_s=1.0,
+                             drain_timeout_s=60.0, join_timeout_s=30.0, **kwargs)
+
+    def k1_pins(rows, since=None, skip=()):
+        """pid -> K1's launches and the fleet's batches in each worker since
+        its ready, or since its row in ``since``. A row without ``at_ready``
+        is a worker reaped before its fleet started, which served nothing."""
+        out = {}
+        for pid, r in rows.items():
+            if pid in skip or "at_ready" not in r:
+                continue
+            base = (since or {}).get(pid)
+            k0, b0 = ((base["launches_now"], base["batches_now"]) if base
+                      else (r["at_ready"], r["batches_ready"]))
+            out[pid] = {"k1": r["launches_now"] - k0, "batches": r["batches_now"] - b0}
+        return out
+
+    def check_pins(pins, what, need):
+        """K1 exactly 10 a batch in each worker of ``pins``, and a batch or
+        more in each pid of ``need``."""
+        check(all(p in pins and pins[p]["batches"] >= 1 for p in need),
+              f"{what}: a worker served no batch or wrote no count: {pins}, need {need}")
+        check(all(v["k1"] == SERVE_BLOCKS * v["batches"] for v in pins.values()),
+              f"{what}: K1 in the workers against 10 × batches {pins}")
+
+    def split(rows, t0_unix, pids):
+        """Each worker's boot: to the factory (interpreter, torch, CUDA
+        context, handshake), the chain's load, the fleet's warm-up."""
+        return {p: {"to_factory": r["factory_unix"] - t0_unix,
+                    "load": r["loaded_unix"] - r["factory_unix"],
+                    "warm_up": r["ready_unix"] - r["loaded_unix"]}
+                for p, r in rows.items() if p in pids}
+
+    def counted_now(report, pids):
+        """Each live worker's row, written on SIGUSR2 (``cluster_chain``)."""
+        asked = time.time()
+        for pid in pids:
+            os.kill(pid, signal.SIGUSR2)
+        _wait_for(lambda: all(_worker_rows(report).get(p, {}).get("written_unix", 0) >= asked
+                              for p in pids), 60.0, "the workers' K1 counts")
+        return _worker_rows(report)
+
+    def supervision_phase(router, pids):
+        """SIGKILL worker 1 under 2000 requests: one warm respawn, no loss;
+        the scale-up boots beside the respawn."""
+        restarts0 = router.metrics.count("restarts")
+        victim = pids[1]
+
+        def kill_after(delay):
+            time.sleep(delay)
+            marks["kill_unix"] = time.time()
+            os.kill(victim, signal.SIGKILL)
+
+        idx = [i % len(X_host) for i in range(CLUSTER_FAULT_ROWS)]
+        killer = threading.Thread(target=kill_after, args=(0.3,))
+        killer.start()
+        n, wall, dev_max, preds_equal = serve(router, idx)
+        killer.join()
+        marks["up_unix"] = time.time()
+        marks["slot"] = router.scale_up_slot()
+        _wait_for(lambda: router.live_workers == CLUSTER_WORKERS + 1
+                  and router.worker_pids[1] != victim, 300.0,
+                  "worker 1's respawn and the scaled-up worker")
+        respawned = router.worker_reports[1]
+        marks["respawned_pid"] = router.worker_pids[1]
+        dumps = _flight_dumps(flight_dir, "worker_down")
+        restarts = router.metrics.count("restarts") - restarts0
+        emit({"phase": "cluster_supervision", "requests": CLUSTER_FAULT_ROWS, "answered": n,
+              "restarts": restarts, "requeues": router.metrics.count("requeues"),
+              "respawned_ready": {k: respawned[k] for k in ("compiles", "aot_loads")},
+              "worker_down_dumps": len(dumps), "max_abs_dev_from_apply": dev_max,
+              "limit": SERVE_LIMIT, "predictions_equal": preds_equal, "wall_seconds": wall,
+              "card": card})
+        check(n == CLUSTER_FAULT_ROWS and dev_max <= SERVE_LIMIT and preds_equal,
+              f"under the kill {n} answered, {dev_max} off")
+        check(restarts == 1 and respawned["compiles"] == 0,
+              f"restarts {restarts}, respawned ready {respawned}")
+        check(bool(dumps), "no worker_down flight dump")
+
+    def scale_phase(router):
+        """The actuator verbs, then one scaler tick on a breach row."""
+        slot = marks["slot"]  # scaled up during the supervision phase
+        up_ready, marks["up_pid"] = router.worker_reports[slot], router.worker_pids[slot]
+        n_up, _, dev_up, eq_up = serve(router, range(CLUSTER_WARM_ROWS))
+        batches_up = _worker_batches(router.snapshot(timeout=30.0))
+
+        def drain_after(delay):
+            time.sleep(delay)
+            router.begin_drain(0)
+
+        drainer = threading.Thread(target=drain_after, args=(0.2,))
+        drainer.start()
+        n_dr, _, dev_dr, eq_dr = serve(router, range(CLUSTER_WARM_ROWS, 3 * CLUSTER_WARM_ROWS))
+        drainer.join()
+        drain_seconds = _wait_for(lambda: router.scale_view()["draining"] == 0
+                                  and router.live_workers == CLUSTER_WORKERS, 120.0,
+                                  "worker 0's drain")
+        router.observe_service(0.01)  # a learned estimate: a cold fleet never scales
+        scaler = Autoscaler(ScalePolicy(min_workers=1, max_workers=4, up_breaches=1,
+                                        up_cooldown_s=0.0), router, metrics=router.metrics)
+        decisions = scaler.tick([SloBreach("queue_age_p99_budget_s", 0.9, 0.1, time.time())],
+                                row={"gauges": {"queue_depth": 0.0}})
+        instants = [e["name"] for e in flight.recorder().entries()]
+        for d in decisions:  # the decision is the evidence: its worker is not needed
+            router.reap_slot(d.worker)
+        emit({"phase": "cluster_scale", "scaled_slot": slot,
+              "up_ready": {k: up_ready[k] for k in ("compiles", "aot_loads")},
+              "per_worker_batches_after_up": batches_up, "answered_after_up": n_up,
+              "answered_during_drain": n_dr, "drain_seconds": drain_seconds,
+              "max_abs_dev_from_apply": max(dev_up, dev_dr), "limit": SERVE_LIMIT,
+              "decisions": [d.as_row() for d in decisions],
+              "scale_up_instants": instants.count("scale.up"), "card": card})
+        check(up_ready["compiles"] == 0 and batches_up.get(f"worker-{slot}", 0) >= 1,
+              f"the scaled-up worker: ready {up_ready}, batches {batches_up}")
+        check(n_up == CLUSTER_WARM_ROWS and n_dr == 2 * CLUSTER_WARM_ROWS
+              and max(dev_up, dev_dr) <= SERVE_LIMIT and eq_up and eq_dr,
+              f"scale traffic {n_up} / {n_dr} answered, {max(dev_up, dev_dr)} off")
+        check([(d.action, d.ok, d.reason) for d in decisions] == [("up", True, "breach")]
+              and instants.count("scale.up") >= 1,
+              f"the scaler's tick: {[d.as_row() for d in decisions]}")
+
+    def trace_phase(router):
+        """64 traced requests stitched across the processes; one scrape."""
+        completed0 = router.metrics.count("completed")
+        idx = range(CLUSTER_WARM_ROWS, CLUSTER_WARM_ROWS + CLUSTER_TRACE_ROWS)
+        n, _, dev_max, preds_equal = serve(router, idx)
+        by_trace, deadline = {}, time.monotonic() + 30.0
+        while True:
+            for spans in router.collect_trace(timeout=10.0):
+                for sp in spans:
+                    tid = (sp.get("args") or {}).get("trace_id")
+                    if tid:
+                        by_trace.setdefault(tid, []).append(sp)
+            whole = [t for t, sps in by_trace.items()
+                     if {x["name"] for x in sps} >= ROUTER_HOPS | WORKER_HOPS]
+            if len(whole) >= CLUSTER_WARM_ROWS + CLUSTER_TRACE_ROWS or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+        path = router.export_trace(os.path.join(work, "stitched.json"), timeout=10.0)
+        with open(path) as f:
+            doc = json.load(f)
+        tracks = sorted({e["args"]["name"] for e in doc["traceEvents"]
+                         if e["name"] == "process_name"})
+        host, port = router.metrics_address
+        with urllib.request.urlopen(f"http://{host}:{port}/metrics", timeout=30) as r:
+            scrape = r.read().decode("utf-8")
+        scraped = next((float(line.split()[-1]) for line in scrape.splitlines()
+                        if line.startswith("keystone_completed_total ")), None)
+        answered = router.metrics.count("completed")
+        pids_per_trace = sorted({len({x["pid"] for x in by_trace[t]}) for t in whole})
+        emit({"phase": "cluster_trace", "requests": CLUSTER_TRACE_ROWS, "answered": n,
+              "traced_requests": CLUSTER_WARM_ROWS + CLUSTER_TRACE_ROWS,
+              "traces": len(by_trace), "whole_traces": len(whole),
+              "pids_per_trace": pids_per_trace, "process_tracks": tracks,
+              "trace_events": len(doc["traceEvents"]), "scraped_completed": scraped,
+              "router_completed": answered, "scrape_bytes": len(scrape),
+              "max_abs_dev_from_apply": dev_max, "limit": SERVE_LIMIT, "card": card})
+        check(n == CLUSTER_TRACE_ROWS and answered - completed0 == n and dev_max <= SERVE_LIMIT
+              and preds_equal, f"traced answers {n}, {dev_max} off")
+        check(len(whole) == CLUSTER_WARM_ROWS + CLUSTER_TRACE_ROWS and pids_per_trace == [2],
+              f"{len(whole)} traces stitched whole, pids per trace {pids_per_trace}")
+        check(len(tracks) >= 3, f"process tracks {tracks}")
+        check(scraped == answered, f"scraped completed {scraped}, answered {answered}")
+
+    marks, warm = {}, {}
+    prev_tracer = trace_mod.stop()
+    try:
+        t0 = time.perf_counter()
+        chain_path = os.path.join(work, "chain.bin")
+        with open(chain_path, "wb") as f:
+            f.write(model_bytes(scores))
+        ship_seconds = time.perf_counter() - t0
+
+        # -- cluster_cifar: 2 workers, a fresh cache, the whole test set;
+        # untraced (sample rate 0), so the traced router's trace is its own
+        cold_report = os.path.join(work, "cold")
+        router = new_router(cold_report, trace_sample=0.0)
+        t0, cold_unix = time.perf_counter(), time.time()
+        router.start()
+        boot_seconds = time.perf_counter() - t0
+        warm_thread = None
+        try:
+            cold_reports = router.worker_reports
+            pids = router.worker_pids
+            router_k1 = gk.gaussian_kernel_block.launches
+            n, wall, dev_max, preds_equal = serve(router, range(len(X_host)))
+            router_k1 = gk.gaussian_kernel_block.launches - router_k1
+            snap = router.snapshot(timeout=30.0)
+            # the workers' own batch phases (the merged snapshot's phase
+            # table also holds this process's earlier engines and fleets)
+            batch_phase = {w["name"]: w["phases"].get("serve.batch")
+                           for w in router.worker_snapshots(timeout=30.0)}
+            rows = counted_now(cold_report, pids)
+            cifar_rows = {p: rows[p] for p in pids}
+            per_worker = _worker_batches(snap)
+            pins = k1_pins(cifar_rows)
+            k1 = {p: v["k1"] for p, v in pins.items()}
+            batches_by_pid = {pid: per_worker.get(f"worker-{i}", 0)
+                              for i, pid in enumerate(pids)}
+            launches["cluster_cifar"] = sum(k1.values())
+            cold_boots = [rows[p]["ready_unix"] - cold_unix for p in pids]
+            c = snap["counters"]
+            emit({"phase": "cluster_cifar", "workers": CLUSTER_WORKERS, "replicas_per_worker": 1,
+                  "requests": len(X_host), "clients": SERVE_CLIENTS,
+                  "buckets": list(SERVE_BUCKETS), "answered": n,
+                  "completed": c.get("completed", 0),
+                  "ready": [{k: r[k] for k in ("compiles", "aot_loads", "capacity", "devices",
+                                               "shm")} for r in cold_reports],
+                  "router_start_seconds": boot_seconds,
+                  "chain_bytes": os.path.getsize(chain_path), "ship_seconds": ship_seconds,
+                  "worker_boot_seconds": cold_boots, "per_worker_batches": per_worker,
+                  "k1_by_worker": k1, "k1_launches_per_batch": SERVE_BLOCKS,
+                  "router_k1_launches": router_k1,
+                  "worker_peak_allocated_bytes": [rows[p]["peak_allocated"] for p in pids],
+                  "worker_ready_allocated_bytes": [rows[p]["ready_allocated"] for p in pids],
+                  "coalesce_frames": c.get("coalesce.frames", 0),
+                  "coalesce_members": c.get("coalesce.members", 0),
+                  "wire_frames": {k: v for k, v in c.items() if k.startswith("wire.frames.")},
+                  "max_abs_dev_from_apply": dev_max, "limit": SERVE_LIMIT,
+                  "predictions_equal": preds_equal, "wall_seconds": wall,
+                  "requests_per_second": n / wall, "latency_s": snap["latency"],
+                  "queue_age_s": snap["queue_age"], "serve_batch_phase": batch_phase,
+                  "serve_cifar": engine_ref, "fleet_cifar": fleet_ref, "card": card})
+            check(n == len(X_host) == c.get("completed", 0),
+                  f"{c.get('completed', 0)} of {len(X_host)} requests answered")
+            check(dev_max <= SERVE_LIMIT and preds_equal,
+                  f"cluster scores {dev_max} off the apply")
+            check(all(r["devices"] == ["cuda:0"] for r in cold_reports),
+                  f"the workers did not serve on the card: {cold_reports}")
+            check(len(per_worker) == CLUSTER_WORKERS
+                  and all(b >= 1 for b in per_worker.values()), f"an idle worker: {per_worker}")
+            check(all(k1[p] == SERVE_BLOCKS * batches_by_pid[p] for p in pids),
+                  f"K1 in the workers {k1} against 10 × batches {batches_by_pid}")
+            check({p: v["batches"] for p, v in pins.items()} == batches_by_pid,
+                  f"the workers' own batch counts {pins} against the snapshot's")
+            check(router_k1 == 0, f"the router process launched K1 {router_k1} times")
+
+            # -- a second, traced router boots over the warm cache while the
+            # first is supervised and scaled: four warm boots side by side
+            trace_mod.install(trace_mod.Tracer())
+            warm_report = os.path.join(work, "warm")
+
+            def boot_warm():
+                warm["unix"] = time.time()
+                warm["router"] = new_router(warm_report, trace_sample=1.0, metrics_port=0)
+                try:
+                    warm["router"].start()
+                except BaseException as e:  # raised on this thread after the join
+                    warm["error"] = e
+
+            warm_thread = threading.Thread(target=boot_warm, name="warm-router-boot")
+            warm_thread.start()
+            supervision_phase(router, pids)
+            scale_phase(router)
+        finally:
+            router.shutdown(drain=True)
+            if warm_thread is not None:
+                warm_thread.join()
+        if "error" in warm:
+            raise warm["error"]
+        rows = _worker_rows(cold_report)
+        # the first router after cluster_cifar's count: the survivor (then
+        # drained), the respawn and the scaled-up worker, each from its exit
+        # row; the killed worker wrote none, so what it launched between
+        # cluster_cifar's count and the SIGKILL is not counted
+        victim = pids[1]
+        sup_pins = k1_pins(rows, since=cifar_rows, skip={victim})
+        launches["cluster_supervision_scale"] = sum(v["k1"] for v in sup_pins.values())
+        # the warm router: cluster_warm, then cluster_trace
+        wrouter = warm["router"]
+        try:
+            warm_reports = wrouter.worker_reports
+            wpids = wrouter.worker_pids
+            n, wall, dev_max, preds_equal = serve(wrouter, range(CLUSTER_WARM_ROWS))
+            warm_rows = counted_now(warm_report, wpids)
+            warm_rows = {p: warm_rows[p] for p in wpids}
+            warm_pins = k1_pins(warm_rows)
+            launches["cluster_warm"] = sum(v["k1"] for v in warm_pins.values())
+            emit({"phase": "cluster_warm", "workers": CLUSTER_WORKERS,
+                  "ready": [{k: r[k] for k in ("compiles", "aot_loads")} for r in warm_reports],
+                  "answered": n, "max_abs_dev_from_apply": dev_max, "limit": SERVE_LIMIT,
+                  "k1_by_worker": warm_pins, "k1_launches_per_batch": SERVE_BLOCKS,
+                  "predictions_equal": preds_equal, "wall_seconds": wall, "card": card})
+            check(all(r["compiles"] == 0 and r["aot_loads"] == len(SERVE_BUCKETS)
+                      for r in warm_reports), f"warm boots paid traces: {warm_reports}")
+            check_pins(warm_pins, "cluster_warm", need=wpids)
+            check(n == CLUSTER_WARM_ROWS and dev_max <= SERVE_LIMIT and preds_equal,
+                  f"warm answers {n}, {dev_max} off")
+            trace_phase(wrouter)
+            trace_pins = k1_pins(counted_now(warm_report, wpids), since=warm_rows)
+            launches["cluster_trace"] = sum(v["k1"] for v in trace_pins.values())
+        finally:
+            wrouter.shutdown(drain=True)
+        wrows = _worker_rows(warm_report)
+        emit({"phase": "cluster_k1", "k1_launches_per_batch": SERVE_BLOCKS,
+              "supervision_scale": sup_pins, "killed_pid_not_counted": victim,
+              "respawned_pid": marks["respawned_pid"], "scaled_up_pid": marks["up_pid"],
+              "trace": trace_pins, "card": card})
+        check_pins(sup_pins, "cluster_supervision / cluster_scale",
+                   need=[pids[0], marks["respawned_pid"], marks["up_pid"]])
+        check(sum(v["batches"] for v in trace_pins.values()) >= 1
+              and set(trace_pins) == set(wpids), f"cluster_trace's counts {trace_pins}")
+        check_pins(trace_pins, "cluster_trace", need=[])
+        emit({"phase": "cluster_boots", "cold_seconds": cold_boots,
+              "cold_split_seconds": split(_worker_rows(cold_report), cold_unix, pids),
+              "warm_seconds": [wrows[p]["ready_unix"] - warm["unix"] for p in wpids
+                               if p in wrows],
+              "warm_split_seconds": split(wrows, warm["unix"], wpids),
+              "respawn_seconds": (rows[marks["respawned_pid"]]["ready_unix"] - marks["kill_unix"]
+                                  if marks["respawned_pid"] in rows else None),
+              "scale_up_seconds": (rows[marks["up_pid"]]["ready_unix"] - marks["up_unix"]
+                                   if marks["up_pid"] in rows else None),
+              "warm_boots_side_by_side": 4,
+              "worker_peak_allocated_bytes": {p: r["peak_allocated"]
+                                              for p, r in {**rows, **wrows}.items()},
+              "worker_ready_allocated_bytes": {p: r["ready_allocated"]
+                                               for p, r in {**rows, **wrows}.items()},
+              "card": card})
+    finally:
+        if warm.get("router") is not None:
+            warm["router"].shutdown(drain=False)  # idempotent: stops a failed phase's workers
+        trace_mod.stop()
+        if prev_tracer is not None:
+            trace_mod.install(prev_tracer)
+        for k, v in prior.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        flight.reset()
+        shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
+def start_serve_demo_cluster():
+    """``python -m keystone_tpu_torch --serve-demo --workers 2``, started in
+    a process of its own; :func:`serve_demo_cluster_phase` reads it."""
+    return time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-m", "keystone_tpu_torch", "--serve-demo", "--workers", "2"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def serve_demo_cluster_phase(demo, card) -> None:
+    """``serve_demo_cluster``: ``--serve-demo --workers 2`` on the card: the
+    JAX demo's pass line, every answer equal to the pipeline's own apply,
+    and each worker process at one batch or more."""
+    import re
+
+    t0, proc = demo
+    out, err = proc.communicate(timeout=600)
+    line = next((ln for ln in out.splitlines() if ln.startswith("SERVE ok=")), "")
+    ok = re.match(r"SERVE ok=(\d+)/(\d+) compiles=(\d+) aot_loads=(\d+) .* workers=2 .*"
+                  r"per_worker_batches=(\{.*\})", line)
+    per_worker = json.loads(ok[5].replace("'", '"')) if ok else {}
+    emit({"phase": "serve_demo_cluster", "returncode": proc.returncode, "line": line,
+          "per_worker_batches": per_worker, "seconds": time.perf_counter() - t0,
+          "beside": "cuda_card_tests", "card": card})
+    check(proc.returncode == 0 and "SERVE PASS" in out and ok is not None and ok[1] == ok[2]
+          and len(per_worker) == 2 and all(b >= 1 for b in per_worker.values()),
+          f"--serve-demo --workers 2: {out[-2000:]}{err[-2000:]}")
 
 
 AOT_PROBE_ROWS = 64  # the rows each boot's bucket programs are held on
@@ -4178,26 +4727,48 @@ def segment_mnist_phase(cli, bcd, card, on, preds_on, Xm) -> None:
     check(equal, "segment and node dispatch predict differently at 200 FFTs")
 
 
-def aot_coldstart_phase(card) -> None:
-    """``aot_coldstart``: ``python -m keystone_tpu_torch.compile.coldstart``
-    twice in fresh processes on the card against one cache directory: the
-    first exports every bucket, the second loads every one and traces
-    none; both answer as the fitted pipeline's own apply."""
-    root = tempfile.mkdtemp(prefix="keystone-coldstart-")
-    here = os.path.dirname(os.path.abspath(__file__))
-    runs = []
-    try:
-        for _ in range(2):
-            proc = subprocess.run(
-                [sys.executable, "-m", "keystone_tpu_torch.compile.coldstart", "--cache", root],
-                cwd=here, capture_output=True, text=True, timeout=600)
-            check(proc.returncode == 0, f"coldstart: {proc.stdout[-2000:]}{proc.stderr[-3000:]}")
-            runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+def start_aot_coldstart():
+    """``python -m keystone_tpu_torch.compile.coldstart`` twice in fresh
+    processes on the card against one cache directory, one after the other
+    on a thread of their own; :func:`aot_coldstart_phase` reads them."""
+    out = {}
+
+    def run():
+        root = tempfile.mkdtemp(prefix="keystone-coldstart-")
+        here = os.path.dirname(os.path.abspath(__file__))
+        try:
+            runs = []
+            for _ in range(2):
+                proc = subprocess.run(
+                    [sys.executable, "-m", "keystone_tpu_torch.compile.coldstart",
+                     "--cache", root], cwd=here, capture_output=True, text=True, timeout=600)
+                check(proc.returncode == 0,
+                      f"coldstart: {proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+                runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+            out["runs"] = runs
+        except BaseException as e:  # raised on the main thread by the phase
+            out["error"] = e
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+
+    thread = threading.Thread(target=run, name="aot-coldstart")
+    thread.start()
+    return thread, out
+
+
+def aot_coldstart_phase(started, card) -> None:
+    """``aot_coldstart``: the two runs of :func:`start_aot_coldstart`. The
+    first exports every bucket, the second loads every one and traces none;
+    both answer as the fitted pipeline's own apply."""
+    thread, out = started
+    thread.join()
+    if "error" in out:
+        raise out["error"]
+    runs = out["runs"]
     for run in runs:
         print(json.dumps(run), flush=True)
-    emit({"phase": "aot_coldstart", "cold": runs[0], "warm": runs[1], "card": card})
+    emit({"phase": "aot_coldstart", "cold": runs[0], "warm": runs[1],
+          "beside": "cuda_card_tests", "card": card})
     n = len(runs[0]["buckets"])
     check((runs[0]["compiles"], runs[0]["aot_loads"]) == (n, 0), f"cold probe {runs[0]}")
     check((runs[1]["compiles"], runs[1]["aot_loads"], runs[1]["captures"]) == (0, n, n),
@@ -4478,7 +5049,9 @@ def main() -> int:
     # -- the serving engine on the fitted chain (slice 15) ---------------
     serve_launches, engine_ref = serve_phases(dev, card, scores, Xt_host, eager)
     # -- the same chain from a fleet of 4 co-resident replicas (slice 18)
-    fleet_launches = fleet_phases(card, scores, Xt_host, eager, engine_ref)
+    fleet_launches, fleet_ref = fleet_phases(card, scores, Xt_host, eager, engine_ref)
+    # -- the same chain from worker processes behind a router (slice 19)
+    cluster_launches = cluster_phases(card, scores, Xt_host, eager, engine_ref, fleet_ref)
     # -- the same chain booted cold, then warm, from the AOT cache (slice 16)
     aot_launches = aot_phases(dev, card, scores, Xt_host, eager)
     # -- segment dispatch of the same chain, exported and prewarmed (slice 17)
@@ -4673,7 +5246,6 @@ def main() -> int:
     check_phases(cli, dev, card)
     serve_demo_phase(cli, card)
     serve_demo_fleet_phase(cli, card)
-    aot_coldstart_phase(card)
     sweep_demo_phase(cli, card)
     timit_k1 = timit_phases(cli, dev, card)
     ls_family_phase(dev, card)
@@ -4685,7 +5257,19 @@ def main() -> int:
     weighted_k1 = weighted_out_of_core_phases(dev, card)
     resumable_k1 = mnist_device_phases(dev, card)
     observe_k1 = observe_phases(cli, dev, card, slice_ref, mnist_ref)
-    card_tests()
+    # --serve-demo --workers 2 and the coldstart probes check answers and
+    # trace counts: they run beside the card tests, which time nothing
+    demo = start_serve_demo_cluster()
+    coldstart = start_aot_coldstart()
+    try:
+        card_tests()
+        serve_demo_cluster_phase(demo, card)
+    finally:
+        if demo[1].poll() is None:  # a failed phase leaves no process behind
+            demo[1].kill()
+            demo[1].wait()
+        coldstart[0].join()
+    aot_coldstart_phase(coldstart, card)
 
     emit({"phase": "total", "seconds": time.perf_counter() - started, "card": card})
     fit = timings["fit"]
@@ -4697,7 +5281,8 @@ def main() -> int:
         "plain_ms": fit["plain_ms"], "bound_ms": fit["bound_ms"],
         "bound_by": fit["bound_by"], "library_ms": fit["library_ms"],
         "launches_by_path": {"slice": launches, "compiled_cifar": compiled_launches,
-                             **serve_launches, **fleet_launches, **aot_launches,
+                             **serve_launches, **fleet_launches, **cluster_launches,
+                             **aot_launches,
                              **segment_launches,
                              "krr_family": krr_launches, "timit_full_width": timit_k1,
                              "cifar_family": cifar_family_k1, "voc": voc_k1, **imagenet_k1,

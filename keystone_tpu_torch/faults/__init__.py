@@ -5,8 +5,10 @@
   :func:`fault_point` hooks, and the typed errors that say what recovery
   applies (:class:`TransientError`, :class:`FatalFaultInjected`,
   :class:`ReplicaKilled`). The scans' two seams, ``scan.chunk`` and
-  ``scan.stage``, are installed; the other sites' constants are here for
-  the modules that come later.
+  ``scan.stage``, are installed, as are ``replica.batch`` (the serving
+  fleet), ``aot.read`` (the AOT cache), ``worker.spawn`` (the cluster
+  router) and ``scale.spawn`` / ``scale.drain`` (the autoscaler); the
+  ``trainer.*`` constants are here for the trainer, which comes later.
 * :mod:`~keystone_tpu_torch.faults.retry`: the bounded-backoff retry of
   transient failures, one budget a scan (``KEYSTONE_SCAN_RETRIES``, off by
   default).

@@ -16,14 +16,22 @@ span summaries and instants, dumped atomically when asked) and the
 device-memory watermark (``resource``), sampled at a scan's end and at a
 served batch. ``context`` carries one request's trace identity
 (:class:`TraceContext`, :class:`Sampler`) into the serving fleet's spans.
-The Prometheus export and the export's cross-process stitching come with
-``cluster/``.
+``export`` stitches the span sets of the cluster tier's processes into
+one trace (:func:`stitch_chrome_trace`), and ``prom`` renders a metrics
+snapshot as Prometheus text behind a scrape server.
 """
 
 from . import flight, resource
 from .audit import cache_audit, log_cache_audit, observed_by_node
 from .context import Sampler, TraceContext, new_trace_id, sample_rate
-from .export import format_top_spans, to_chrome_trace, write_chrome_trace
+from .export import (
+    format_top_spans,
+    stitch_chrome_trace,
+    to_chrome_trace,
+    wire_spans,
+    write_chrome_trace,
+    write_stitched_trace,
+)
 from .scan import SCAN_SPAN, record_scan_span
 from .span import Span, cheap_nbytes, sync_value
 from .tracer import (
@@ -61,10 +69,13 @@ __all__ = [
     "resource",
     "sample_rate",
     "start",
+    "stitch_chrome_trace",
     "stop",
     "suspended",
     "sync_value",
     "to_chrome_trace",
     "uninstall",
+    "wire_spans",
     "write_chrome_trace",
+    "write_stitched_trace",
 ]

@@ -71,6 +71,9 @@ class Tracer:
         #: so a long-lived tracer must not merge a new pass's estimate for
         #: id "3" into an earlier pipeline's row
         self._plan_epoch = 0
+        #: spans discarded below ``_spans[0]`` (:meth:`discard_through`):
+        #: cursors of :meth:`spans_since` stay global indices across it
+        self._span_offset = 0
 
     # -- span recording -------------------------------------------------
 
@@ -188,6 +191,27 @@ class Tracer:
     def spans(self) -> List[Span]:
         with self._lock:
             return list(self._spans)
+
+    def spans_since(self, cursor: int):
+        """``(spans[cursor:], new_cursor)``: the incremental read a cluster
+        worker ships each span back to the router with, exactly once.
+        Cursors are global indices, valid across :meth:`discard_through`."""
+        with self._lock:
+            n = self._span_offset + len(self._spans)
+            start = max(cursor - self._span_offset, 0)
+            return self._spans[start:], n
+
+    def discard_through(self, cursor: int) -> int:
+        """Drop the spans below global index ``cursor`` (shipped to another
+        process, which owns them now), so an always-on traced worker stays
+        bounded. Returns the count dropped; local reads see only what is
+        left."""
+        with self._lock:
+            k = min(max(cursor - self._span_offset, 0), len(self._spans))
+            if k:
+                del self._spans[:k]
+                self._span_offset += k
+            return k
 
     def span_summary(self, prefix: Optional[str] = None) -> Dict[str, Dict[str, object]]:
         """``{name: {"seconds", "calls", ...}}``, the shape of

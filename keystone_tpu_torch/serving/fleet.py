@@ -52,7 +52,7 @@ import statistics
 import threading
 import time
 from concurrent.futures import Future
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -119,6 +119,10 @@ class ServingFleet:
         requeued but the replica is not restarted.
     tenant_weights:
         Weighted-fair shares of named tenants (others weigh 1.0).
+    on_device_fault:
+        Called with the error once a device fault has stopped the fleet and
+        every admitted request is answered (a cluster worker exits on it,
+        so its router respawns a fresh CUDA context).
     """
 
     def __init__(self, fitted: FittedPipeline, *, replicas: Optional[int] = None,
@@ -130,7 +134,8 @@ class ServingFleet:
                  supervise: bool = True, max_restarts: int = 2, quarantine_after: int = 3,
                  join_timeout_s: float = _JOIN_TIMEOUT_S,
                  drain_timeout_s: float = _DRAIN_TIMEOUT_S,
-                 tenant_weights: Optional[Dict[str, float]] = None):
+                 tenant_weights: Optional[Dict[str, float]] = None,
+                 on_device_fault: Optional[Callable[[BaseException], None]] = None):
         from ..parallel.placement import replica_devices
 
         self._fitted = fitted
@@ -192,6 +197,7 @@ class ServingFleet:
         self._ran = False
         #: the kernel or device fault that stopped the fleet, None while none
         self._device_fault: Optional[BaseException] = None
+        self._on_device_fault_cb = on_device_fault
         self._metrics.set_gauge("queue_depth", lambda: self._scheduler.depth)
         # the device-memory watermark gauges; no-ops without KEYSTONE_ACCOUNTING
         resource.install_memory_gauges(self._metrics)
@@ -464,6 +470,8 @@ class ServingFleet:
             tracer.instant("fault.device", op_type="ServingFleet", replica=replica,
                            failed=failed)
         flight.dump("device_fault")
+        if self._on_device_fault_cb is not None:
+            self._on_device_fault_cb(error)
 
     def _raise_device_fault(self) -> None:
         if self._device_fault is not None:

@@ -65,6 +65,7 @@ from ..obs.span import Span
 from ..obs.tracer import current as _trace_current
 from ..ops import is_device_fault
 from ..utils import timing
+from ..workflow.cuda_graph import dtype_name
 from ..workflow.pipeline import FittedPipeline, NotTraceableError, _Compiled, _param_device
 from .batching import BucketPolicy
 from .errors import DeadlineExceeded, EngineStopped, InvalidRequest
@@ -165,13 +166,17 @@ class ServedChain:
     keeps its own CUDA graphs, static buffers and capture stream, so lanes
     replay concurrently. The first lane to meet a signature notes it (the
     ``compiles`` counter); every lane's capture counts in
-    :attr:`captures`."""
+    :attr:`captures`. An ``eager`` chain (one with a host step, see
+    :func:`compile_pipeline`) runs its forwards on every call, uncaptured."""
 
     def __init__(self, fitted: FittedPipeline, note: Callable[[tuple], None],
-                 dispatcher: Optional[Callable] = None):
+                 dispatcher: Optional[Callable] = None, eager: bool = False):
         self.device = _param_device(fitted.graph)
         #: the AOT dispatcher, None when the chain serves without a cache
         self.dispatcher = dispatcher
+        #: True for a chain with a host step: every batch runs the chain's
+        #: forwards, uncaptured (:func:`compile_pipeline`)
+        self.eager = bool(eager)
         if dispatcher is None:
             self._fn, self._note = fitted._build_trace_fn(), note
         else:
@@ -207,10 +212,12 @@ class ServedChain:
 
     def __call__(self, batch: Any, lane: Any = None,
                  stream: Optional[torch.cuda.Stream] = None) -> Any:
-        compiled = self._lane(lane)
         with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
             x = torch.as_tensor(batch).to(self.device)
-            return compiled(x, _to_host)
+            if self.eager:
+                self._note_once((tuple(x.shape), dtype_name(x.dtype)))
+                return _to_host(self._fn(x))
+            return self._lane(lane)(x, _to_host)
 
 
 def compile_pipeline(fitted: FittedPipeline, *, metrics: MetricsRegistry,
@@ -222,12 +229,20 @@ def compile_pipeline(fitted: FittedPipeline, *, metrics: MetricsRegistry,
     loaded from the cache bumps ``aot_loads`` instead, so a warm boot pays
     zero traces. Raises :class:`NotTraceableError` for a chain that cannot
     be compiled, here at construction and never per request under
-    traffic."""
+    traffic.
+
+    One exception: a chain whose only blockers are host steps (nodes whose
+    operator sets ``host_step = True`` and whose verdict is
+    ``host_callback``: a host sync that is the node's purpose, as a
+    ``jax.pure_callback`` is in the JAX package) is served eagerly. A CUDA
+    graph would run such a step once, at capture, and never on replay; run
+    eagerly, every batch runs it. Such a chain exports nothing, so it has no
+    AOT programs either."""
     # one static check gives the blockers and the export verdict; the chain
     # is built from the fitted graph directly
     report = fitted.check(span=False)
     blockers = report.untraceable_labels()
-    if blockers:
+    if blockers and not _host_steps_only(fitted, report):
         raise NotTraceableError(blockers)
 
     def note(sig):
@@ -238,10 +253,22 @@ def compile_pipeline(fitted: FittedPipeline, *, metrics: MetricsRegistry,
         # not a compiled signature: no trace was paid for this bucket
         metrics.inc("aot_loads")
 
+    if blockers:
+        return ServedChain(fitted, note, eager=True)
     dispatcher = fitted._aot_dispatcher(fitted._build_trace_fn(), "auto", note,
                                         exportable=report.exportable, label=label,
                                         on_load=note_load)
     return ServedChain(fitted, note, dispatcher)
+
+
+def _host_steps_only(fitted: FittedPipeline, report) -> bool:
+    """Is every node that blocks capture a declared host step?"""
+    from ..check.lattice import HOST_CALLBACK
+
+    blocking = report.untraceable_nodes()
+    return bool(blocking) and all(
+        report.verdicts.get(n) == HOST_CALLBACK
+        and getattr(fitted.graph.get_operator(n), "host_step", False) for n in blocking)
 
 
 def serving_report(fitted: FittedPipeline):

@@ -58,6 +58,12 @@ class Transformer(Chainable, TransformerOperator):
     #: chunked input, whose chunks would each get their own statistics
     batch_coupled: bool = False
 
+    #: the host sync in ``forward`` is the node's purpose, a per-batch host
+    #: step (as a ``jax.pure_callback`` is in the JAX package): the serving
+    #: tiers run a chain that holds one eagerly, since a CUDA graph would
+    #: run the step once, at capture (``serving/replica.py``)
+    host_step: bool = False
+
     def row_work_bytes(self, *rows: Any) -> int:
         """Bytes that ``forward`` allocates for one row (``rows``: each
         input cut to its first row): its output and its temporaries. 0, the

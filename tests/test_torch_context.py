@@ -3,8 +3,8 @@ the JAX package's ``tests/obs/test_context.py`` run on
 ``keystone_tpu_torch.obs.context``, the two packages' samplers draw the
 same positions and their contexts share one wire form; and a fleet
 records a traced request's ``serve.queue`` span under its id. (The
-stitching cases of that file test ``obs/export.py``'s cross-process
-export, which comes with ``cluster/``.)"""
+stitching cases of that file, which test ``obs/export.py``'s cross-process
+export, are in ``tests/test_torch_cluster_trace.py``.)"""
 
 import os
 import time

@@ -467,11 +467,23 @@ def test_serve_demo_with_replicas_serves_from_a_fleet(capsys):
     assert "SERVE PASS" in out
 
 
-def test_serve_demo_still_refuses_workers():
-    from keystone_tpu_torch.serving.demo import main
+def test_serve_demo_still_refuses_workers(monkeypatch):
+    """``--workers 2 --replicas 2`` takes the cluster path, whose workers
+    each run a fleet of 2 replicas. The name is the one this test had while
+    ``--workers`` refused, kept so that runs before and after the cluster
+    tier line up; it refuses no more (the run through worker processes is
+    ``tests/test_torch_cluster_router.py``)."""
+    from keystone_tpu_torch.serving import demo
 
-    with pytest.raises(SystemExit, match="cluster"):
-        main(["--device", "cpu", "--workers", "2", "--replicas", "2"])
+    seen = {}
+
+    def through_cluster(args, fitted, data, buckets, dev):
+        seen.update(workers=args.workers, replicas=args.replicas)
+        return 0
+
+    monkeypatch.setattr(demo, "_serve_through_cluster", through_cluster)
+    assert demo.main(["--device", "cpu", "--workers", "2", "--replicas", "2"]) == 0
+    assert seen == {"workers": 2, "replicas": 2}
 
 
 # ---------------------------------------------------------------------------

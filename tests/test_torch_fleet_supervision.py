@@ -448,11 +448,16 @@ def test_restart_inside_canary_window_pins_old_version():
 # ---------------------------------------------------------------------------
 
 _DEVICE_FAULT = threading.Event()
+# a faulting batch raises once this is set; a test clears it to hold the
+# fault until every request it means to admit is admitted
+_ADMITTED = threading.Event()
+_ADMITTED.set()
 
 
 def _faulting(kind):
     def fault(X):
         if _DEVICE_FAULT.is_set():  # unset while the checker runs the node
+            _ADMITTED.wait(WAIT)
             raise kind
         return X * 2.0
 
@@ -469,8 +474,10 @@ DEVICE_FAULTS = [
 @pytest.fixture
 def device_fault():
     _DEVICE_FAULT.clear()
+    _ADMITTED.set()
     yield _DEVICE_FAULT
     _DEVICE_FAULT.clear()
+    _ADMITTED.set()
 
 
 @pytest.mark.parametrize("error", DEVICE_FAULTS, ids=["kernel", "oom", "cuda"])
@@ -482,8 +489,10 @@ def test_a_device_fault_in_a_live_batch_fails_every_request_and_is_not_requeued(
     fleet.start()
     try:
         assert float(np.asarray(fleet.predict(np.ones(3, np.float32), timeout=WAIT))[0]) == 2.0
+        _ADMITTED.clear()  # the first faulting batch waits for the twelfth admission
         device_fault.set()
         futs = [fleet.submit(np.ones(3, np.float32)) for _ in range(12)]
+        _ADMITTED.set()
         for f in futs:
             with pytest.raises(type(error)) as got:
                 f.result(timeout=WAIT)

@@ -999,14 +999,25 @@ def test_log_flag_levels_root_logger():
 
 
 @pytest.mark.parametrize("flag", [["--replicas", "2"], ["--workers", "2"]])
-def test_serve_demo_names_the_later_slice_for_a_fleet_or_a_cluster(flag, capsys):
-    """``--workers N`` (a cluster) still names the slice it comes with;
-    ``--replicas N`` now serves from the fleet (``tests/test_torch_fleet.py``)."""
-    from keystone_tpu_torch.serving.demo import main
+def test_serve_demo_names_the_later_slice_for_a_fleet_or_a_cluster(flag, capsys, monkeypatch):
+    """``--replicas N`` serves from the fleet (``tests/test_torch_fleet.py``)
+    and ``--workers N`` takes the cluster path with the worker count. The
+    name is the one this test had while both flags named the slice still to
+    come, kept so that runs before and after line up; neither names a slice
+    now (the run through worker processes is
+    ``tests/test_torch_cluster_router.py``)."""
+    from keystone_tpu_torch.serving import demo
 
     if flag[0] == "--replicas":
-        assert main([*DEMO[1:], "--requests", "16", *flag]) == 0
+        assert demo.main([*DEMO[1:], "--requests", "16", *flag]) == 0
         assert "replicas=2" in capsys.readouterr().out
         return
-    with pytest.raises(SystemExit, match="slice"):
-        main(["--device", "cpu", *flag])
+    seen = {}
+
+    def through_cluster(args, fitted, data, buckets, dev):
+        seen.update(workers=args.workers, rows=len(data), buckets=buckets, device=str(dev))
+        return 0
+
+    monkeypatch.setattr(demo, "_serve_through_cluster", through_cluster)
+    assert demo.main(["--device", "cpu", "--requests", "16", *flag]) == 0
+    assert seen == {"workers": 2, "rows": 16, "buckets": (8, 32), "device": "cpu"}

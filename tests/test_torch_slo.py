@@ -2,8 +2,8 @@
 package's ``tests/serving/test_slo.py`` and the policy cases of
 ``test_slo_budgets.py`` run on ``keystone_tpu_torch.serving.slo``; and
 seeded timeline rows judged by both packages' ``SloPolicy.evaluate`` give
-the same breaches. (The autoscaler case of ``test_slo_budgets.py`` comes
-with ``autoscale/scaler.py`` and ``cluster/``.)"""
+the same breaches. (The autoscaler case of ``test_slo_budgets.py`` is in
+``tests/test_torch_scaler.py``.)"""
 
 from dataclasses import asdict
 
