@@ -100,10 +100,14 @@ design matrix never whole (20 block steps, 21 scans of 34 chunks, peak
 below 32 GB; its segments on the chunked path, and ``segment_chunked``: the
 same fit under node dispatch, the same model); a snapshot fit on 8 chunks
 of those frames with 2 more
-absorbed, against a fit on all 10; the least-squares family on the chunked
+absorbed, against a fit on all 10; that snapshot model served by a fleet of
+2 replicas to 8 closed-loop clients while a ``TrainerDaemon`` absorbs,
+canaries and swaps frame chunks 10–15 in batches of 2 (a replica killed
+inside the third canary window) and rolls back and parks a poisoned batch
+(``trainer_timit``); the least-squares family on the chunked
 frames; and the chunked fit against the in-memory one at 200,000 frames.
 Then the out-of-core weighted fit: ImageNetSiftLcsFV at
-the reference's widths on 10,240 synthetic 256² images drawn on the card
+the reference's widths on 5,120 synthetic 256² images drawn on the card
 chunk by chunk (their descriptor stacks never whole, 3 featurize scans); the
 weighted solver streamed at ImageNet's 1,281,167 training rows of a planted
 class-mean model (126 scans), each held against a float64 per-class solve
@@ -141,7 +145,7 @@ then ``--serve-demo`` at the JAX CLI's defaults (``serve_demo``) and with
 weighted fit, the faults, the tracer, the checker, the engine, the fleet,
 the AOT cache and the stall model served eagerly by a cluster worker, in
 one pytest process, with ``--serve-demo --workers 2``
-(``serve_demo_cluster``) and the cold-start probe twice in fresh processes
+(``serve_demo_cluster``), ``--trainer-demo`` (``trainer_demo``) and the cold-start probe twice in fresh processes
 against one cache directory (``aot_coldstart``: every bucket exported, then
 every one loaded) running beside them.
 Each phase prints one JSON line; any failure raises and exits non-zero.
@@ -213,6 +217,9 @@ MNIST_CANONICAL = ["MnistRandomFFT", "--numFFTs", "4"] + MNIST_ROWS
 MNIST_FULL_FFTS = 200
 MNIST_FULL = ["MnistRandomFFT", "--numFFTs", str(MNIST_FULL_FFTS)] + MNIST_ROWS
 MNIST_FULL_STEPS = 50  # 102400 features / 2048 per block, one pass
+# rows of the 200-FFT featurizer traced eager and captured (all 60000 until
+# the trainer's phase needed the time limit's room; 8 chunks of 2500 each way)
+MNIST_TRACE_ROWS = 20000
 
 # TimitPipeline at the JAX CLI's defaults (50 cosines of 4096, γ 0.05555,
 # Gaussian, λ 0, 5 epochs, 147 classes), TIMIT's frames cut to 50000 so
@@ -1466,6 +1473,26 @@ RESUME_RETRIES = "4"
 # chunk 20's pull of the fold (after the means scan's 34 pulls and its end)
 TSQR_EVERY, TSQR_KILL_CHUNK, TSQR_LAMBDAS = 4, 20, (1e3, 1e4, 1e5)
 TSQR_GRID_LIMIT = 1e-5  # members against independent fits, relative to the largest entry
+# the continual-learning trainer (slice 20): absorb's 8-chunk snapshot model
+# served by 2 co-resident replicas to 8 closed-loop clients while a
+# TrainerDaemon tails frame chunks 10–15 (after absorb's 8 and 9) in
+# batches of 2, then a poisoned batch (frames 1e4, labels −1e4); bench.py's
+# trainer sequence (:3643-3780): two promotions, a third with replica 1
+# killed inside its open canary window, a rollback and a park
+TRAINER_FIRST, TRAINER_CHUNKS, TRAINER_BATCH = 10, 6, 2
+TRAINER_REPLICAS, TRAINER_BUCKETS, TRAINER_CLIENTS = 2, (8, 32), 8
+TRAINER_SERVED = 512  # rows served and held against the eager apply after each promotion
+TRAINER_PROBE = 64  # rows served one at a time, clients paused, before and after the rollback
+TRAINER_POISON = (1e4, -1e4)  # the poisoned batch's frames and labels
+# the canary's bounds: above a healthy 2-chunk absorb's move of the scores,
+# far below the poisoned batch's (both measured and printed)
+TRAINER_CANARY_ATOL, TRAINER_CANARY_RTOL = 1.0, 0.0
+TRAINER_CANARY_BATCHES, TRAINER_KILL_WINDOW = 8, 64  # mirrored batches; the kill's window
+TRAINER_PLAN = "replica.batch#1=kill@0"
+TRAINER_QUIET_S = 1.0  # traffic with no refresh, before the first batch and after each
+TRAINER_WAIT_S = 300.0
+TRAINER_W_LIMIT = 1e-6  # the first promotion against a direct absorb, relative to the largest
+TRAINER_SERVE_LIMIT = 1e-5
 
 
 class FaultLog:
@@ -1560,6 +1587,253 @@ def planted_stream(dev, chunk_rows: int, d: int, k: int, seed: int):
         return A @ w_star + STREAM_SIGMA * eps
 
     return w_star, feat, labels
+
+
+def _quantiles(latencies) -> dict:
+    import numpy as np
+
+    if not latencies:
+        return {"count": 0}
+    a = np.asarray(latencies)
+    return {"count": int(a.size), "p50": float(np.percentile(a, 50)),
+            "p99": float(np.percentile(a, 99))}
+
+
+def trainer_timit(fitted, frames, labels, Xt_host, num_classes: int, chunk_rows: int,
+                  first: int = TRAINER_FIRST, chunks: int = TRAINER_CHUNKS,
+                  wait_s: float = TRAINER_WAIT_S, quiet_s: float = TRAINER_QUIET_S,
+                  kill_window: int = TRAINER_KILL_WINDOW) -> dict:
+    """``trainer_timit``: a ``ServingFleet`` of ``fitted`` (a snapshot model
+    of 440-wide frames) under closed-loop traffic while a ``TrainerDaemon``
+    tails frame chunks ``first`` … ``first + chunks − 1`` of ``frames`` (a
+    tensor) with ``labels`` (class indices) as host numpy, in batches of
+    2, then a poisoned batch. Raises on a failed gate; returns the phase's
+    row. Needs no card: run on the CPU at a small width it checks the
+    same gates."""
+    import numpy as np
+
+    from keystone_tpu_torch import faults
+    from keystone_tpu_torch.data.chunked import ChunkedDataset
+    from keystone_tpu_torch.nodes.learning.linear import LinearMapper
+    from keystone_tpu_torch.nodes.util import ClassLabelIndicators
+    from keystone_tpu_torch.serving import CanaryMismatch, ServingFleet
+    from keystone_tpu_torch.trainer import ChunkLog, TrainerDaemon
+    from keystone_tpu_torch.utils import timing
+    from keystone_tpu_torch.workflow.pipeline import clock
+
+    dev = frames.device
+    host = [(frames[(first + i) * chunk_rows:(first + i + 1) * chunk_rows].cpu().numpy(),
+             ClassLabelIndicators(num_classes).forward(torch.from_numpy(
+                 labels[(first + i) * chunk_rows:(first + i + 1) * chunk_rows])).numpy())
+            for i in range(chunks)]
+    poison = (np.full_like(host[0][0], TRAINER_POISON[0]),
+              np.full_like(host[0][1], TRAINER_POISON[1]))
+    served_rows = Xt_host[:TRAINER_SERVED]
+    probe_rows = Xt_host[TRAINER_SERVED:TRAINER_SERVED + TRAINER_PROBE]
+
+    def mapper(f):
+        return next(op for op in f.graph.operators.values() if isinstance(op, LinearMapper))
+
+    def eager(f, rows):
+        return f.apply(torch.from_numpy(rows).to(dev)).to_array().cpu().numpy()
+
+    fleet = ServingFleet(fitted, replicas=TRAINER_REPLICAS, buckets=TRAINER_BUCKETS,
+                         datum_shape=(Xt_host.shape[1],), max_wait_ms=2.0, max_queue=4096)
+    swaps, mismatches = [], []
+    swap = fleet.swap
+
+    def recorded_swap(*args, **kwargs):
+        try:
+            report = swap(*args, **kwargs)
+        except CanaryMismatch as e:
+            mismatches.append(e.report)
+            raise
+        swaps.append(report)
+        return report
+
+    fleet.swap = recorded_swap
+    log = ChunkLog("timit-frames")
+    lock, running, stop = threading.Lock(), threading.Event(), threading.Event()
+    inflight, done, failures = [0], [], []
+
+    def client(tid):
+        i = tid
+        while not stop.is_set():
+            with lock:
+                go = running.is_set()
+                if go:
+                    inflight[0] += 1
+            if not go:
+                time.sleep(0.01)
+                continue
+            t1 = time.perf_counter()
+            try:
+                fleet.predict(Xt_host[i % len(Xt_host)], timeout=60.0)
+                done.append((time.perf_counter(), time.perf_counter() - t1))
+            except Exception as e:  # every failure fails the phase
+                failures.append(repr(e)[:300])
+            finally:
+                with lock:
+                    inflight[0] -= 1
+            i += TRAINER_CLIENTS
+
+    def wait_for(cond, what):
+        t1 = time.perf_counter()
+        while not cond():
+            check(time.perf_counter() - t1 < wait_s, f"trainer_timit: no {what} in {wait_s} s")
+            check(not daemon.device_fault, f"the trainer stopped on {daemon.device_fault!r}")
+            time.sleep(0.02)
+
+    def paused_probe():
+        # one row a batch, the clients idle: every probe replays bucket 8
+        with lock:
+            running.clear()
+        wait_for(lambda: inflight[0] == 0, "idle clients")
+        out = np.stack([np.asarray(fleet.predict(r, timeout=60.0)) for r in probe_rows])
+        running.set()
+        return out
+
+    def served(f):
+        futures = [fleet.submit(r, timeout=120.0) for r in served_rows]
+        got = np.stack([np.asarray(fu.result(timeout=180.0)) for fu in futures])
+        want = eager(f, served_rows)
+        return {"max_abs_dev": float(np.max(np.abs(got - want))),
+                "argmax_equal": bool(np.array_equal(got.argmax(1), want.argmax(1)))}
+
+    windows, quiet, promotions = [], [], []
+    timing.reset()
+    before_scores = eager(fitted, served_rows)
+    threads = [threading.Thread(target=client, args=(t,), daemon=True)
+               for t in range(TRAINER_CLIENTS)]
+    with fleet:
+        for t in threads:
+            t.start()
+        daemon = TrainerDaemon(
+            fleet, log, poll_interval_s=0.05, refit_interval_s=0.1,
+            min_refit_chunks=TRAINER_BATCH, canary_fraction=0.25,
+            canary_batches=TRAINER_CANARY_BATCHES, canary_timeout_s=60.0,
+            canary_atol=TRAINER_CANARY_ATOL, canary_rtol=TRAINER_CANARY_RTOL,
+            max_batch_retries=0, max_restarts=2)
+        try:
+            with daemon:
+                running.set()
+                for b in range(chunks // TRAINER_BATCH):
+                    t1 = clock()
+                    time.sleep(quiet_s)
+                    quiet.append((t1, clock()))
+                    kill = b == 2
+                    if kill:
+                        daemon.canary_batches = kill_window
+                    t1 = clock()
+                    for X, Y in host[b * TRAINER_BATCH:(b + 1) * TRAINER_BATCH]:
+                        log.append(X, Y)
+                    if kill:
+                        # the canary window is open once the shadow hook is in
+                        wait_for(lambda: any(r._shadow is not None for r in fleet.replicas),
+                                 "canary window")
+                        faults.install(faults.parse_plan(TRAINER_PLAN))
+                        wait_for(lambda: fleet.metrics.count("restarts") >= 1, "restart")
+                    wait_for(lambda want=b + 1: fleet.metrics.count("refits") >= want,
+                             f"promotion {b + 1}")
+                    windows.append((t1, clock()))
+                    if kill:
+                        faults.clear()
+                        daemon.canary_batches = TRAINER_CANARY_BATCHES
+                    promotions.append(dict(served(daemon.fitted),
+                                           refresh_seconds=windows[-1][1] - t1,
+                                           version=fleet.model_version))
+                    if b == 0:
+                        first_promoted = daemon.fitted
+                t1 = clock()
+                time.sleep(quiet_s)
+                quiet.append((t1, clock()))
+                probe_before = paused_probe()
+                t1 = clock()
+                for _ in range(TRAINER_BATCH):
+                    log.append(*poison)
+                wait_for(lambda: bool(daemon.parked_batches), "parked batch")
+                windows.append((t1, clock()))
+                probe_after = paused_probe()
+                parked = daemon.parked_batches
+        finally:
+            faults.clear()
+            stop.set()
+            for t in threads:
+                t.join(timeout=120)
+        snap = fleet.metrics.snapshot()
+        report = fleet.version_report()
+    phases = timing.snapshot("trainer.")
+    # the direct absorb of the first batch's chunks, which the log does not count
+    batch = host[:TRAINER_BATCH]
+    direct = fitted.absorb(
+        ChunkedDataset.from_chunk_fn(lambda i: batch[i][0], len(batch),
+                                     len(batch) * chunk_rows, label="direct"),
+        np.concatenate([Y for _, Y in batch]))
+    w_dev = {}
+    for p in ("W", "b"):
+        got, want = getattr(mapper(first_promoted), p), getattr(mapper(direct), p)
+        w_dev[p] = ((got - want).abs().max() / want.abs().max()).item()
+    healthy_move = float(np.max(np.abs(eager(first_promoted, served_rows) - before_scores)))
+    poisoned_move = max((d.get("max_abs_diff", float("inf")) for m in mismatches
+                         for d in m.get("mismatch_details", [])), default=None)
+
+    def rate(spans):
+        seconds = sum(b - a for a, b in spans)
+        lat = [s for t, s in done if any(a <= t <= b for a, b in spans)]
+        return dict(_quantiles(lat), seconds=seconds,
+                    requests_per_second=len(lat) / seconds if seconds else None)
+
+    c = snap["counters"]
+    n_batches = chunks // TRAINER_BATCH
+    row = {
+        "chunks": [first, first + chunks], "chunk_rows": chunk_rows,
+        "d": int(mapper(fitted).W.shape[0]), "classes": num_classes,
+        "replicas": TRAINER_REPLICAS, "buckets": TRAINER_BUCKETS, "clients": TRAINER_CLIENTS,
+        "counters": {k: c.get(k, 0) for k in (
+            "refits", "rollbacks", "parked_batches", "absorbed_chunks", "absorbed_rows",
+            "restarts", "submitted", "completed", "failed", "canary_pass", "canary_fail",
+            "monitor_failures", "absorb_failures", "trainer_restarts", "swaps")},
+        "parked": parked, "productions": dict(log.production_counts),
+        "version_report": report, "client_failures": failures[:5],
+        "promotions": promotions,
+        "refresh_seconds": [p["refresh_seconds"] for p in promotions],
+        "rollback_seconds": windows[-1][1] - windows[-1][0],
+        "phase_seconds": phases,
+        "absorb_seconds_per_chunk": phases["trainer.absorb"]["seconds"]
+        / (TRAINER_BATCH * phases["trainer.absorb"]["calls"]),
+        "canary_seconds_per_swap": phases["trainer.canary"]["seconds"]
+        / phases["trainer.canary"]["calls"],
+        "monitor_seconds_per_chunk": phases["trainer.monitor"]["seconds"]
+        / phases["trainer.monitor"]["calls"],
+        "swaps": swaps, "rollback_evidence": mismatches,
+        "first_promotion_vs_direct_absorb": w_dev, "w_limit": TRAINER_W_LIMIT,
+        "healthy_move": healthy_move, "poisoned_move": poisoned_move,
+        "canary_atol": TRAINER_CANARY_ATOL, "canary_rtol": TRAINER_CANARY_RTOL,
+        "probe_bit_equal": bool(np.array_equal(probe_before, probe_after)),
+        "traffic_during_refreshes": rate(windows), "traffic_between": rate(quiet),
+        "final_state_rows": int(mapper(daemon.fitted).solver_state.n),
+    }
+    check(c.get("refits", 0) == n_batches, f"trainer_timit: refits {c.get('refits')}")
+    check(c.get("rollbacks", 0) >= 1, "trainer_timit: the poisoned batch did not roll back")
+    check(parked == [(chunks, chunks + TRAINER_BATCH)], f"trainer_timit: parked {parked}")
+    check(all(v <= TRAINER_W_LIMIT for v in w_dev.values()),
+          f"the first promotion is off a direct absorb of its chunks: {w_dev}")
+    check(log.production_counts == {i: 1 for i in range(chunks + TRAINER_BATCH)},
+          f"appended chunks produced {log.production_counts}; each once")
+    check(not failures and c.get("failed", 0) == 0, f"failed requests: {failures[:5]}")
+    check(c.get("completed") == c.get("submitted"),
+          f"completed {c.get('completed')} of {c.get('submitted')}")
+    check(c.get("restarts", 0) >= 1, "the killed replica was not restarted")
+    check(not report["skew"] and report["version"] == 1 + n_batches,
+          f"versions after recovery: {report}")
+    check(all(p["max_abs_dev"] <= TRAINER_SERVE_LIMIT and p["argmax_equal"]
+              for p in promotions), f"served rows after the promotions: {promotions}")
+    check(row["probe_bit_equal"], "the rollback changed the served answers")
+    check(healthy_move < TRAINER_CANARY_ATOL and poisoned_move is not None
+          and poisoned_move > TRAINER_CANARY_ATOL,
+          f"canary bound {TRAINER_CANARY_ATOL} not between the healthy move {healthy_move} "
+          f"and the poisoned one {poisoned_move}")
+    return row
 
 
 def out_of_core_phases(dev, card) -> dict:
@@ -2036,7 +2310,19 @@ def out_of_core_phases(dev, card) -> dict:
           f"the completed absorb left its checkpoint, or removed another's: {files}")
     check(all(state_equal.values()) and torch.equal(resumed.W, models["absorbed"].W),
           f"the resumed absorb differs from the uninterrupted one: {state_equal}")
-    del fitted, models, ref_state, resumed, other, Y, featurizer
+    del models, ref_state, resumed, other, Y, featurizer
+
+    # -- trainer_timit: the snapshot model served by a fleet while the
+    # trainer absorbs, canaries and swaps chunks 10-15, then rolls back a
+    # poisoned batch; the model's own training chunks are never drawn
+    name, t0 = start("trainer_timit")
+    draws = Counter()
+    row = trainer_timit(fitted, frames, train_labels, test.data.to_array().numpy(),
+                        conf.num_classes, OOC_CHUNK)
+    row.update(training_chunk_draws=dict(draws), peak_host_gb=host_peak_gb())
+    finish(name, t0, row)
+    check(not draws, f"the trainer drew the served model's training chunks: {dict(draws)}")
+    del fitted
 
     # -- ls_chunked: the least-squares family on the chunked frames ------
     name, t0 = start("ls_chunked")
@@ -2222,13 +2508,14 @@ def out_of_core_phases(dev, card) -> dict:
 
 
 # The out-of-core weighted fit (slice 11). ImageNetSiftLcsFV at the
-# reference's widths on 10,240 synthetic 256² images drawn on the card in
-# chunks of 64 (their SIFT and LCS stacks, ~83 GB, above the card), 1e6
+# reference's widths on 5,120 synthetic 256² images drawn on the card in
+# chunks of 64 (their SIFT and LCS stacks, ~41 GB, above the peak limit; 10,240
+# until the trainer's phase needed the time limit's room), 1e6
 # samples a codebook as the full-width ImageNet phase takes; the weighted
 # solver at ImageNet's training count over a planted class-mean model
 # (1,281,167 × 4096, 21 GB over the cache budget), streamed; and the same
 # draw at 100,000 rows streamed against in memory
-IN_OOC_TRAIN, IN_OOC_TEST, IN_OOC_CHUNK = 10240, 1000, 64
+IN_OOC_TRAIN, IN_OOC_TEST, IN_OOC_CHUNK = 5120, 1000, 64
 IN_OOC_PEAK_LIMIT = 40e9
 WLS_N, WLS_D, WLS_K, WLS_CHUNK, WLS_TEST = 1_281_167, 4096, 1000, 65536, 10_000
 WLS_MEMORY_ROWS = 100_000
@@ -2397,7 +2684,7 @@ def solve_check_controls(dev, card) -> None:
 
 def weighted_out_of_core_phases(dev, card) -> dict:
     """The out-of-core weighted fit: ImageNetSiftLcsFV at the reference's
-    widths on 10,240 card-drawn training images that are never whole as
+    widths on 5,120 card-drawn training images that are never whole as
     descriptors; the weighted solver at ImageNet's training count, streamed;
     the same draw at 100,000 rows streamed against in memory. Returns the K1
     launches of each path (none reaches K1)."""
@@ -2553,8 +2840,9 @@ BCD_WARM_LIMIT = 1.02  # a warm member's objective against a cold fit's (the JAX
 
 
 # the card tests of the out-of-core scan, the weighted fit, the faults, the
-# tracer, the serving tiers and the stall model served eagerly on the card
-# by a cluster worker: one pytest process, which reaches the card once
+# tracer, the serving tiers, the trainer and the stall model served eagerly
+# on the card by a cluster worker: one pytest process, which reaches the
+# card once
 CARD_TEST_FILES = ("tests/test_torch_cuda_streaming.py",
                    "tests/test_torch_cuda_segment.py",
                    "tests/test_torch_cuda_weighted_streaming.py",
@@ -2564,6 +2852,7 @@ CARD_TEST_FILES = ("tests/test_torch_cuda_streaming.py",
                    "tests/test_torch_cuda_serving.py",
                    "tests/test_torch_cuda_fleet.py",
                    "tests/test_torch_cuda_aot.py",
+                   "tests/test_torch_cuda_trainer.py",
                    "tests/test_torch_cuda_cluster.py::test_b_the_stall_survives_on_the_card")
 
 
@@ -4283,6 +4572,27 @@ def serve_demo_cluster_phase(demo, card) -> None:
           f"--serve-demo --workers 2: {out[-2000:]}{err[-2000:]}")
 
 
+def start_trainer_demo():
+    """``python -m keystone_tpu_torch --trainer-demo``, started in a process
+    of its own; :func:`trainer_demo_phase` reads it."""
+    return time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-m", "keystone_tpu_torch", "--trainer-demo"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def trainer_demo_phase(demo, card) -> None:
+    """``trainer_demo``: ``--trainer-demo`` on the card: the JAX demo's
+    pass line (every good batch promoted, the poisoned one rolled back and
+    parked, no failed request, no version skew)."""
+    t0, proc = demo
+    out, err = proc.communicate(timeout=600)
+    line = next((ln for ln in out.splitlines() if ln.startswith("TRAINER refits=")), "")
+    emit({"phase": "trainer_demo", "returncode": proc.returncode, "line": line,
+          "seconds": time.perf_counter() - t0, "beside": "cuda_card_tests", "card": card})
+    check(proc.returncode == 0 and "TRAINER PASS" in out and "failures=0" in line,
+          f"--trainer-demo: {out[-2000:]}{err[-2000:]}")
+
+
 AOT_PROBE_ROWS = 64  # the rows each boot's bucket programs are held on
 AOT_TRAFFIC = 512  # single-row requests through each boot's engine
 
@@ -5194,8 +5504,8 @@ def main() -> int:
     replay_f = fused.batch_transform([DatasetExpression.now(Dataset(Xm))]).to_array()
     bit_equal = bool(torch.equal(eager_f, replay_f))
     del eager_f, replay_f, preds
-    # the featurizer over the 60000 training rows, traced both ways
-    Xtr = mtrain.data.to_array().to(dev)
+    # the featurizer over the first training rows, traced both ways
+    Xtr = mtrain.data.to_array()[:MNIST_TRACE_ROWS].to(dev)
     traces = {
         "eager": trace_mnist.trace(lambda: forward_in_row_chunks(fused.forward, [Xtr], len(Xtr))),
         "captured": trace_mnist.trace(
@@ -5261,13 +5571,16 @@ def main() -> int:
     # trace counts: they run beside the card tests, which time nothing
     demo = start_serve_demo_cluster()
     coldstart = start_aot_coldstart()
+    trainer_demo = start_trainer_demo()
     try:
         card_tests()
         serve_demo_cluster_phase(demo, card)
+        trainer_demo_phase(trainer_demo, card)
     finally:
-        if demo[1].poll() is None:  # a failed phase leaves no process behind
-            demo[1].kill()
-            demo[1].wait()
+        for proc in (demo[1], trainer_demo[1]):
+            if proc.poll() is None:  # a failed phase leaves no process behind
+                proc.kill()
+                proc.wait()
         coldstart[0].join()
     aot_coldstart_phase(coldstart, card)
 

@@ -27,14 +27,21 @@ the JAX CLI.
 the small MnistRandomFFT pipeline and serves synthetic traffic through
 ``ServingEngine`` (``serving/demo.py``); ``--sweep-demo`` fits a λ grid
 as one merged DAG, absorbs appended rows and hot-swaps the result into a
-live engine (``sweep/demo.py``). The JAX CLI's ``--trainer-demo`` comes
-with the trainer.
+live engine (``sweep/demo.py``); ``--trainer-demo`` runs the continual-
+learning loop against a live fleet (``trainer/demo.py``).
+
+Names resolve as in the JAX CLI: the shorthands of :data:`ALIASES`
+(``mnist``, ``cifar``, ...) and any-case application names; a demo flag
+may be abbreviated to any prefix that no other long flag shares
+(``--serve``, ``--sweep-d``, ``--trai``), and an ambiguous one (``--s``,
+``--tra``) is argparse's error.
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
+from typing import Optional
 
 from .pipelines import (
     amazon_reviews,
@@ -65,12 +72,90 @@ PIPELINES = {
 }
 
 
-def _app(argv):
-    if not argv or argv[0] not in PIPELINES:
-        raise SystemExit(
-            f"usage: python -m keystone_tpu_torch {{{','.join(PIPELINES)}}} [flags]"
-        )
-    return PIPELINES[argv[0]]
+#: shorthand → application name (the full names stay the registry's keys;
+#: these are command-line conveniences only), the JAX CLI's
+ALIASES = {
+    "mnist": "MnistRandomFFT",
+    "cifar": "RandomPatchCifar",
+    "voc": "VOCSIFTFisher",
+    "imagenet": "ImageNetSiftLcsFV",
+    "timit": "TimitPipeline",
+    "newsgroups": "NewsgroupsPipeline",
+    "amazon": "AmazonReviewsPipeline",
+}
+
+#: the demo modes, each replacing the application name
+DEMO_FLAGS = ("--serve-demo", "--sweep-demo", "--trainer-demo")
+#: every other long flag the port's command line registers: a demo flag's
+#: abbreviation must not be a prefix of one of these either
+OTHER_FLAGS = ("--trace", "--profiles", "--aot-cache", "--check", "--log", "--logLevel",
+               "--profile", "--device")
+
+
+def demo_flag(arg: str) -> Optional[str]:
+    """The demo flag ``arg`` names: itself or a prefix that no other demo
+    flag and no other long flag shares, as argparse would resolve it; None
+    otherwise (an ambiguous prefix is left to argparse's error)."""
+    if len(arg) <= 2 or not arg.startswith("--"):
+        return None
+    demos = [f for f in DEMO_FLAGS if f.startswith(arg)]
+    if len(demos) != 1 or any(f.startswith(arg) for f in OTHER_FLAGS):
+        return None
+    return demos[0]
+
+
+def _with_flags(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """``p`` with the flags every application and demo takes."""
+    p.add_argument("--trace", default=None, metavar="PATH")
+    p.add_argument("--profiles", default=None, metavar="DIR")
+    p.add_argument("--aot-cache", default=None, metavar="DIR", dest="aot_cache")
+    p.add_argument("--check", action="store_true", dest="check_only")
+    p.add_argument("--log", "--logLevel", dest="log_level", default=None,
+                   choices=["debug", "info", "warning", "error"])
+    p.add_argument("--profile", action="store_true")
+    return p
+
+
+def _parser(demo: bool) -> argparse.ArgumentParser:
+    """The command line's own flags, for ``-h`` and for argparse's errors
+    (an ambiguous or missing option); ``_observed`` applies them."""
+    p = argparse.ArgumentParser(prog="python -m keystone_tpu_torch",
+                                description="Run an application of the port.")
+    if not demo:
+        p.add_argument("pipeline", metavar="pipeline",
+                       help="one of: " + ", ".join(sorted(PIPELINES))
+                       + " (case-insensitive; shorthands: " + ", ".join(sorted(ALIASES)) + ")")
+    for flag, what in zip(DEMO_FLAGS, ("serve synthetic traffic (serving/demo.py)",
+                                       "a λ grid, absorb and swap (sweep/demo.py)",
+                                       "the continual-learning loop (trainer/demo.py)")):
+        p.add_argument(flag, action="store_true", help=f"demo mode: {what}")
+    p.add_argument("--device", default=None)
+    return _with_flags(p)
+
+
+def resolve_pipeline(parser: argparse.ArgumentParser, name: str) -> str:
+    """``name`` as an application name: itself, a shorthand of
+    :data:`ALIASES`, or a name in any case; argparse's error otherwise."""
+    if name in PIPELINES:
+        return name
+    lowered = {k.lower(): k for k in PIPELINES}
+    full = ALIASES.get(name.lower()) or lowered.get(name.lower())
+    if full is None:
+        parser.error(f"argument pipeline: invalid choice: {name!r} "
+                     f"(choose from {', '.join(sorted(PIPELINES))})")
+    return full
+
+
+def _app(argv: list):
+    """The application ``argv`` names, with the name resolved and moved to
+    the front of ``argv`` (in place), where the application's parser reads
+    it."""
+    p = _parser(demo=False)
+    args, _ = p.parse_known_args(argv)
+    full = resolve_pipeline(p, args.pipeline)
+    argv.remove(args.pipeline)
+    argv.insert(0, full)
+    return PIPELINES[full]
 
 
 def _observed(entry, argv, configure_all: bool, checked):
@@ -86,14 +171,7 @@ def _observed(entry, argv, configure_all: bool, checked):
     from .obs import tracer as obs_tracer
     from .utils.obs import configure, export_trace
 
-    flags = argparse.ArgumentParser(add_help=False, allow_abbrev=False)
-    flags.add_argument("--trace", default=None, metavar="PATH")
-    flags.add_argument("--profiles", default=None, metavar="DIR")
-    flags.add_argument("--aot-cache", default=None, metavar="DIR", dest="aot_cache")
-    flags.add_argument("--check", action="store_true", dest="check_only")
-    flags.add_argument("--log", "--logLevel", dest="log_level", default=None,
-                       choices=["debug", "info", "warning", "error"])
-    flags.add_argument("--profile", action="store_true")
+    flags = _with_flags(argparse.ArgumentParser(add_help=False, allow_abbrev=False))
     args, rest = flags.parse_known_args(argv)
     # the application's own --device keys the profile store's environment
     device = argparse.ArgumentParser(add_help=False, allow_abbrev=False)
@@ -137,18 +215,23 @@ def run(argv) -> dict:
                      checked=lambda report: {"check_report": report})
 
 
+def _demo_main(flag: str):
+    if flag == "--serve-demo":
+        from .serving.demo import main
+    elif flag == "--sweep-demo":
+        from .sweep.demo import main
+    else:
+        from .trainer.demo import main
+    return main
+
+
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    if "--serve-demo" in argv:
-        from .serving.demo import main as serve_demo_main
-
-        argv.remove("--serve-demo")
-        return _observed(serve_demo_main, argv, configure_all=True, checked=lambda _: 0)
-    if "--sweep-demo" in argv:
-        from .sweep.demo import main as sweep_demo_main
-
-        argv.remove("--sweep-demo")
-        return _observed(sweep_demo_main, argv, configure_all=True, checked=lambda _: 0)
+    demos = [f for f in map(demo_flag, argv) if f is not None]
+    if demos:
+        argv = [a for a in argv if demo_flag(a) is None]
+        _parser(demo=True).parse_known_args(argv)  # argparse's errors, as without a demo
+        return _observed(_demo_main(demos[0]), argv, configure_all=True, checked=lambda _: 0)
     return _observed(_app(argv)[1], argv, configure_all=True, checked=lambda _: 0)
 
 

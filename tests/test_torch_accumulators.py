@@ -186,6 +186,27 @@ def test_moments_state_matches_numpy_jax_and_merges():
     assert left.n == 257 and snap.n == 267
 
 
+def test_a_long_chunk_folds_in_blocks_to_numpys_two_passes():
+    """A chunk of many blocks, taken on several threads and merged in
+    order, gives the JAX package's two float64 passes over the whole chunk
+    to rounding; a chunk of one block gives its bits."""
+    from keystone_tpu_torch.linalg import accumulators
+
+    A, _ = _data(n=1000, d=7)
+    state, jstate = MomentsState().update(_t(A)), JMoments()
+    jstate.update(A)
+    A64 = A.astype(np.float64)
+    np.testing.assert_allclose(state.mean, A64.mean(axis=0), rtol=1e-12)
+    np.testing.assert_allclose(state.m2, ((A64 - A64.mean(axis=0)) ** 2).sum(axis=0),
+                               rtol=1e-12)
+    np.testing.assert_allclose(state.m2, jstate.m2, rtol=1e-12)
+    assert state.n == 1000
+    block = A[:accumulators._MOMENT_ROWS]
+    one, jone = MomentsState().update(block), JMoments()
+    jone.update(block)
+    assert np.array_equal(one.mean, jone.mean) and np.array_equal(one.m2, jone.m2)
+
+
 def test_gram_state_tensor_and_host_chunks_fold_alike():
     """Chunks that are tensors (what a scan yields) fold as numpy chunks do,
     and the moments come from the raw sums."""

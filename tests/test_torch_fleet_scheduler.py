@@ -234,12 +234,24 @@ def test_service_estimate_waits_and_coalesce_windows_equal_jax(seed):
         assert port.coalesce_window(now, tight, cap) == ref.coalesce_window(now, tight, cap)
 
 
-def _refusals(sched, req_type, shed_type, evidence, deadlines, priorities):
+class _FrozenClock:
+    """One ``time`` stand-in for both schedulers: ``monotonic()`` returns
+    the clock the test sets, so no shed verdict rests on the time that
+    passes between the two packages' admissions."""
+
+    def __init__(self, now: float = 1000.0):
+        self.now = now
+
+    def monotonic(self) -> float:
+        return self.now
+
+
+def _refusals(sched, req_type, shed_type, evidence, deadlines, priorities, clock):
     for s in evidence:
         sched.observe_service(s)
     out = []
     for deadline, priority in zip(deadlines, priorities):
-        now = time.monotonic()
+        now = clock.monotonic()
         r = req_type(datum=None, deadline=None if deadline is None else now + deadline,
                      enqueued=now, priority=priority)
         try:
@@ -251,12 +263,18 @@ def _refusals(sched, req_type, shed_type, evidence, deadlines, priorities):
 
 
 @pytest.mark.parametrize("seed", range(3))
-def test_shedding_given_the_same_service_evidence_equals_jax(seed):
+def test_shedding_given_the_same_service_evidence_equals_jax(seed, monkeypatch):
     """The same learned service times and the same stream of deadlines and
     priorities: both schedulers shed the same requests and place the rest
-    on the same queues. The slacks are whole multiples of 30 ms plus 18 ms
-    and the estimates multiples of a learned ~20 ms, so no verdict rests
-    on the microseconds between the two admissions."""
+    on the same queues. Both schedulers' modules read one frozen clock, and
+    each request's deadline is built from it, so every verdict is taken at
+    the same instant in both packages."""
+    import keystone_tpu.serving.scheduler as jax_scheduler
+    import keystone_tpu_torch.serving.scheduler as port_scheduler
+
+    clock = _FrozenClock()
+    monkeypatch.setattr(port_scheduler, "time", clock)
+    monkeypatch.setattr(jax_scheduler, "time", clock)
     rng = np.random.default_rng(seed)
     evidence = [float(v) for v in rng.uniform(0.01, 0.03, size=5)]
     n = 200
@@ -267,8 +285,8 @@ def test_shedding_given_the_same_service_evidence_equals_jax(seed):
                           max_queue=1000)
     ref = JFleetScheduler(3, JBucketPolicy((4, 8), datum_shape=(2,)), JMetricsRegistry(),
                           max_queue=1000)
-    got = _refusals(port, _Request, Shed, evidence, deadlines, priorities)
-    want = _refusals(ref, JRequest, JShed, evidence, deadlines, priorities)
+    got = _refusals(port, _Request, Shed, evidence, deadlines, priorities, clock)
+    want = _refusals(ref, JRequest, JShed, evidence, deadlines, priorities, clock)
     assert got == want
     assert "shed" in got[0] and "admitted" in got[0]
     assert port._metrics.snapshot()["counters"] == ref._metrics.snapshot()["counters"]
