@@ -112,7 +112,14 @@ chunk by chunk (their descriptor stacks never whole, 3 featurize scans); the
 weighted solver streamed at ImageNet's 1,281,167 training rows of a planted
 class-mean model (126 scans), each held against a float64 per-class solve
 (argmax agreement and the scores' deviation, each gated);
-and the same draw at 100,000 rows streamed against in memory. Then
+and the same draw at 100,000 rows streamed against in memory. Then the
+scan lanes: the streamed BCD over the planted stream at TIMIT's
+out-of-core width (d 16,384) at lanes 1, 2 and 4 on a mesh of 4 slots of
+the card, each held to one lane's W (1e-5 relative) and to the analytic
+model-error band, its collectives bounded and unchanged with the chunks
+doubled, its seconds a scan, peak memory and lane imbalance printed; and
+the normal equations, the streaming TSQR, StandardScaler and the weighted
+solve at lanes 4 against 1 (``lanes_timit``, ``lanes_family``). Then
 resumable fits: the absorb phase's 8-chunk snapshot fit
 as a checkpointed λ grid, killed by a fault plan (transient chunk and
 staging faults, then a fatal one) and run again, bit-equal to the
@@ -131,8 +138,9 @@ sampled fits apart; predictions equal to the default optimizer's runs; an
 with ``--trace`` and ``--profiles``, twice, its Chrome trace read back (and
 a traced streamed TSQR of the raw TIMIT frames, whose scan spans carry the
 scans' own counters, among the out-of-core phases); GridSweep at 200 FFTs
-over three BCD λ, cold and warm-started, each member bit-equal to its
-reference fit with the 24.6 GB featurizer run once a sweep; and GridSweep
+on 30,000 rows over three BCD λ, cold and warm-started, each member
+bit-equal to its reference fit with the 12.3 GB featurizer run once a
+sweep; and GridSweep
 over six λ of one TIMIT cosine branch, from one Gram. After the MNIST
 phases, the static checker: ``--check`` through the command line for each
 of the twelve applications, every check running no CUDA kernel (a
@@ -2839,6 +2847,202 @@ BCD_LAMBDAS = (100.0, 1000.0, 10000.0)
 BCD_WARM_LIMIT = 1.02  # a warm member's objective against a cold fit's (the JAX test's)
 
 
+# The scan lanes: the streamed BCD over the planted stream at
+# TIMIT's out-of-core width (d 16,384 in blocks of 4096, 147 classes) on a
+# mesh of 4 slots of the card, at lanes 1, 2 and 4; 12 chunks of 65,536 rows
+# (34 in block_stream_full_n: the lanes' fits take their seconds from depth).
+# The chunks are drawn on the card, so nothing is staged; the doubling check
+# stages host chunks of the same width, 8 of 4096 rows against 16 of 2048.
+LANES = dict(d=16384, block=4096, k=147, rows=OOC_CHUNK, chunks=12, slots=4,
+             counts=(1, 2, 4), rel_limit=1e-5, host_rows=4096, host_chunks=8)
+# the other laned fits at lanes 4 against 1, at a reduced depth: 8 chunks
+# of 16,384 rows of a planted problem 1024 wide, 32 classes for the weighted
+# solve (its LU solves at λ 1e-2 amplify the reordered sums: 1e-4)
+LANES_FAMILY = dict(d=1024, k=32, rows=16384, chunks=8, block=512, rel_limit=1e-5,
+                    wls_rel_limit=1e-4)
+
+
+def lanes_phases(dev, card) -> dict:
+    """``lanes_timit``: the streamed BCD at lanes 1, 2 and 4 over a mesh of
+    4 slots of the card, the laned fits held to the one-lane fit (1e-5
+    relative) and to the analytic model-error band, each scan's collectives
+    within 2·lanes + 2·(lanes − 1) and unchanged when the chunks double, the
+    scan spans' lane attributes; seconds a scan, peak memory and the lanes'
+    imbalance at each lane count. ``lanes_family``: normal equations,
+    streaming TSQR, StandardScaler and the weighted solve at lanes 4 against
+    1. Returns the K1 launches of each path (none reaches K1)."""
+    import numpy as np
+
+    from keystone_tpu_torch.data.chunked import ChunkedDataset
+    from keystone_tpu_torch.linalg import bcd, normal_equations, tsqr, weighted
+    from keystone_tpu_torch.nodes.stats import StandardScaler
+    from keystone_tpu_torch.obs import SCAN_LANE_SPAN, SCAN_SPAN
+    from keystone_tpu_torch.obs import tracer as trace_mod
+    from keystone_tpu_torch.parallel import make_mesh, use_mesh, virtual_slots
+    from keystone_tpu_torch.workflow.pipeline import clock
+
+    start, finish, launches = phase_group(card)
+    mesh = make_mesh(devices=virtual_slots(LANES["slots"], dev))
+
+    def traced(fn):
+        """(fn()'s result, the scan spans and lane spans it recorded)."""
+        tracer = trace_mod.install(trace_mod.Tracer())
+        try:
+            with use_mesh(mesh):
+                out = fn()
+        finally:
+            trace_mod.reset()
+        return (out, [sp.attrs for sp in tracer.spans() if sp.name == SCAN_SPAN],
+                [sp.attrs for sp in tracer.spans() if sp.name == SCAN_LANE_SPAN])
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    # -- lanes_timit ---------------------------------------------------------
+    name, t0 = start("lanes_timit")
+    d, bs, k, rows, n_chunks = (LANES[key] for key in ("d", "block", "k", "rows", "chunks"))
+    n = rows * n_chunks
+    w_star, feat, labels_of = planted_stream(dev, rows, d, k, 37)
+    y = torch.cat([labels_of(i, feat(i)) for i in range(n_chunks)])
+    zeros = torch.zeros(d, device=dev)
+    analytic = STREAM_SIGMA * (d / (n - d)) ** 0.5
+    ds = ChunkedDataset.from_chunk_fn(feat, n_chunks, n, label="planted")
+    W, runs = {}, {}
+    for lanes in LANES["counts"]:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        def fit():
+            t1 = clock()
+            ws = bcd.solve_blockwise_l2_streaming(ds.raw_chunks, y, STREAM_LAMBDA, bs, 1,
+                                                  means=zeros, lanes=lanes)
+            return torch.cat(ws), clock() - t1
+
+        (W[lanes], secs), spans, lane_spans = traced(fit)
+        spans = [a for a in spans if a["label"] == "bcd.stream"]
+        lane_chunks = [a.get("lane_chunks", [a["chunks"]]) for a in spans]
+        runs[lanes] = {
+            "seconds": secs, "seconds_per_scan": secs / max(len(spans), 1),
+            "scans": len(spans), "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "collectives": [a.get("collectives", 0) for a in spans],
+            "lane_chunks": lane_chunks[0] if lane_chunks else [],
+            "lane_bytes": spans[0].get("lane_bytes", []) if spans else [],
+            # the chunks are made on the card, so no bytes are staged and the
+            # span has no lane_imbalance: the same max over mean, of chunks
+            "lane_imbalance_chunks": (max(lane_chunks[0]) * len(lane_chunks[0])
+                                      / sum(lane_chunks[0])) if lane_chunks else None,
+            "lane_spans": len(lane_spans),
+            "model_rel_err": (torch.linalg.norm(W[lanes] - w_star)
+                              / torch.linalg.norm(w_star)).item()}
+        emit({"phase": "lanes_timit_run", "lanes": lanes, "slots": LANES["slots"],
+              "seconds_per_scan": runs[lanes]["seconds_per_scan"],
+              "peak_mem_gb": runs[lanes]["peak_mem_gb"],
+              "lane_imbalance_chunks": runs[lanes]["lane_imbalance_chunks"], "card": card})
+    for lanes in LANES["counts"]:
+        r = runs[lanes]
+        check(r["scans"] == d // bs, f"{r['scans']} scans at lanes {lanes}")
+        check(0.5 * analytic < r["model_rel_err"] < 2.0 * analytic,
+              f"model error {r['model_rel_err']} at lanes {lanes} outside [0.5, 2] × the "
+              f"analytic {analytic}")
+        if lanes > 1:
+            r["rel_to_one_lane"] = rel(W[lanes], W[1])
+            check(r["rel_to_one_lane"] <= LANES["rel_limit"],
+                  f"W at lanes {lanes} {r['rel_to_one_lane']} relative off one lane's")
+            check(all(0 < c <= 2 * lanes + 2 * (lanes - 1) for c in r["collectives"]),
+                  f"collectives {r['collectives']} at lanes {lanes}")
+            check(r["lane_spans"] == lanes * r["scans"], f"{r['lane_spans']} lane spans")
+            check(sum(r["lane_chunks"]) == n_chunks and len(r["lane_chunks"]) == lanes,
+                  f"lane chunks {r['lane_chunks']} at lanes {lanes}")
+        else:
+            check(all(c == 0 for c in r["collectives"]), f"one lane counted {r['collectives']}")
+    del W, y, ds, w_star
+    # the doubling check: host chunks, so the lanes stage bytes and the
+    # span carries lane_imbalance; the collectives must not change
+    hr, hn = LANES["host_rows"], LANES["host_chunks"]
+    gen = torch.Generator(dev).manual_seed(41)
+    host = torch.randn(hr * hn, d, device=dev, generator=gen).cpu().numpy()
+    yh = torch.randn(hr * hn, k, device=dev, generator=gen)
+    doubling = {}
+    for rows_h in (hr, hr // 2):
+        def fit_host(rows_h=rows_h):
+            return bcd.solve_blockwise_l2_streaming(
+                lambda: iter([host[i:i + rows_h] for i in range(0, len(host), rows_h)]), yh,
+                STREAM_LAMBDA, bs, 1, means=zeros, lanes=4)
+
+        _, spans, _ = traced(fit_host)
+        spans = [a for a in spans if a["label"] == "bcd.stream"]
+        doubling[len(host) // rows_h] = {
+            "collectives": [a["collectives"] for a in spans],
+            "lane_chunks": spans[0]["lane_chunks"], "lane_bytes": spans[0]["lane_bytes"],
+            "lane_imbalance": spans[0].get("lane_imbalance"),
+            "attrs": sorted(spans[0])}
+    del host, yh
+    coarse, fine = doubling[hn], doubling[2 * hn]
+    emit({"phase": "lanes_timit_imbalance", "lanes": 4, "chunks": [hn, 2 * hn],
+          "lane_imbalance": [coarse["lane_imbalance"], fine["lane_imbalance"]],
+          "lane_bytes": coarse["lane_bytes"], "card": card})
+    finish(name, t0, {
+        "d": d, "block_size": bs, "k": k, "rows": n, "chunks": n_chunks,
+        "slots": LANES["slots"], "model_rel_err_analytic": analytic,
+        "runs": {str(l): r for l, r in runs.items()}, "doubling": {str(c): v for c, v in
+                                                                    doubling.items()}})
+    check(coarse["collectives"] == fine["collectives"] and len(coarse["collectives"]) == d // bs,
+          f"collectives {coarse['collectives']} with {hn} chunks, {fine['collectives']} with "
+          f"{2 * hn}")
+    for key in ("lanes", "collectives", "lane_chunks", "lane_bytes", "devices", "lane_imbalance"):
+        check(key in coarse["attrs"], f"the laned scan's span has no {key}")
+
+    # -- lanes_family ----------------------------------------------------------
+    name, t0 = start("lanes_family")
+    d, k, rows, n_chunks, bs = (LANES_FAMILY[key] for key in ("d", "k", "rows", "chunks", "block"))
+    n = rows * n_chunks
+    w_star, feat, labels_of = planted_stream(dev, rows, d, k, 43)
+
+    def pair(i):
+        A = feat(i)
+        return A, labels_of(i, A)
+
+    pairs = ChunkedDataset.from_chunk_fn(pair, n_chunks, n, label="planted")
+    raw = ChunkedDataset.from_chunk_fn(feat, n_chunks, n, label="planted")
+    scores = torch.cat([feat(i) @ w_star for i in range(n_chunks)])
+    Y = -torch.ones(n, k, device=dev)
+    Y[torch.arange(n, device=dev), scores.argmax(dim=1)] = 1.0
+    del scores
+    fits, seconds, colls = {}, {}, {}
+    for lanes in (1, 4):
+        def family(lanes=lanes):
+            out = {}
+            t1 = clock()
+            out["normal_eq"] = normal_equations.solve_least_squares_streaming(
+                pairs.raw_chunks(), reg=STREAM_LAMBDA, device=dev, lanes=lanes)
+            out["tsqr"] = tsqr.tsqr_r_streaming(raw.raw_chunks, lanes=lanes)
+            scaler = with_env("KEYSTONE_SCAN_LANES", str(lanes),
+                              lambda: StandardScaler().fit(raw))
+            out["scaler_mean"], out["scaler_std"] = scaler.mean, scaler.std
+            out["weighted"] = torch.cat(weighted.solve_weighted_streaming(
+                raw.raw_chunks, Y, block_size=bs, num_iter=1, lam=STREAM_LAMBDA,
+                mixture_weight=0.25, lanes=lanes)[0])
+            return out, clock() - t1
+
+        (fits[lanes], seconds[lanes]), spans, _ = traced(family)
+        colls[lanes] = {}
+        for a in spans:
+            colls[lanes].setdefault(a["label"], []).append(a.get("collectives", 0))
+    devs = {key: rel(fits[4][key], fits[1][key]) for key in fits[1]}
+    finish(name, t0, {"d": d, "k": k, "rows": n, "chunks": n_chunks, "block_size": bs,
+                      "seconds": {str(l): s for l, s in seconds.items()},
+                      "rel_to_one_lane": devs,
+                      "collectives": {str(l): c for l, c in colls.items()}})
+    for key, dev_ in devs.items():
+        limit = LANES_FAMILY["wls_rel_limit" if key == "weighted" else "rel_limit"]
+        check(dev_ <= limit, f"{key} at lanes 4 {dev_} relative off one lane's (limit {limit})")
+    check(colls[4].get("normal_eq") == [6] and colls[4].get("tsqr") == [3],
+          f"collectives at lanes 4 {colls[4]}")
+    check(all(c == 0 for cs in colls[1].values() for c in cs), f"one lane counted {colls[1]}")
+    del fits, pairs, raw, Y, w_star
+    return {"lanes_timit": launches["lanes_timit"], "lanes_family": launches["lanes_family"]}
+
+
 # the card tests of the out-of-core scan, the weighted fit, the faults, the
 # tracer, the serving tiers, the trainer and the stall model served eagerly
 # on the card by a cluster worker: one pytest process, which reaches the
@@ -2987,6 +3191,9 @@ MNIST_SMALL_BUDGET = 8 << 30
 HOST_BUDGET = 4 << 30  # the auto-cache budget off the card
 MNIST_TRAIN_ROWS = 60000  # the command line's training rows
 SWEEP_BCD_LAMBDAS = (1e2, 1e3, 1e4)
+# sweep_mnist's training rows (60,000 until the lanes' phases needed the time
+# limit's room; its gates are bit-equality with the members' own fits)
+SWEEP_MNIST_ROWS = 30000
 SWEEP_TIMIT_LAMBDAS = (1e-3, 3e-3, 1e-2, 3e-2, 1e-1, 1.0)  # bench.py's G_LAMS (:3278)
 SWEEP_TIMIT_LIMIT = 1e-6  # a member's W against its independent fit, relative to its largest
 
@@ -3355,7 +3562,7 @@ def observe_phases(cli, dev, card, slice_ref, mnist_ref) -> dict:
 
     # -- sweep_mnist: GridSweep at 200 FFTs over three BCD λ --------------
     name, t0 = start("sweep_mnist")
-    mtrain, _ = mnist.synthetic_mnist(60000, 10000)
+    mtrain, _ = mnist.synthetic_mnist(SWEEP_MNIST_ROWS, 10000)
     X = mtrain.data.to_array().to(dev, torch.float32)
     Y = ClassLabelIndicators(mnist.NUM_CLASSES).forward(mtrain.labels.to_array().to(dev))
     conf = mnist.MnistRandomFFTConfig(num_ffts=MNIST_FULL_FFTS)
@@ -5565,6 +5772,7 @@ def main() -> int:
     text_k1 = text_phases(cli, dev, card)
     ooc_k1 = out_of_core_phases(dev, card)
     weighted_k1 = weighted_out_of_core_phases(dev, card)
+    lanes_k1 = lanes_phases(dev, card)
     resumable_k1 = mnist_device_phases(dev, card)
     observe_k1 = observe_phases(cli, dev, card, slice_ref, mnist_ref)
     # --serve-demo --workers 2 and the coldstart probes check answers and
@@ -5599,7 +5807,7 @@ def main() -> int:
                              **segment_launches,
                              "krr_family": krr_launches, "timit_full_width": timit_k1,
                              "cifar_family": cifar_family_k1, "voc": voc_k1, **imagenet_k1,
-                             **text_k1, **ooc_k1, **weighted_k1, **resumable_k1,
+                             **text_k1, **ooc_k1, **weighted_k1, **lanes_k1, **resumable_k1,
                              **observe_k1},
     }]})
     print(card, flush=True)

@@ -23,6 +23,14 @@ defect raises ``PipelineCheckError``). On the command line ``--log LEVEL``
 (``--logLevel``) and ``--profile`` set logging and phase profiling, as in
 the JAX CLI.
 
+The JAX CLI's ``--backend {tpu,cpu}`` and ``--cpuDevices N`` are taken
+too: ``--backend cpu`` is ``--device cpu``, ``--backend tpu`` is the
+accelerator, which for the port is the card (the default), and
+``--cpuDevices N`` with ``--backend cpu`` provisions N virtual devices
+(``parallel/virtual.py``: N slots of the CPU, over which the default mesh,
+the scan lanes and the machine counts are sized). Without ``--backend
+cpu``, ``--cpuDevices`` logs the JAX CLI's warning and does nothing.
+
 ``python -m keystone_tpu_torch --serve-demo [--device cpu] [flags]`` fits
 the small MnistRandomFFT pipeline and serves synthetic traffic through
 ``ServingEngine`` (``serving/demo.py``); ``--sweep-demo`` fits a λ grid
@@ -89,7 +97,10 @@ DEMO_FLAGS = ("--serve-demo", "--sweep-demo", "--trainer-demo")
 #: every other long flag the port's command line registers: a demo flag's
 #: abbreviation must not be a prefix of one of these either
 OTHER_FLAGS = ("--trace", "--profiles", "--aot-cache", "--check", "--log", "--logLevel",
-               "--profile", "--device")
+               "--profile", "--device", "--backend", "--cpuDevices")
+
+#: applications that run on the host alone and take no ``--device``
+HOST_APPS = ("StupidBackoffPipeline",)
 
 
 def demo_flag(arg: str) -> Optional[str]:
@@ -113,7 +124,43 @@ def _with_flags(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     p.add_argument("--log", "--logLevel", dest="log_level", default=None,
                    choices=["debug", "info", "warning", "error"])
     p.add_argument("--profile", action="store_true")
+    p.add_argument("--backend", choices=["tpu", "cpu"], default=None)
+    p.add_argument("--cpuDevices", type=int, default=1, dest="cpu_devices")
     return p
+
+
+def select_backend(backend: Optional[str], cpu_devices: int) -> None:
+    """The JAX CLI's ``_select_backend``: ``--cpuDevices N`` with ``--backend
+    cpu`` provisions N virtual devices; without it, it is warned about and
+    ignored. (``--backend`` itself becomes the application's ``--device``.)"""
+    if cpu_devices > 1 and backend != "cpu":
+        import logging
+
+        logging.getLogger(__name__).warning(
+            "--cpuDevices %d has no effect without --backend cpu "
+            "(virtual devices exist only on the cpu backend)", cpu_devices)
+    if backend == "cpu" and cpu_devices > 1:
+        from .parallel.virtual import provision_virtual_devices
+
+        provision_virtual_devices(cpu_devices)
+
+
+def _backend_device(rest: list, backend: Optional[str]) -> list:
+    """``rest`` with ``--backend cpu`` as ``--device cpu`` (an application
+    on the host alone takes none); ``--backend tpu`` leaves the card, the
+    default. A ``--device`` that names another device than the backend is
+    argparse's error."""
+    if backend != "cpu" or (rest and rest[0] in HOST_APPS):
+        return rest
+    p = argparse.ArgumentParser(prog="python -m keystone_tpu_torch", add_help=False,
+                                allow_abbrev=False)
+    p.add_argument("--device", default=None)
+    given = p.parse_known_args(rest)[0].device
+    if given is None:
+        return rest + ["--device", "cpu"]
+    if given.split(":")[0] != "cpu":
+        p.error(f"--backend cpu conflicts with --device {given}")
+    return rest
 
 
 def _parser(demo: bool) -> argparse.ArgumentParser:
@@ -159,8 +206,9 @@ def _app(argv: list):
 
 
 def _observed(entry, argv, configure_all: bool, checked):
-    """``entry(argv)`` with ``--trace``, ``--profiles``, ``--aot-cache`` and
-    ``--check`` taken out of ``argv`` and applied, the trace written at the end either way.
+    """``entry(argv)`` with ``--trace``, ``--profiles``, ``--aot-cache``,
+    ``--check``, ``--backend`` and ``--cpuDevices`` taken out of ``argv`` and
+    applied, the trace written at the end either way.
     With ``configure_all`` (the command line) logging and phase profiling
     are set up too; a caller of :func:`run` keeps its own. Under
     ``--check`` the first fit stops at its static check: the report's
@@ -173,6 +221,7 @@ def _observed(entry, argv, configure_all: bool, checked):
 
     flags = _with_flags(argparse.ArgumentParser(add_help=False, allow_abbrev=False))
     args, rest = flags.parse_known_args(argv)
+    rest = _backend_device(rest, args.backend)
     # the application's own --device keys the profile store's environment
     device = argparse.ArgumentParser(add_help=False, allow_abbrev=False)
     device.add_argument("--device", default=None)
@@ -187,6 +236,7 @@ def _observed(entry, argv, configure_all: bool, checked):
             cost.configure(args.profiles, device=device)
         if args.aot_cache is not None:
             compile_mod.configure(args.aot_cache)
+    select_backend(args.backend, args.cpu_devices)
     if args.check_only:
         check_mod.set_check_only(True)
     try:

@@ -50,8 +50,10 @@ worker lands on ``cuda:0`` in a CUDA context of its own, and the card
 time-slices itself between them (no MPS). A fitted model is shipped with
 its tensors as host bytes (``worker.model_bytes``) and loaded onto each
 worker's device; a ``"module:callable"`` factory is rebuilt in each worker
-instead. ``virtual_devices`` is refused: virtual devices come with the
-device mesh (``parallel/``, ROADMAP Queue 1 item 14b).
+instead. With ``virtual_devices=N`` each worker provisions N virtual
+devices (slots of the CPU, ``parallel/virtual.py``) before its fleet
+starts and serves its share of them, as the JAX package's worker does,
+whatever ``device`` says.
 """
 
 from __future__ import annotations
@@ -241,12 +243,6 @@ class ClusterRouter:
         self._n = workers if workers is not None else default_workers()
         if self._n < 1:
             raise ValueError(f"need at least one worker, got {self._n}")
-        if virtual_devices:
-            raise ValueError(
-                "virtual_devices is not supported by the port: virtual "
-                "devices come with the device mesh (parallel/, ROADMAP "
-                "Queue 1 item 14b)"
-            )
         self._model_spec = self._resolve_model_spec(model)
         self._spec = {
             "model": self._model_spec,

@@ -104,8 +104,9 @@ def resolve_model(model_spec: Any, device: Any):
 def _worker_devices(worker_id: int, n_workers: int, replicas: Optional[int],
                     device: Any = None) -> list:
     """This worker's replica devices: its slice of
-    :func:`~keystone_tpu_torch.parallel.placement.data_axis_devices` (every
-    card, or the one device ``device`` names), round robin up to
+    :func:`~keystone_tpu_torch.parallel.placement.data_axis_devices` (the
+    data axis of the default mesh: every card, or the provisioned virtual
+    devices; or the one device ``device`` names), round robin up to
     ``replicas``. With more workers than cards, workers share a card, each
     in its own CUDA context, which the card time-slices."""
     from ..parallel.placement import data_axis_devices, worker_device_indices
@@ -122,8 +123,11 @@ def worker_main(host: str, port: int, token: str, worker_id: int, spec: dict) ->
         level=getattr(logging, str(spec.get("log_level", "warning")).upper(), logging.WARNING),
         format=f"[worker-{worker_id}] %(levelname)s %(name)s: %(message)s")
     if spec.get("virtual_devices"):
-        raise ValueError("virtual_devices is not supported by the port: virtual devices come "
-                         "with the device mesh (parallel/, ROADMAP Queue 1 item 14b)")
+        # the worker serves its replicas over that many slots of the CPU,
+        # as the JAX worker does over its virtual devices
+        from ..parallel.virtual import provision_virtual_devices
+
+        provision_virtual_devices(int(spec["virtual_devices"]))
     if spec.get("aot_cache"):
         from .. import compile as compile_mod
 
@@ -214,7 +218,7 @@ def worker_main(host: str, port: int, token: str, worker_id: int, spec: dict) ->
            "codec": 1})
 
     devices = _worker_devices(worker_id, int(spec.get("n_workers", 1)), spec.get("replicas"),
-                              spec.get("device"))
+                              None if spec.get("virtual_devices") else spec.get("device"))
     fitted = resolve_model(spec["model"], devices[0])
     # the router's datum contract against the model's static check: a
     # mis-deployed model fails the boot with a node-attributed error

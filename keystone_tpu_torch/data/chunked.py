@@ -265,13 +265,16 @@ class ChunkedDataset(Dataset):
     def __len__(self) -> int:
         return self._num_rows
 
-    def chunks(self, device: Any = None) -> Iterator[Any]:
+    def chunks(self, device: Any = None, lanes: Optional[int] = None) -> Iterator[Any]:
         """One scan through the pipelined runtime: the source on a producer
         thread (split over ``KEYSTONE_SCAN_SHARDS`` producers), host chunks
         copied to ``device`` (None: numpy chunks become CPU tensors, tensors
-        stay where they are), the steps on the caller's thread."""
+        stay where they are), the steps on the caller's thread. ``lanes``
+        deals the chunks over that many data-axis slots, chunk ``i`` staged
+        to lane ``i % lanes``'s slot (``data/pipeline_scan.py``): only for a
+        consumer that keeps one partial a lane."""
         return scan_pipeline(Chunks(self._production(), self._steps), label=self._label,
-                             device=device)
+                             device=device, lanes=lanes or 1)
 
     def _production(self) -> Iterator[Any]:
         """The produced chunks, split over producer shards when asked; the

@@ -41,8 +41,21 @@ Knobs: ``KEYSTONE_SCAN_PIPELINE=0`` is the kill switch (a serial scan in
 the calling thread, with the same copies and steps); ``KEYSTONE_SCAN_DEPTH``
 the queue's depth; ``KEYSTONE_CHUNK_BUCKETS=0`` turns off the row buckets
 of ragged chunks (:class:`ChunkPadder`); ``KEYSTONE_MAP_WORKERS`` sizes
-the item pool of ``ChunkedDataset.map``. A scan runs on one device: the
-JAX package's staging lanes across a mesh are not ported.
+the item pool of ``ChunkedDataset.map``.
+
+Laned scans (``lanes > 1``, ``parallel/lanes.py``): consumers that keep one
+partial accumulator per lane (the streaming solvers, column means, the
+streaming StandardScaler) ask for one staging lane per data-axis slot of
+the mesh. Chunk ``i`` goes to lane ``i % lanes`` and is staged to that
+lane's slot's device; the queue holds ``depth`` chunks a lane, so up to
+``depth × lanes`` are in flight. The deal is fixed, so a consumer knows a
+chunk's lane from its position. The stats count the chunks and the staged
+bytes of each lane (a host chunk counts as staged to its lane, whichever
+device the lane's slot is on), and the consumer's crossings between slots
+(``record_collectives``) land on the scan's span, also after it was
+recorded. With ``KEYSTONE_SCAN_PIPELINE=0`` the serial scan keeps the lane
+placement. On one card the lanes' slots share
+the card: the chunks are staged to it as in a one-lane scan.
 """
 
 from __future__ import annotations
@@ -121,25 +134,29 @@ def payload_nbytes(payload: Any) -> int:
     return total
 
 
-def _to_device(leaf: Any, device: Optional[torch.device]) -> Tuple[Any, int]:
+def _to_device(leaf: Any, device: Optional[torch.device],
+               count_host: bool = False) -> Tuple[Any, int]:
     """``leaf`` as a tensor on ``device`` (a numpy array becomes a CPU
-    tensor sharing its memory when ``device`` is None); the bytes copied."""
-    if isinstance(leaf, np.ndarray):
+    tensor sharing its memory when ``device`` is None); the bytes copied,
+    or with ``count_host`` the bytes of a host array staged without a copy
+    too."""
+    host = isinstance(leaf, np.ndarray)
+    if host:
         leaf = torch.from_numpy(leaf)
     if not isinstance(leaf, torch.Tensor) or device is None or leaf.device == device:
-        return leaf, 0
+        return leaf, leaf.numel() * leaf.element_size() if host and count_host else 0
     return leaf.to(device), leaf.numel() * leaf.element_size()
 
 
 def _stage_chunk(chunk: Any, device: Optional[torch.device],
-                 copy_stream=None) -> Tuple[Any, int, Any]:
+                 copy_stream=None, count_host: bool = False) -> Tuple[Any, int, Any]:
     """Copy the host leaves of ``chunk`` to ``device``: (the staged chunk,
-    bytes copied, the event after the copies or None). With a
+    bytes staged, the event after the copies or None). With a
     ``copy_stream`` the copies are made there."""
     copied = [0]
 
     def one(leaf):
-        out, nbytes = _to_device(leaf, device)
+        out, nbytes = _to_device(leaf, device, count_host)
         copied[0] += nbytes
         return out
 
@@ -147,7 +164,7 @@ def _stage_chunk(chunk: Any, device: Optional[torch.device],
         return map_payload(one, chunk), copied[0], None
     with torch.cuda.stream(copy_stream):
         out = map_payload(one, chunk)
-        event = copy_stream.record_event() if copied[0] else None
+        event = copy_stream.record_event() if copied[0] and device is not None else None
     return out, copied[0], event
 
 
@@ -173,6 +190,16 @@ class ScanStats:
     #: producer shards feeding the scan (``data/shards.py``) and their chunks
     shards: int = 1
     shard_chunks: List[int] = field(default_factory=list)
+    #: staging lanes (1: a one-lane scan, no lane counts); chunks and staged
+    #: bytes of each lane, whose skew shows a straggling lane
+    lanes: int = 1
+    lane_chunks: List[int] = field(default_factory=list)
+    lane_bytes: List[int] = field(default_factory=list)
+    #: str of each lane's slot
+    lane_devices: List[str] = field(default_factory=list)
+    #: crossings between slots that the consumer counted on this scan
+    #: (partial reductions, per-block model broadcasts)
+    collectives: int = 0
 
     def as_dict(self) -> dict:
         return asdict(self)
@@ -275,35 +302,72 @@ class ScanPipeline:
     by :func:`scan_pipeline`."""
 
     def __init__(self, source: Any, *, depth: Optional[int] = None, label: str = "scan",
-                 device: Any = None, steps: Sequence[Callable[[Any], Any]] = ()):
+                 device: Any = None, steps: Sequence[Callable[[Any], Any]] = (),
+                 lanes: int = 1, devices: Optional[Sequence[Any]] = None):
         self._depth = depth or pipeline_depth()
         self._device = None if device is None else torch.device(device)
         self._steps = tuple(steps)
-        self._q: Queue = Queue(maxsize=self._depth)
+        self._lanes, self._devices = _lane_slots(lanes, devices)
+        self._q: Queue = Queue(maxsize=self._depth * self._lanes)
         self._stop = threading.Event()
         self._closed = False
         self._recorded = False
+        self._span = None
         self.stats = ScanStats(label=label, depth=self._depth, start=time.perf_counter())
         # one budget a scan: a source behind the scan.chunk seam brings its
         # own, which the staging copies then share
         self._retry = getattr(source, "retry_budget", None) or RetryBudget(label=f"scan[{label}]")
         # a sharded producer reports its split when the scan ends
         self._shard_source = source if getattr(source, "shards", 1) > 1 else None
-        stream = _consumer_stream(self._device)
-        copy_stream = (torch.cuda.Stream(self._device)
-                       if self._device is not None and self._device.type == "cuda" else None)
-        target, budget = self._device, self._retry
+        targets = ([self._device] if self._devices is None
+                   else [s.device for s in self._devices])
+        stream = _consumer_stream(targets[0])
+        copy_streams = {d: torch.cuda.Stream(d) for d in set(targets)
+                        if d is not None and d.type == "cuda"}
+        # the producer must hold no reference to self (see _producer_loop)
+        budget, stats, seq, n_lanes = self._retry, self.stats, [0], self._lanes
+        laned = self._devices is not None
+        if laned:
+            stats.lanes = self._lanes
+            stats.lane_chunks = [0] * self._lanes
+            stats.lane_bytes = [0] * self._lanes
+            stats.lane_devices = [str(s) for s in self._devices]
 
         def stage_fn(chunk):
+            lane = seq[0] % n_lanes
+            seq[0] += 1
+            target = targets[lane]
             # a copy is idempotent, so a transient failure retries in place
-            return retry_call(lambda: _stage_chunk(chunk, target, copy_stream), budget,
-                              SCAN_STAGE, label=label)
+            out = retry_call(lambda: _stage_chunk(chunk, target, copy_streams.get(target),
+                                                  count_host=laned),
+                             budget, SCAN_STAGE, label=label)
+            if laned:
+                stats.lane_chunks[lane] += 1
+                stats.lane_bytes[lane] += out[1]
+            return out
 
         self._thread = threading.Thread(
             target=_producer_loop,
             args=(iter(source), self._q, self._stop, self.stats, stage_fn, stream),
             name=f"ks-scan[{label}]", daemon=True)
         self._thread.start()
+
+    @property
+    def lanes(self) -> int:
+        """The staging lanes; chunk ``i`` is lane ``i % lanes``'s."""
+        return self._lanes
+
+    @property
+    def lane_devices(self) -> Optional[List[Any]]:
+        """The slot of each lane (None on a one-lane scan)."""
+        return self._devices
+
+    def record_collectives(self, n: int) -> None:
+        """Count ``n`` crossings between slots on this scan, before or after
+        it ended (a reduction at the end lands on the recorded span)."""
+        self.stats.collectives += int(n)
+        if self._span is not None:
+            self._span.attrs["collectives"] = self.stats.collectives
 
     def __iter__(self) -> "ScanPipeline":
         return self
@@ -322,11 +386,12 @@ class ScanPipeline:
             raise payload
         chunk, event = payload
         if event is not None:
-            stream = torch.cuda.current_stream(self._device)
+            leaves = [leaf for leaf in payload_leaves(chunk)
+                      if isinstance(leaf, torch.Tensor) and leaf.is_cuda]
+            stream = torch.cuda.current_stream(leaves[0].device)
             stream.wait_event(event)
-            for leaf in payload_leaves(chunk):
-                if isinstance(leaf, torch.Tensor) and leaf.is_cuda:
-                    leaf.record_stream(stream)
+            for leaf in leaves:
+                leaf.record_stream(stream)
         try:
             chunk = _apply(self._steps, chunk)
         except BaseException:
@@ -376,7 +441,8 @@ class ScanPipeline:
             self.stats.shard_chunks = list(self._shard_source.shard_chunks)
         from ..obs.scan import record_scan_span
 
-        record_scan_span(self.stats)
+        # kept: a reduction after the last chunk stamps its count on the span
+        self._span = record_scan_span(self.stats)
 
     def __del__(self):
         try:
@@ -392,23 +458,43 @@ class ScanPipeline:
         self.close()
 
 
+def _lane_slots(lanes: int, devices: Optional[Sequence[Any]]):
+    """(lane count, the lanes' slots or None): no slots for a one-lane
+    scan; the slots default to ``lane_devices(lanes)``."""
+    lanes = max(1, int(lanes))
+    if lanes == 1:
+        return 1, None
+    from ..parallel.lanes import lane_devices
+    from ..parallel.mesh import as_slot
+
+    if devices is None:
+        devices = lane_devices(lanes)
+    return lanes, [as_slot(d, i) for i, d in enumerate(devices)]
+
+
 def serial_staged(chunks: Any, depth: int = DEFAULT_DEPTH, device: Any = None,
-                  steps: Sequence[Callable[[Any], Any]] = ()):
+                  steps: Sequence[Callable[[Any], Any]] = (), lanes: int = 1,
+                  devices: Optional[Sequence[Any]] = None):
     """The scan without a thread (``KEYSTONE_SCAN_PIPELINE=0``): up to
-    ``depth`` chunks produced and copied to ``device`` ahead of the
-    consumer, then ``steps`` applied to each, in order."""
+    ``depth`` chunks a lane produced and copied ahead of the consumer (to
+    ``device``, or on a laned scan to chunk ``i``'s lane's slot), then
+    ``steps`` applied to each, in order."""
     device = None if device is None else torch.device(device)
+    lanes, slots = _lane_slots(lanes, devices)
     it = iter(chunks)
     q: deque = deque()
+    seq = 0
     try:
         while True:
-            while it is not None and len(q) < depth:
+            while it is not None and len(q) < depth * lanes:
                 try:
                     chunk = next(it)
                 except StopIteration:
                     it = None
                     break
-                q.append(_stage_chunk(chunk, device)[0])
+                target = device if slots is None else slots[seq % lanes].device
+                seq += 1
+                q.append(_stage_chunk(chunk, target)[0])
             if not q:
                 return
             yield _apply(steps, q.popleft())
@@ -419,22 +505,27 @@ def serial_staged(chunks: Any, depth: int = DEFAULT_DEPTH, device: Any = None,
 
 
 def scan_pipeline(chunks: Any, *, depth: Optional[int] = None, label: str = "scan",
-                  device: Any = None):
+                  device: Any = None, lanes: int = 1,
+                  devices: Optional[Sequence[Any]] = None):
     """The streaming-scan entry point: any chunk iterable through the
     pipelined runtime. A :class:`Chunks` stream runs its source on the
     producer and its steps on the consumer; any other iterable runs whole
-    on the producer. Idempotent: a ScanPipeline passes through, so a
-    solver may wrap what it is given. Host chunks are copied to
-    ``device``; with None, numpy chunks become CPU tensors (no copy) and
-    tensors stay where they are."""
+    on the producer. Idempotent: a ScanPipeline passes through with its
+    own lanes (read the count off ``.lanes``), so a solver may wrap what
+    it is given. Host chunks are copied to ``device``; with None, numpy
+    chunks become CPU tensors (no copy) and tensors stay where they are.
+    ``lanes > 1`` deals the chunks over the lanes' slots ``devices``
+    (default ``lane_devices(lanes)``), for consumers with one partial a
+    lane."""
     if isinstance(chunks, ScanPipeline):
         return chunks
     steps: Tuple = ()
     if isinstance(chunks, Chunks):
         chunks, steps = chunks.source, chunks.steps
     if not pipeline_enabled():
-        return serial_staged(chunks, depth or pipeline_depth(), device, steps)
-    return ScanPipeline(chunks, depth=depth, label=label, device=device, steps=steps)
+        return serial_staged(chunks, depth or pipeline_depth(), device, steps, lanes, devices)
+    return ScanPipeline(chunks, depth=depth, label=label, device=device, steps=steps,
+                        lanes=lanes, devices=devices)
 
 
 # -- chunk-shape bucketing ---------------------------------------------------
@@ -465,7 +556,11 @@ class ChunkPadder:
     result, so the output is exact; ``fn`` must be row-wise in its leading
     axis (batch-coupled steps are refused before one gets here). The
     ladder is kept across scans, so a scan run again reuses the graphs.
-    ``KEYSTONE_CHUNK_BUCKETS=0`` passes chunks through as they are."""
+    ``KEYSTONE_CHUNK_BUCKETS=0`` passes chunks through as they are.
+
+    Every bucket is rounded up to a multiple of the scan's lane count
+    (``parallel.lanes.scan_lanes()``), so a padded chunk divides evenly
+    over the data axis; with one lane the ladder is unchanged."""
 
     def __init__(self, fn: Callable[[Any], Any]):
         self.fn = fn
@@ -479,7 +574,9 @@ class ChunkPadder:
         if self._buckets is None:
             with self._lock:
                 if self._buckets is None:
-                    self._buckets = bucket_ladder(rows)
+                    from ..parallel.lanes import scan_lanes
+
+                    self._buckets = bucket_ladder(rows, multiple=scan_lanes())
         target = next((b for b in self._buckets if b >= rows), None)
         if target is None or target == rows:
             # at or above the lead shape: unpadded

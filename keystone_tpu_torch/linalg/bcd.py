@@ -14,9 +14,15 @@ compute the same thing (keeping the factors across sweeps is later work).
 :func:`solve_blockwise_l2_streaming` solves over a design matrix that is
 never whole: each block step is one scan of a chunk source, and only the
 labels, the prediction buffer, one chunk and the per-block Grams stay on
-the card. The JAX package's model-sharded scan and its laned streaming
-body (one staging lane per mesh device) are not ported: a scan here runs
-on one card.
+the card. Its laned body (:func:`_solve_blockwise_l2_streaming_lanes`)
+deals the chunks over the data-axis slots of the mesh, one partial Gram
+and cross term a lane, reduced once a block step.
+
+On a mesh with a model axis wider than one, :func:`solve_blockwise_l2_scan`
+places A's column blocks, the means and W over the model-axis slots
+(:func:`_bcd_scan_model_sharded`), as the JAX package does. The block loop
+stays sequential. On one card the slots share the card, so the layout
+buys structure, not memory: every block is still on that card.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from ..data.pipeline_scan import scan_pipeline
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, NamedSharding, _placed, mesh_or_none
 from .row_matrix import cross, gram, solve_spd
 
 
@@ -100,7 +107,7 @@ def solve_blockwise_l2(
         means = [None] * len(blocks)
     pred = torch.zeros_like(y)
     if init is None:
-        Ws = [torch.zeros((b.shape[1], k), dtype=torch.float32, device=y.device)
+        Ws = [torch.zeros((b.shape[1], k), dtype=torch.float32, device=b.device)
               for b in blocks]
     else:
         if len(init) != len(blocks):
@@ -110,7 +117,9 @@ def solve_blockwise_l2(
             pred.add_((Aj if mj is None else Aj - mj) @ Wj)
     for _ in range(num_iter):
         for j, Aj in enumerate(blocks):
-            Ws[j], pred = _block_update_impl(Aj, means[j], Ws[j], pred, y, reg)
+            # a block on another device (a model slot) takes the buffer there
+            Ws[j], pred = _block_update_impl(Aj, means[j], Ws[j], pred.to(Aj.device),
+                                             y.to(Aj.device), reg)
     return Ws
 
 
@@ -129,7 +138,9 @@ def solve_blockwise_l2_scan(
     budget); the centered block of each step is the only per-block copy.
     ``means`` is the (d,) column-mean vector, ``init`` the (d, k) starting
     weights. Returns the (d, k) weights. (The JAX package compiles the pass
-    as one scan; eager PyTorch has no reason to.)"""
+    as one scan; eager PyTorch has no reason to.) On a mesh with a model
+    axis (:func:`_bcd_scan_model_sharded`) a cold start places each view on
+    its block's model slot and W carries the ``P(model)`` layout."""
     A = A.float()
     n, d = A.shape
     if d % block_size != 0:
@@ -139,10 +150,41 @@ def solve_blockwise_l2_scan(
         means = means.float().reshape(d)
     if init is not None:
         init = init.float().reshape(d, -1)
-    return torch.cat(solve_blockwise_l2(
-        [A[:, sl] for sl in spans], y, reg, num_iter,
-        means=None if means is None else [means[sl] for sl in spans],
-        init=None if init is None else [init[sl] for sl in spans]))
+    # a warm start keeps the unsharded form, as in the JAX package
+    placed = None if init is not None else _bcd_scan_model_sharded(n, d, block_size)
+    devs = placed or [A.device] * len(spans)
+    W = torch.cat([w.to(y.device) for w in solve_blockwise_l2(
+        [A[:, sl].to(dv) for sl, dv in zip(spans, devs)], y, reg, num_iter,
+        means=None if means is None else [means[sl].to(dv) for sl, dv in zip(spans, devs)],
+        init=None if init is None else [init[sl] for sl in spans])])
+    return W if placed is None else _placed(W, NamedSharding(mesh_or_none(), (MODEL_AXIS,)))
+
+
+def _bcd_scan_model_sharded(n: int, d: int, block_size: int) -> Optional[List[torch.device]]:
+    """The device of each column block's model slot on the default mesh,
+    or None where the JAX package's model-sharded scan does not apply: no
+    mesh or a model axis of one, d not splitting into whole blocks a slot,
+    or n not dividing the data axis.
+
+    The reference spreads d across its cluster (VectorSplitter and
+    BlockLinearMapper.scala:199-257), and the JAX package shards A's
+    columns, the means and W over its model axis so that a d too large for
+    one device's memory spreads over several. Each model slot holds whole
+    blocks: block j is on slot ``j // (d / n_model / block_size)`` of the
+    model axis (at data index 0), and its step runs on that slot's device.
+    The loop over blocks stays sequential, as in the reference. On one card
+    every slot is the card, so this buys the JAX package's structure, not
+    memory."""
+    m = mesh_or_none()
+    if m is None:
+        return None
+    n_model = m.shape[MODEL_AXIS]
+    if n_model <= 1 or d % n_model != 0 or (d // n_model) % block_size != 0:
+        return None
+    if n % m.shape[DATA_AXIS] != 0:
+        return None
+    slots = list(m.devices[0, :].flat)
+    return [slots[j // (d // n_model)].device for j in range(0, d, block_size)]
 
 
 def _check_width(width: int, d: int, what: str) -> None:
@@ -155,20 +197,32 @@ def _check_width(width: int, d: int, what: str) -> None:
                          f"d = {d}")
 
 
-def stream_column_means(chunk_scan, device=None, d: Optional[int] = None):
+def stream_column_means(chunk_scan, device=None, d: Optional[int] = None,
+                        lanes: Optional[int] = None):
     """One scan of ``chunk_scan()`` (a re-iterable chunk source): the column
     means of the chunked design matrix and its row count. Every chunk must
     be as wide as the first (and ``d`` wide when ``d`` is given). Chunks
-    are copied to ``device`` when they are produced elsewhere."""
-    total, n, width = None, 0, d
-    for chunk in scan_pipeline(chunk_scan(), label="column_means", device=device):
+    are copied to ``device`` when they are produced elsewhere. ``lanes``
+    (default ``parallel.lanes.scan_lanes()``): one partial sum a lane,
+    reduced once at the end."""
+    from ..parallel.lanes import reduce_lane_partials, scan_lanes
+
+    if lanes is None:
+        lanes = scan_lanes()
+    pipe = scan_pipeline(chunk_scan(), label="column_means", device=device, lanes=lanes)
+    lanes = getattr(pipe, "lanes", lanes)
+    sums: list = [None] * lanes
+    n, width = 0, d
+    for i, chunk in enumerate(pipe):
         chunk = chunk.float()
         if width is None:
             width = int(chunk.shape[1])
         _check_width(int(chunk.shape[1]), width, "stream_column_means")
         s = chunk.sum(dim=0)
-        total = s if total is None else total + s
+        lane = i % lanes
+        sums[lane] = s if sums[lane] is None else sums[lane] + s
         n += int(chunk.shape[0])
+    total = reduce_lane_partials(sums, scan=pipe, devices=getattr(pipe, "lane_devices", None))
     if total is None:
         raise ValueError("empty chunk source")
     return total / n, n
@@ -203,6 +257,7 @@ def solve_blockwise_l2_streaming(
     block_size: int,
     num_iter: int = 1,
     means: Optional[torch.Tensor] = None,
+    lanes: Optional[int] = None,
 ) -> List[torch.Tensor]:
     """BCD least squares over a design matrix that is never whole.
 
@@ -217,7 +272,15 @@ def solve_blockwise_l2_streaming(
     previous block's prediction update; every scan's first chunk must be
     d wide. Each block's Gram is formed in the first sweep and kept (nblocks
     × block_size², 268 MB at d 16,384 in blocks of 4096). Every block step
-    adds one to ``solve_blockwise_l2_streaming.block_steps``."""
+    adds one to ``solve_blockwise_l2_streaming.block_steps``.
+
+    ``lanes`` (default ``parallel.lanes.scan_lanes()``, which is 1 on one
+    card without a mesh of several slots): with more than one, the laned
+    body :func:`_solve_blockwise_l2_streaming_lanes` runs."""
+    from ..parallel.lanes import scan_lanes
+
+    if lanes is None:
+        lanes = scan_lanes()
     y_zm = y_zm.float()
     n, k = y_zm.shape
     dev = y_zm.device
@@ -239,6 +302,9 @@ def solve_blockwise_l2_streaming(
         means = torch.zeros(d, dtype=torch.float32, device=dev)
     starts = list(range(0, d, block_size))
     sizes = [min(block_size, d - j) for j in starts]
+    if lanes > 1:
+        return _solve_blockwise_l2_streaming_lanes(chunk_scan, y_zm, reg, starts, sizes,
+                                                   num_iter, means, lanes)
     nblocks = len(starts)
     Ws = [torch.zeros((sz, k), dtype=torch.float32, device=dev) for sz in sizes]
     grams: List[Optional[torch.Tensor]] = [None] * nblocks
@@ -275,3 +341,89 @@ def solve_blockwise_l2_streaming(
 
 
 solve_blockwise_l2_streaming.block_steps = 0
+
+
+def _solve_blockwise_l2_streaming_lanes(chunk_scan, y_zm: torch.Tensor, reg: float,
+                                        starts: List[int], sizes: List[int], num_iter: int,
+                                        means: torch.Tensor, lanes: int) -> List[torch.Tensor]:
+    """The laned body of :func:`solve_blockwise_l2_streaming`.
+
+    Chunk ``i`` goes to lane ``i % lanes``; its prediction slab and label
+    slice are placed on the lane's slot at the first scan and stay there, so
+    each chunk's update is local to its lane. Each block step broadcasts
+    the block's W (and the previous block's delta) to the lanes once, each
+    lane folds its own Gram and cross partials over its chunks, and the
+    partials are summed once, in lane order; the solve runs on the sums on
+    the labels' device. Collectives a scan: at most 2·lanes broadcasts and
+    2·(lanes − 1) reduction hops, however many chunks stream. A scan must
+    produce the chunk boundaries of the first (a lane's slabs are those
+    chunks' rows)."""
+    from ..parallel.lanes import lane_devices, record_scan_collectives, reduce_lane_partials
+
+    n, k = y_zm.shape
+    dev = y_zm.device
+    d = int(means.shape[0])
+    devs = lane_devices(lanes)
+    means_lane = [means.to(s.device) for s in devs]
+    pred_chunks: List[torch.Tensor] = []
+    y_chunks: List[torch.Tensor] = []
+    chunk_rows: List[int] = []
+    Ws = [torch.zeros((sz, k), dtype=torch.float32, device=dev) for sz in sizes]
+    grams: List[Optional[torch.Tensor]] = [None] * len(starts)
+    delta_prev = None
+    jprev, prev_size = 0, sizes[0]
+    first_scan = True
+    for _ in range(num_iter):
+        for b in range(len(starts)):
+            do_prev = delta_prev is not None
+            do_gram = grams[b] is None
+            G_l: List[Optional[torch.Tensor]] = [None] * lanes
+            c_l: List[Optional[torch.Tensor]] = [None] * lanes
+            # the block's model read by every lane: counted as broadcasts
+            W_lane = [Ws[b].to(s.device) for s in devs]
+            delta_lane = [delta_prev.to(s.device) if do_prev else None for s in devs]
+            pipe = scan_pipeline(chunk_scan(), label="bcd.stream", lanes=lanes, devices=devs)
+            record_scan_collectives(pipe, (2 if do_prev else 1) * lanes)
+            row0 = 0
+            for i, chunk in enumerate(pipe):
+                lane = i % lanes
+                # a source that hands over a scan of its own bypassed the
+                # lanes' staging: the chunk joins its lane's slabs
+                chunk = chunk.float().to(devs[lane].device)
+                rows = int(chunk.shape[0])
+                if row0 == 0:
+                    _check_width(int(chunk.shape[1]), d, "solve_blockwise_l2_streaming")
+                if first_scan:
+                    if row0 + rows > n:
+                        raise ValueError(
+                            f"the chunk source produced more than the labels' {n} rows")
+                    chunk_rows.append(rows)
+                    y_chunks.append(y_zm[row0:row0 + rows].to(devs[lane].device))
+                    pred_chunks.append(torch.zeros((rows, k), dtype=torch.float32,
+                                                   device=devs[lane].device))
+                elif i >= len(chunk_rows) or chunk_rows[i] != rows:
+                    raise ValueError("chunk source changed boundaries between scans "
+                                     f"(chunk {i}: {rows} rows)")
+                if do_gram and G_l[lane] is None:
+                    G_l[lane] = chunk.new_zeros((sizes[b], sizes[b]))
+                if c_l[lane] is None:
+                    c_l[lane] = chunk.new_zeros((sizes[b], k))
+                _stream_chunk_update(chunk, pred_chunks[i], G_l[lane], c_l[lane], W_lane[lane],
+                                     delta_lane[lane], means_lane[lane], y_chunks[i], 0, jprev,
+                                     starts[b], sizes[b], prev_size, do_gram)
+                row0 += rows
+                del chunk
+            if row0 != n:
+                raise ValueError(f"chunk source produced {row0} rows, labels have {n}")
+            first_scan = False
+            if do_gram:
+                grams[b] = reduce_lane_partials(G_l, scan=pipe, devices=devs).to(dev)
+            c = reduce_lane_partials(c_l, scan=pipe, devices=devs)
+            if c is None:
+                raise ValueError("empty chunk source")
+            W_new = solve_spd(grams[b], c.to(dev), reg)
+            delta_prev = W_new - Ws[b]
+            Ws[b] = W_new
+            jprev, prev_size = starts[b], sizes[b]
+            solve_blockwise_l2_streaming.block_steps += 1
+    return Ws

@@ -11,8 +11,11 @@ scan, which also applies the previous block's delayed residual update,
 then one scan for each chunk of C classes forming those classes' Grams.
 A class's Gram is formed from its own rows (:class:`ClassRows`), not from
 the JAX package's masked product over every row of the chunk: the same
-sums in another order, at 1/C of the work. The JAX package's laned body
-(one staging lane per mesh device) is not ported: a scan runs on one card.
+sums in another order, at 1/C of the work. The laned body
+(:func:`_solve_weighted_streaming_lanes`) deals the chunks over the
+data-axis slots of the mesh: each chunk's residual slab stays on its
+lane's slot, each lane folds its own partials, and the partials are
+summed once a scan, in lane order.
 
 Precision: λ is as small as 6e-5 at ImageNet's settings, so every product
 here runs in full float32 (TF32 stays off, as the package sets it).
@@ -29,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from ..data.pipeline_scan import scan_pipeline
+from ..parallel.mesh import shard_classes
 from ..utils.timing import phase
 from .accumulators import MomentsState, as_chunk
 
@@ -191,14 +195,15 @@ def _wls_class_delta(grams, counts, class_means, pop_mean, joint_means, pop_xtr,
     G.baddbmm_(mean_diff[:, :, None], mean_diff[:, None, :], alpha=w * (1 - w))
     G += (1 - w) * pop_cov
     with phase("wls.lu") as out:
-        delta = _batched_solve(G, rhs, lam)
+        # each model-axis slot solves its slice of the classes
+        delta = _batched_solve(shard_classes(G), shard_classes(rhs), lam)
         out.append(delta)
     return delta
 
 
 def solve_weighted_streaming(chunk_scan, Y: torch.Tensor, *, block_size: int, num_iter: int,
                              lam: float, mixture_weight: float, class_chunk: int = 8,
-                             info: Optional[dict] = None,
+                             info: Optional[dict] = None, lanes: Optional[int] = None,
                              ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """The class-weighted block solve over a chunk source, out of core.
 
@@ -215,9 +220,16 @@ def solve_weighted_streaming(chunk_scan, Y: torch.Tensor, *, block_size: int, nu
     the JAX package keeps them. Every block always solves the dense per-class
     systems, even where the in-memory solver would take its dual path, as
     the JAX package's streaming solve does. ``info``, when given, receives
-    the ``scans``, ``class_chunks``, ``block_steps`` and ``paths``. One
-    card is one lane: the JAX package's laned body waits for the port of
-    ``parallel/``."""
+    the ``scans``, ``class_chunks``, ``block_steps`` and ``paths``.
+    ``lanes`` (default ``parallel.lanes.scan_lanes()``): with more than
+    one, the laned body :func:`_solve_weighted_streaming_lanes` runs."""
+    from ..parallel.lanes import scan_lanes
+
+    if lanes is None:
+        lanes = scan_lanes()
+    if lanes > 1:
+        return _solve_weighted_streaming_lanes(chunk_scan, Y, lam, float(mixture_weight),
+                                               block_size, num_iter, class_chunk, lanes, info)
     w = float(mixture_weight)
     Y = Y.float()
     n, k = Y.shape
@@ -288,11 +300,142 @@ def solve_weighted_streaming(chunk_scan, Y: torch.Tensor, *, block_size: int, nu
             delta = torch.empty((k, bs), **z)
             for c0 in range(0, k, C):
                 Ccur = min(C, k - c0)
-                grams = torch.zeros((Ccur, bs, bs), **z)
+                # each model-axis slot owns a slice of the classes' Grams
+                grams = shard_classes(torch.zeros((Ccur, bs, bs), **z))
                 with phase("wls.stream_grams") as out:
                     for i, _, chunk in scan("wls.stream_grams"):
                         layout.rows[i].grams(chunk[:, j0:j0 + bs], c0, c0 + Ccur, out=grams)
                         del chunk
+                    out.append(grams)
+                delta[c0:c0 + Ccur] = _wls_class_delta(
+                    grams, counts, class_means, pop_mean, joint_means, pop_xtr, class_xtr,
+                    residual_mean, class_r_mean, pop_cov, Ws[bidx], w, lam, c0, Ccur)
+                del grams
+                info["class_chunks"] += 1
+            Ws[bidx] += delta.T
+            delta_prev, jprev, prev_bs = delta.T, j0, bs
+            info["block_steps"] += 1
+
+    b = joint_label_mean - sum(torch.einsum("cd,dc->c", stats[j][2], Ws[j])
+                               for j in range(len(starts)))
+    return Ws, b
+
+
+def _solve_weighted_streaming_lanes(chunk_scan, Y: torch.Tensor, lam: float, w: float,
+                                    block_size: int, num_iter: int, class_chunk: int, lanes: int,
+                                    info: Optional[dict]) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """The laned body of :func:`solve_weighted_streaming`.
+
+    Chunk ``i`` goes to lane ``i % lanes``; its residual slab and class rows
+    are placed on the lane's slot at the first scan and stay there. Each
+    block step broadcasts the previous block's delta to the lanes once;
+    each lane folds its cross terms, residual sums (there is no whole
+    residual to average afterwards) and, on the first sweep, its Gram,
+    class sums and column sums; the partials are summed once, in lane
+    order. Each class chunk's Gram scan sums its lanes' class Grams once.
+    Collectives a block step: at most ``lanes`` broadcasts and O(lanes)
+    reduction hops a scan, however many chunks stream. The class solves
+    run on the sums, on the labels' device."""
+    from ..parallel.lanes import lane_devices, record_scan_collectives, reduce_lane_partials
+
+    Y = Y.float()
+    n, k = Y.shape
+    dev = Y.device
+    y_idx = torch.argmax(Y, dim=1)
+    counts = torch.bincount(y_idx, minlength=k).to(torch.float32)
+    safe_counts = torch.clamp_min(counts, 1.0)
+    joint_label_mean = 2 * w + 2 * (1 - w) * counts / n - 1.0
+    R0 = Y - joint_label_mean
+    starts, sizes = _block_layout(chunk_scan, block_size)
+    d = starts[-1] + sizes[-1]
+    devs = lane_devices(lanes)
+    Ws = [torch.zeros((bs, k), dtype=torch.float32, device=dev) for bs in sizes]
+    stats: List[Optional[tuple]] = [None] * len(starts)
+    delta_prev: Optional[torch.Tensor] = None
+    jprev, prev_bs = 0, sizes[0]
+    R_chunks: List[torch.Tensor] = []
+    yid_chunks: List[torch.Tensor] = []
+    class_rows: List[ClassRows] = []
+    info = info if info is not None else {}
+    info.update(scans=0, class_chunks=0, block_steps=0, paths=[])
+
+    def scan(label: str, pipe):
+        row0 = 0
+        for i, chunk in enumerate(pipe):
+            lane = i % lanes
+            # a source that hands over a scan of its own bypassed the lanes'
+            # staging: the chunk joins its lane's slabs
+            chunk = chunk.float().to(devs[lane].device)
+            rows = int(chunk.shape[0])
+            if int(chunk.shape[1]) != d:
+                raise ValueError(f"{label}: the chunks are {chunk.shape[1]} columns wide, the "
+                                 f"first was {d}")
+            if i == len(R_chunks):
+                if row0 + rows > n:
+                    raise ValueError(f"the chunk source produced more than the labels' {n} rows")
+                R_chunks.append(R0[row0:row0 + rows].to(devs[lane].device))
+                yid_chunks.append(y_idx[row0:row0 + rows].to(devs[lane].device))
+                class_rows.append(ClassRows(yid_chunks[i], k))
+            elif i > len(R_chunks) or R_chunks[i].shape[0] != rows:
+                raise ValueError(f"chunk source changed boundaries between scans (chunk {i}: "
+                                 f"{rows} rows)")
+            yield i, lane, chunk
+            row0 += rows
+        if row0 != n:
+            raise ValueError(f"chunk source produced {row0} rows, labels {n}")
+        info["scans"] += 1
+
+    for _ in range(num_iter):
+        for bidx, (j0, bs) in enumerate(zip(starts, sizes)):
+            do_stats = stats[bidx] is None
+            acc: List[Optional[list]] = [None] * lanes
+            delta_lane = [None if delta_prev is None else delta_prev.to(s.device) for s in devs]
+            pipe = scan_pipeline(chunk_scan(), label="wls.stream", lanes=lanes, devices=devs)
+            record_scan_collectives(pipe, lanes if delta_prev is not None else 0)
+            with phase("wls.stream_cross") as out:
+                for i, lane, chunk in scan("wls.stream_cross", pipe):
+                    if acc[lane] is None:
+                        z = dict(dtype=torch.float32, device=chunk.device)
+                        acc[lane] = [torch.zeros((bs, k), **z), torch.zeros((bs, k), **z),
+                                     torch.zeros((k,), **z), torch.zeros((k,), **z)] + (
+                            [torch.zeros((bs, bs), **z), torch.zeros((k, bs), **z),
+                             torch.zeros((bs,), **z)] if do_stats else [None, None, None])
+                    xtR, xtRc, r_sum, cr_sum, G, class_sums, pop_sum = acc[lane]
+                    _wls_stream_scan1(chunk, R_chunks[i], delta_lane[lane], yid_chunks[i], xtR,
+                                      xtRc, cr_sum, G, class_sums, pop_sum, 0, jprev, j0, bs,
+                                      prev_bs, k, do_stats)
+                    r_sum += R_chunks[i].sum(dim=0)
+                    del chunk
+                red = reduce_lane_partials(acc, scan=pipe, devices=devs)
+                xtR, xtRc, r_sum, cr_sum, G, class_sums, pop_sum = [
+                    None if t is None else t.to(dev) for t in red]
+                out.append(xtR)
+            if do_stats:
+                pop_mean = pop_sum / n
+                class_means = class_sums / safe_counts[:, None]
+                joint_means = w * class_means + (1 - w) * pop_mean
+                pop_cov = torch.addr(G / n, pop_mean, pop_mean, alpha=-1.0)
+                stats[bidx] = (pop_cov, pop_mean, joint_means, class_means)
+                info["paths"].append("dense")
+                del G, class_sums, pop_sum
+            pop_cov, pop_mean, joint_means, class_means = stats[bidx]
+            pop_xtr = xtR / n
+            class_xtr = xtRc / safe_counts[None, :]
+            residual_mean = r_sum / n
+            class_r_mean = cr_sum / safe_counts
+            C = class_chunk_size(k, bs, class_chunk)
+            delta = torch.empty((k, bs), dtype=torch.float32, device=dev)
+            for c0 in range(0, k, C):
+                Ccur = min(C, k - c0)
+                grams_l: List[Optional[torch.Tensor]] = [None] * lanes
+                pipe2 = scan_pipeline(chunk_scan(), label="wls.stream", lanes=lanes, devices=devs)
+                with phase("wls.stream_grams") as out:
+                    for i, lane, chunk in scan("wls.stream_grams", pipe2):
+                        if grams_l[lane] is None:
+                            grams_l[lane] = chunk.new_zeros((Ccur, bs, bs))
+                        class_rows[i].grams(chunk[:, j0:j0 + bs], c0, c0 + Ccur, out=grams_l[lane])
+                        del chunk
+                    grams = reduce_lane_partials(grams_l, scan=pipe2, devices=devs).to(dev)
                     out.append(grams)
                 delta[c0:c0 + Ccur] = _wls_class_delta(
                     grams, counts, class_means, pop_mean, joint_means, pop_xtr, class_xtr,

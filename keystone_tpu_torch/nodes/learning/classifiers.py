@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from ...data.dataset import Dataset
 from ...data.sparse import SparseRows
+from ...parallel.mesh import mesh_size, shard_batch
 from ...workflow.node_optimization import Optimizable
 from ...workflow.transformer import LabelEstimator, Transformer
 from .cost import AutoSolverFrontDoor, CostModel
@@ -159,6 +160,9 @@ class LogisticRegressionEstimator(LabelEstimator):
             X = data.to_array().float()
             vag = _logistic_value_and_grad
         onehot = F.one_hot(_int_labels(labels, X.device), self.num_classes).float()
+        if vag is _logistic_value_and_grad:
+            # rows over the data axis of the default mesh
+            X, onehot = shard_batch(X), shard_batch(onehot)
         W0 = torch.zeros((X.shape[1], self.num_classes), dtype=torch.float32, device=X.device)
         W = minimize_lbfgs(vag, W0, max_iterations=self.num_iters,
                            convergence_tol=self.convergence_tol,
@@ -204,7 +208,8 @@ class LeastSquaresEstimator(LabelEstimator, AutoSolverFrontDoor, CostModel, Opti
     ``fit`` makes it from the data's shape.
 
     The cluster weights are the reference's fitted constants. The number
-    of machines is ``num_machines`` or 1: the port runs on one card. With a
+    of machines is ``num_machines`` or the default mesh's size
+    (``parallel.mesh.mesh_size``: one on one card). With a
     profile store configured (``KEYSTONE_PROFILE_DIR``), the chooser turns
     units into predicted seconds from the learned per-class throughput of
     traced fits (``cost/model.py``), and a chunked input leaves only the
@@ -247,7 +252,7 @@ class LeastSquaresEstimator(LabelEstimator, AutoSolverFrontDoor, CostModel, Opti
         n = num_items if num_items else len(sample)
         k = sample_labels.first().shape[-1]
         return ShapeSignature(n=int(n), d=int(d), k=int(k), sparsity=float(sparsity),
-                              chunked=bool(chunked), machines=int(self.num_machines or 1))
+                              chunked=bool(chunked), machines=int(self.num_machines or mesh_size()))
 
     def optimize(self, sample: Dataset, sample_labels: Dataset,
                  total_n: Optional[int] = None, chunked: bool = False) -> LabelEstimator:

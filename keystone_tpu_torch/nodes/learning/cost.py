@@ -10,6 +10,8 @@ more than one device.
 
 from __future__ import annotations
 
+from ...parallel.mesh import mesh_size
+
 
 class CostModel:
     """Estimated cost of fitting this solver on (n, d, k) data, in the
@@ -93,7 +95,7 @@ class AutoSolverFrontDoor:
         )
 
     def shape_from_samples(self, samples, num_items: int, chunked: bool = False):
-        return dense_shape_from_samples(samples, num_items, self.num_machines or 1, chunked)
+        return dense_shape_from_samples(samples, num_items, self.num_machines or mesh_size(), chunked)
 
     def choose_solver(self, shape, node_id=None):
         """The chooser's :class:`~keystone_tpu_torch.cost.SolverChoice`

@@ -21,6 +21,7 @@ import torch
 
 from ...data.dataset import Dataset
 from ...data.sparse import SparseRows
+from ...parallel.mesh import shard_batch
 from ...workflow.transformer import LabelEstimator
 from .cost import CostModel
 from .linear import LinearMapper, SparseLinearMapper
@@ -142,6 +143,8 @@ class DenseLBFGSwithL2(LabelEstimator, CostModel):
     def fit(self, data: Dataset, labels: Dataset) -> LinearMapper:
         A = Dataset.of(data).to_array().float()
         B = Dataset.of(labels).to_array().to(A.device, torch.float32)
+        # rows over the data axis of the default mesh
+        A, B = shard_batch(A), shard_batch(B)
         W0 = torch.zeros((A.shape[1], B.shape[1]), dtype=torch.float32, device=A.device)
         W = minimize_lbfgs(_ls_value_and_grad, W0, max_iterations=self.num_iterations,
                            num_corrections=self.num_corrections,

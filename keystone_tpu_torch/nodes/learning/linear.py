@@ -39,12 +39,15 @@ from ...faults import FitCheckpoint
 from ...linalg import bcd, normal_equations, tsqr
 from ...linalg.accumulators import GramSolverState, NotAbsorbable, fold_into
 from ...linalg.bcd import (
+    _bcd_scan_model_sharded,
     _block_means,
     solve_blockwise_l2,
+    solve_blockwise_l2_scan,
     solve_blockwise_l2_streaming,
     stream_column_means,
 )
 from ...linalg.normal_equations import solve_centered, solve_least_squares_streaming
+from ...parallel.mesh import shard_batch
 from ...workflow.transformer import LabelEstimator, Transformer
 from .cost import CostModel, combine_cost, label_dim_fitted_out_spec
 
@@ -177,8 +180,9 @@ class LinearMapEstimator(LabelEstimator, CostModel):
                 checkpoint_every=self.checkpoint_every)[0]
         if getattr(data, "is_chunked", False):
             return self._fit_streaming(data, labels)
-        A = Dataset.of(data).to_array()
-        b = Dataset.of(labels).to_array().to(A.device)
+        # rows over the data axis of the default mesh
+        A = shard_batch(Dataset.of(data).to_array())
+        b = shard_batch(Dataset.of(labels).to_array().to(A.device))
         W, a_mean, b_mean = solve_centered(A, b, reg=self.lam or 0.0)
         return LinearMapper(W, b=b_mean, feature_mean=a_mean)
 
@@ -309,10 +313,12 @@ class BlockLeastSquaresEstimator(LabelEstimator, CostModel):
         if getattr(data, "is_chunked", False):
             return self._fit_streaming(data, labels)
         payload = data if isinstance(data, (list, tuple)) else Dataset.of(data).payload
+        X = None
         if isinstance(payload, (list, tuple)):
-            blocks = [Dataset.of(b).to_array().float() for b in payload]
+            blocks = [shard_batch(Dataset.of(b).to_array().float()) for b in payload]
         else:
-            X = payload[..., :self.num_features or payload.shape[-1]].float()
+            # rows over the data axis of the default mesh
+            X = shard_batch(payload[..., :self.num_features or payload.shape[-1]].float())
             d = X.shape[-1]
             blocks = [X[..., i:min(i + self.block_size, d)]
                       for i in range(0, d, self.block_size)]
@@ -322,8 +328,18 @@ class BlockLeastSquaresEstimator(LabelEstimator, CostModel):
         if warm is not None and len(warm) == len(blocks) and all(
                 tuple(w.shape) == (b.shape[1], y.shape[1]) for w, b in zip(warm, blocks)):
             init = [w.to(y.device) for w in warm]
-        ws = solve_blockwise_l2(blocks, y - y_mean, reg=self.lam,
-                                num_iter=self.num_iter, means=means, init=init)
+        if X is not None and d % self.block_size == 0 and \
+                _bcd_scan_model_sharded(X.shape[0], d, self.block_size) is not None:
+            # uniform blocks of one matrix on a mesh with a model axis: the
+            # scan form, which lays the blocks out over the model slots
+            W = solve_blockwise_l2_scan(
+                X, shard_batch(y - y_mean), reg=self.lam, block_size=self.block_size,
+                num_iter=self.num_iter, means=torch.cat(means),
+                init=None if init is None else torch.cat(init))
+            ws = [W[i:i + self.block_size] for i in range(0, d, self.block_size)]
+        else:
+            ws = solve_blockwise_l2(blocks, shard_batch(y - y_mean), reg=self.lam,
+                                    num_iter=self.num_iter, means=means, init=init)
         return BlockLinearMapper(ws, self.block_size, b=y_mean, feature_means=means)
 
     def _fit_streaming(self, data, labels: Dataset) -> BlockLinearMapper:

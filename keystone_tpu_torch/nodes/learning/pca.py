@@ -5,8 +5,9 @@ the randomized sketch, and the cost-model chooser of the column estimators.
 "Column" estimators treat each item, a (d, m) descriptor matrix, as m
 separate d-vectors. Every product runs in FP32 with TF32 off, the port's
 form of the JAX package's "high" precision. On one device the TSQR fit is
-one QR of the centered sample (``linalg/tsqr.py``), and the chooser prices
-one machine unless told more.
+one QR of the centered sample (``linalg/tsqr.py``; one QR a data-axis
+slot on a mesh of several), and the chooser prices the default mesh's
+machines unless told how many.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 
 from ...data.dataset import Dataset
 from ...linalg.tsqr import tsqr_r
+from ...parallel.mesh import mesh_size
 from ...workflow.node_optimization import Optimizable
 from ...workflow.transformer import Estimator, Transformer
 from .cost import (
@@ -192,7 +194,7 @@ class ColumnPCAEstimator(Estimator, Optimizable):
     """The cost-model choice between the local and the TSQR column PCA, made
     by ``NodeOptimizationRule`` from a sample of the descriptor matrices
     (``sample_optimize``) or at fit from the data itself. ``num_machines``
-    None prices one machine, the one device the port runs on."""
+    None prices the default mesh's size (one on one card)."""
 
     def __init__(self, dims: int, num_machines: Optional[int] = None,
                  cpu_weight: float = DEFAULT_CPU_WEIGHT,
@@ -222,7 +224,7 @@ class ColumnPCAEstimator(Estimator, Optimizable):
             n = sum(x.shape[1] for x in mats)
         if total_items is not None and items:
             n = int(n * total_items / items)
-        args = (n, d, self.dims, 1.0, self.num_machines or 1,
+        args = (n, d, self.dims, 1.0, self.num_machines or mesh_size(),
                 self.cpu_weight, self.mem_weight, self.network_weight)
         if self.local.cost(*args) <= self.distributed.cost(*args):
             return self.local

@@ -471,7 +471,8 @@ class WeightedLeastSquaresEstimator(LabelEstimator, AutoSolverFrontDoor, CostMod
     solver, the exact per-class solve and the reweighted BCD optimize the
     same objective, so the choice is one of cost, made by the solver
     chooser (in a graph by ``NodeOptimizationRule``, from sampled items and
-    the full size). The number of machines is ``num_machines`` or 1. With a
+    the full size). The number of machines is ``num_machines`` or the
+    default mesh's size (``parallel.mesh.mesh_size``). With a
     profile store configured (``KEYSTONE_PROFILE_DIR``), traced fits earn
     the family learned ``op/`` seconds-per-unit profiles, and later choices
     rank by predicted seconds (``cost/model.py``)."""

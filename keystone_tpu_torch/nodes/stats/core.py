@@ -204,15 +204,31 @@ class StandardScaler(Estimator):
 
     @staticmethod
     def _streaming_stats(data):
-        """Column mean and variance (ddof=1) of a chunked set in one scan."""
-        acc = None
-        for chunk in data.chunks():
+        """Column mean and variance (ddof=1) of a chunked set in one scan.
+        With ``parallel.lanes.scan_lanes()`` above one, chunk ``i`` goes to
+        lane ``i % lanes``, each lane folds its own Chan triple, and the
+        lanes' triples are merged once at the end, in lane order."""
+        from ...parallel.lanes import gather_lane_partials, scan_lanes
+
+        lanes = scan_lanes()
+        it = data.chunks(lanes=lanes)
+        lanes = getattr(it, "lanes", lanes)
+        parts = [None] * lanes
+        for i, chunk in enumerate(it):
             X = chunk.float()
             part = (int(X.shape[0]),) + _chunk_center_stats(X)
-            acc = part if acc is None else _chan_merge(acc, part)
-        if acc is None:
+            lane = i % lanes
+            parts[lane] = part if parts[lane] is None else _chan_merge(parts[lane], part)
+        live = [p for p in parts if p is not None]
+        if not live:
             raise ValueError("empty chunked dataset")
-        n, mean, m2 = acc
+        # the lanes' moments cross to the first lane's slot (the counts are
+        # host integers), then merge as the chunks did
+        moments = gather_lane_partials([(mc, m2c) for _, mc, m2c in live], scan=it,
+                                       devices=getattr(it, "lane_devices", None))
+        n, mean, m2 = (live[0][0],) + tuple(moments[0])
+        for (nc, _, _), (mc, m2c) in zip(live[1:], moments[1:]):
+            n, mean, m2 = _chan_merge((n, mean, m2), (nc, mc, m2c))
         # n == 1 leaves m2 zero, whose std the degenerate guard maps to 1.0
         return mean, m2 / max(n - 1, 1)
 

@@ -32,7 +32,7 @@ from .export import (
     write_chrome_trace,
     write_stitched_trace,
 )
-from .scan import SCAN_SPAN, record_scan_span
+from .scan import SCAN_LANE_SPAN, SCAN_SPAN, record_scan_span
 from .span import Span, cheap_nbytes, sync_value
 from .tracer import (
     Tracer,
@@ -48,6 +48,7 @@ from .tracer import (
 )
 
 __all__ = [
+    "SCAN_LANE_SPAN",
     "SCAN_SPAN",
     "Sampler",
     "Span",

@@ -1,17 +1,16 @@
 """Replica-to-device placement for the serving fleet (port of
 ``keystone_tpu/parallel/placement.py``).
 
-Replica ``i`` serves on device ``i % n`` of the devices it is placed
-over: every visible CUDA device, or the one device the caller names (the
-CPU when the caller asks for it). On a machine with one card,
-``replica_devices(4)`` is four replicas co-resident on ``cuda:0``, each
-replaying its own CUDA graphs on its own stream, so one replica's host work
-(validation, stacking, the copies) overlaps another's replay; and
-``replica_devices(None)`` is one replica.
-
-The JAX package places over the data axis of its device mesh. The port
-has no mesh yet: ``parallel/mesh.py``, its lanes and the model-sharded
-scans come with ROADMAP Queue 1 item 14b.
+Replica ``i`` serves on the data-axis slot ``i % n`` of the default mesh
+(``parallel/mesh.py``): one slot a visible CUDA device, or the provisioned
+virtual devices; or on the one device the caller names (the CPU when the
+caller asks for it). A replica is given its slot's physical device. On a
+machine with one card, ``replica_devices(4)`` is four replicas co-resident
+on ``cuda:0``, each replaying its own CUDA graphs on its own stream, so one
+replica's host work (validation, stacking, the copies) overlaps another's
+replay; and ``replica_devices(None)`` is one replica. With 8 virtual
+devices provisioned, ``replica_devices(None)`` is 8 replicas on the CPU,
+as the JAX package's fleet is 8 replicas on its 8 virtual devices.
 """
 
 from __future__ import annotations
@@ -20,28 +19,34 @@ from typing import Any, List, Optional
 
 import torch
 
+from .mesh import default_mesh
 
-def data_axis_devices(device: Any = None) -> List[torch.device]:
+
+def data_axis_devices(device: Any = None, mesh=None) -> List[torch.device]:
     """The devices replicas are placed over: ``[device]`` when the caller
-    names one (``"cpu"``, ``"cuda:0"``), else every visible CUDA device.
-    With no card and no device named this raises: the CPU is used only when
-    asked for."""
+    names one (``"cpu"``, ``"cuda:0"``), else the physical device of each
+    data-axis slot of ``mesh`` (default: the default mesh). With no card,
+    no virtual device and no device named this raises: the CPU is used only
+    when asked for."""
     if device is not None:
         return [torch.device(device)]
-    n = torch.cuda.device_count()
-    if n == 0:
-        raise RuntimeError("no CUDA device is visible; pass device='cpu' to place "
-                           "replicas on the CPU")
-    return [torch.device("cuda", i) for i in range(n)]
+    if mesh is None:
+        try:
+            mesh = default_mesh()
+        except RuntimeError:
+            raise RuntimeError("no CUDA device is visible; pass device='cpu' to place "
+                               "replicas on the CPU") from None
+    return [s.device for s in mesh.devices[:, 0].flat]
 
 
-def worker_device_indices(worker_id: int, n_workers: int, device: Any = None) -> List[int]:
-    """The device indices one cluster worker process owns: worker ``w`` of
-    ``W`` over ``D`` devices owns ``[wD/W, (w+1)D/W)``; with more workers
-    than devices, workers share (``[w % D]``)."""
+def worker_device_indices(worker_id: int, n_workers: int, device: Any = None,
+                          mesh=None) -> List[int]:
+    """The data-axis indices one cluster worker process owns: worker ``w``
+    of ``W`` over ``D`` devices owns ``[wD/W, (w+1)D/W)``; with more
+    workers than devices, workers share (``[w % D]``)."""
     if not 0 <= worker_id < n_workers:
         raise ValueError(f"worker_id {worker_id} outside [0, {n_workers})")
-    n_dev = len(data_axis_devices(device))
+    n_dev = len(data_axis_devices(device, mesh))
     if n_dev < n_workers:
         return [worker_id % n_dev]
     lo = worker_id * n_dev // n_workers
@@ -49,10 +54,11 @@ def worker_device_indices(worker_id: int, n_workers: int, device: Any = None) ->
     return list(range(lo, hi))
 
 
-def replica_devices(n: Optional[int] = None, device: Any = None) -> List[torch.device]:
+def replica_devices(n: Optional[int] = None, device: Any = None,
+                    mesh=None) -> List[torch.device]:
     """The device of each of ``n`` serving replicas, round robin over
     :func:`data_axis_devices`; ``n=None`` is one replica a device."""
-    devs = data_axis_devices(device)
+    devs = data_axis_devices(device, mesh)
     if n is None:
         n = len(devs)
     if n < 1:

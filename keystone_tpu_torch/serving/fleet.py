@@ -109,8 +109,9 @@ class ServingFleet:
         Explicit placement, one device a replica; default
         :func:`keystone_tpu_torch.parallel.placement.replica_devices` over
         the device the chain's parameters live on. A replica serves on the
-        device of the model's tensors: copies of the model on several
-        cards come with ROADMAP Queue 1 item 14b.
+        device of the model's tensors. The port makes no copy of the model
+        for a replica on another card of the mesh: that needs two cards to
+        exercise, and stays for later (ROADMAP).
     steal:
         Work stealing between the per-replica queues.
     supervise:
@@ -156,8 +157,8 @@ class ServingFleet:
             if not _same_device(d, compiled.device):
                 raise ValueError(
                     f"a replica on {d} cannot serve a chain whose tensors live on "
-                    f"{compiled.device}: copies of the model on several devices come with "
-                    "the device mesh (parallel/mesh.py)")
+                    f"{compiled.device}: the port makes no copy of the model for another "
+                    "device of the mesh")
         n = len(self._devices)
         self._replicas = [
             Replica(compiled, self._policy, self._metrics, index=i, device=self._devices[i],

@@ -22,6 +22,7 @@ import logging
 from typing import Dict, Optional, Sequence, Tuple
 
 from ..data.dataset import Dataset
+from ..parallel.mesh import mesh_size
 from . import analysis
 from .executor import GraphExecutor
 from .graph import Graph, NodeId
@@ -176,7 +177,7 @@ class NodeOptimizationRule(Rule):
                 # may have grown); d, k and sparsity are the evidence
                 shape = dataclasses.replace(
                     stored, n=int(num_items) or stored.n, chunked=chunked,
-                    machines=int(getattr(op, "num_machines", None) or 1))
+                    machines=int(getattr(op, "num_machines", None) or mesh_size()))
                 source = "profiles"
                 logger.info("node optimization: %s planned from stored profile (no sampling)",
                             op.label)

@@ -7,7 +7,11 @@ names, and the same unambiguous-prefix rule over ``--serve-demo``,
 cases are those of ``tests/sweep/test_demo.py`` with ``--trainer-demo``
 added; the demos' mains are replaced by recorders, so each case only
 routes. Then ``mnist --device cpu --check`` and ``--trainer-demo --device
-cpu`` run on the port."""
+cpu`` run on the port. Last, the JAX CLI's ``--backend`` and
+``--cpuDevices``: ``mnist --backend cpu --check`` prints the JAX CLI's
+``CHECK OK`` line, ``--cpuDevices 8`` with ``--backend cpu`` provisions 8
+virtual devices (restored by the ``port_mesh`` fixture), without it warns
+as JAX's does."""
 
 import argparse
 
@@ -23,9 +27,34 @@ DEMOS = {"--serve-demo": ("serving", "demo"), "--sweep-demo": ("sweep", "demo"),
 
 @pytest.fixture(autouse=True)
 def port_env():
+    """The port's fit-once state, and the logging that either package's
+    ``main`` configures (a root handler bound to this test's captured
+    stderr, and the flag that stops a later ``configure`` adding its own),
+    restored after, so that the log-capturing tests of a later file see
+    their own handler."""
+    import logging
+
+    import keystone_tpu.utils.obs as jobs
+    import keystone_tpu_torch.utils.obs as tobs
+
+    root = logging.getLogger()
+    saved = (list(root.handlers), root.level, jobs._configured, tobs._configured)
     PipelineEnv.get_or_create().reset()
     yield
     PipelineEnv.get_or_create().reset()
+    root.handlers[:] = saved[0]
+    root.setLevel(saved[1])
+    jobs._configured, tobs._configured = saved[2], saved[3]
+
+
+@pytest.fixture
+def port_mesh():
+    """The port's virtual devices and default mesh, restored after."""
+    from keystone_tpu_torch.parallel import mesh, virtual
+
+    saved = (mesh._default_mesh, virtual._slots)
+    yield mesh, virtual
+    mesh._default_mesh, virtual._slots = saved
 
 
 def test_aliases_are_the_jax_clis():
@@ -122,3 +151,41 @@ def test_trainer_demo_refuses_to_run_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["--trainer-demo"])
+
+
+@pytest.mark.parametrize("argv", [["mnist", "--backend", "cpu", "--check"],
+                                  ["MnistRandomFFT", "--check", "--backend", "cpu", "--cpuDevices",
+                                   "8"]])
+def test_cli_backend_cpu_check_prints_the_jax_check_line(argv, capsys, port_mesh):
+    from keystone_tpu_torch.parallel import lanes
+
+    mesh, _ = port_mesh
+    assert cli.main(list(argv)) == 0
+    got = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("CHECK OK")]
+    if "--cpuDevices" in argv:
+        assert mesh.default_mesh().size == 8 and lanes.scan_lanes() == 8
+        # the JAX CLI would provision its own 8 devices again: run it without them
+        argv = argv[:-2]
+    assert jcli.main(list(argv)) == 0
+    want = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("CHECK OK")]
+    assert got == want and got[0].startswith("CHECK OK: 1209 nodes")
+
+
+def test_cli_cpu_devices_without_backend_cpu_warns_as_jax(caplog, port_mesh):
+    _, virtual = port_mesh
+    virtual.clear_virtual_devices()
+    cli.select_backend(None, 4)
+    assert virtual.provisioned() is None
+    assert any("has no effect without --backend cpu" in r.getMessage() for r in caplog.records)
+    cli.select_backend("cpu", 4)
+    assert len(virtual.provisioned()) == 4
+
+
+def test_cli_backend_maps_to_the_applications_device():
+    assert cli._backend_device(["MnistRandomFFT"], "cpu") == ["MnistRandomFFT", "--device", "cpu"]
+    assert cli._backend_device(["MnistRandomFFT", "--device", "cpu"], "cpu") == [
+        "MnistRandomFFT", "--device", "cpu"]
+    assert cli._backend_device(["MnistRandomFFT"], "tpu") == ["MnistRandomFFT"]  # the card
+    assert cli._backend_device(["StupidBackoffPipeline"], "cpu") == ["StupidBackoffPipeline"]
+    with pytest.raises(SystemExit):
+        cli._backend_device(["MnistRandomFFT", "--device", "cuda:0"], "cpu")

@@ -10,8 +10,9 @@ the ``worker_down`` flight dump written), and a bounded shutdown with a
 wedged worker. Also: the stall survives serving (the capture trap: a
 host step is served eagerly, every batch stalls); the port's device-fault
 choice in a worker (the faulted request fails with the fault's class, the
-worker exits 3 and is respawned, nothing loops); ``virtual_devices``
-refused; a worker that cannot reach a card fails the boot; and
+worker exits 3 and is respawned, nothing loops); a worker given
+``virtual_devices`` serving one replica on each, as the JAX worker places
+them; a worker that cannot reach a card fails the boot; and
 ``--serve-demo --workers 2 --device cpu``.
 
 One module-scoped 2-worker router serves cases a–e, which run in
@@ -238,10 +239,30 @@ def test_f_a_device_fault_fails_its_request_and_respawns_the_worker(flight_dir, 
     assert not trigger.exists()
 
 
-def test_g_virtual_devices_are_refused():
-    with pytest.raises(ValueError, match="virtual_devices"):
-        ClusterRouter("keystone_tpu_torch.cluster.demo:build_stall_model", workers=1,
-                      device="cpu", virtual_devices=8)
+def test_g_a_worker_given_virtual_devices_serves_over_its_slots(flight_dir, data, expected):
+    """``virtual_devices=4``: the worker provisions 4 virtual devices (slots
+    of the CPU) before its fleet starts and serves one replica on each, as
+    the JAX worker places its replicas over its 4 virtual devices."""
+    from keystone_tpu.cluster import worker as jworker
+    from keystone_tpu.parallel import mesh as jmesh
+
+    with jmesh.use_mesh(jmesh.make_mesh(n_data=4)):
+        want = len(jworker._worker_devices(0, 1, None))
+    r = ClusterRouter(("factory", "keystone_tpu_torch.cluster.demo:build_stall_model",
+                       {"d": D, "stall_s": STALL_S}),
+                      workers=1, device="cpu", virtual_devices=4, buckets=(8,), datum_shape=(D,),
+                      max_wait_ms=1.0, spawn_timeout_s=180, health_interval_s=3600.0,
+                      drain_timeout_s=3.0, join_timeout_s=2.0)
+    r.start()
+    try:
+        ready = r._slots[0].ready_report
+        assert ready["replicas"] == want == 4
+        assert ready["devices"] == ["cpu"] * 4
+        with ThreadPoolExecutor(8) as pool:
+            got = list(pool.map(lambda x: r.predict(x, timeout=30.0), data[:16]))
+        np.testing.assert_allclose(np.stack(got), expected[:16], atol=LIMIT)
+    finally:
+        r.shutdown(drain=False)
 
 
 def test_h_a_worker_without_a_card_fails_the_boot(monkeypatch):

@@ -163,3 +163,39 @@ def test_the_streaming_bcd_on_host_chunks_matches_the_in_memory_solve(cuda):
     ws = bcd.solve_blockwise_l2_streaming(lambda: iter(chunks), y, 0.1, 64, 2, means=means)
     mem = bcd.solve_blockwise_l2_scan(A, y, 0.1, 64, 2, means=means)
     torch.testing.assert_close(torch.cat(ws), mem, rtol=2e-3, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("source", ["host", "card"])
+def test_the_laned_streaming_bcd_over_four_slots_of_the_card_equals_one_lane(cuda, source):
+    """The streamed BCD at 4 lanes over a mesh of 4 slots of ``cuda:0``
+    against one lane on the same chunks: the same folds in another order,
+    within float32 rounding (rtol 1e-5 of the weights' scale); each scan
+    records its lanes and at most 2·4 + 2·3 collectives."""
+    from keystone_tpu_torch.obs import SCAN_SPAN
+    from keystone_tpu_torch.obs import tracer as obs_tracer
+    from keystone_tpu_torch.parallel import make_mesh, use_mesh, virtual_slots
+
+    if source == "host":
+        chunks = _host_chunks(n=6, rows=2048, d=256, seed=12)
+        scan = lambda: iter(chunks)  # noqa: E731
+        n = 6 * 2048
+    else:
+        ds = _drawn(cuda, n=6, rows=2048, d=256, seed=12)
+        scan, n = ds.raw_chunks, len(ds)
+    y = torch.randn(n, 8, device=cuda, generator=torch.Generator(cuda).manual_seed(13))
+    means, _ = bcd.stream_column_means(scan, device=cuda, lanes=1)
+    one = bcd.solve_blockwise_l2_streaming(scan, y, 0.1, 64, 2, means=means, lanes=1)
+    tracer = obs_tracer.start()
+    try:
+        with use_mesh(make_mesh(devices=virtual_slots(4, cuda))):
+            four = bcd.solve_blockwise_l2_streaming(scan, y, 0.1, 64, 2, means=means)
+        spans = [sp for sp in tracer.spans() if sp.name == SCAN_SPAN]
+    finally:
+        obs_tracer.reset()
+    W1, W4 = torch.cat(one), torch.cat(four)
+    assert W4.device.type == "cuda"
+    assert (W4 - W1).abs().max().item() <= 1e-5 * W1.abs().max().item()
+    assert len(spans) == 8 and all(sp.attrs["lanes"] == 4 for sp in spans)
+    assert all(0 < sp.attrs["collectives"] <= 14 for sp in spans)
+    assert all(sp.attrs["lane_chunks"] == [2, 2, 1, 1] for sp in spans)
