@@ -29,7 +29,15 @@ every replica busy, K1 exactly 10 a batch); ``fleet_swap``: under traffic a
 canaried swap to the same chain promotes and a candidate with scaled KRR
 weights rolls back (``CanaryMismatch``, the flight dump); ``fleet_supervision``:
 a fault plan kills one replica and quarantines another, no admitted request
-lost; ``cluster_cifar``: the same chain and traffic from a ``ClusterRouter``
+lost; ``fleet_devices``: the same chain from a fleet of one replica on the
+card and one on the host serving a copy of it (no CUDA tensor in the copy,
+no card byte allocated by it, answers within 1e-3 of the eager apply
+relative to its largest score, K1 10 a card batch and none from the host, a
+canaried swap promoted and one rolled back on both devices, the host replica
+killed and restarted on its copy); ``fleet_devices_aot``: that fleet cold
+and warm against a fresh AOT cache (4 exports a backend, 8 loads, each
+program's constants on its own device, bit-equal); ``fleet_two_cards``
+(only with a second card); ``cluster_cifar``: the same chain and traffic from a ``ClusterRouter``
 over 2 worker processes on the card, the chain shipped as host bytes, a fresh
 AOT cache (K1 exactly 10 a batch in the workers, none in this process), then
 on it ``cluster_supervision`` (a SIGKILLed worker respawned warm, no admitted
@@ -119,7 +127,9 @@ the card, each held to one lane's W (1e-5 relative) and to the analytic
 model-error band, its collectives bounded and unchanged with the chunks
 doubled, its seconds a scan, peak memory and lane imbalance printed; and
 the normal equations, the streaming TSQR, StandardScaler and the weighted
-solve at lanes 4 against 1 (``lanes_timit``, ``lanes_family``). Then
+solve at lanes 4 against 1 (``lanes_timit``, ``lanes_family``), and the
+normal equations laned over the card and the host, each lane's featurizer
+step run on its own device (``lanes_devices``). Then
 resumable fits: the absorb phase's 8-chunk snapshot fit
 as a checkpointed λ grid, killed by a fault plan (transient chunk and
 staging faults, then a fatal one) and run again, bit-equal to the
@@ -2870,7 +2880,9 @@ def lanes_phases(dev, card) -> dict:
     scan spans' lane attributes; seconds a scan, peak memory and the lanes'
     imbalance at each lane count. ``lanes_family``: normal equations,
     streaming TSQR, StandardScaler and the weighted solve at lanes 4 against
-    1. Returns the K1 launches of each path (none reaches K1)."""
+    1. ``lanes_devices``: the laned fit over the card and the host
+    (:func:`lanes_devices`). Returns the K1 launches of each path (none
+    reaches K1)."""
     import numpy as np
 
     from keystone_tpu_torch.data.chunked import ChunkedDataset
@@ -3040,7 +3052,99 @@ def lanes_phases(dev, card) -> dict:
           f"collectives at lanes 4 {colls[4]}")
     check(all(c == 0 for cs in colls[1].values() for c in cs), f"one lane counted {colls[1]}")
     del fits, pairs, raw, Y, w_star
-    return {"lanes_timit": launches["lanes_timit"], "lanes_family": launches["lanes_family"]}
+    return {"lanes_timit": launches["lanes_timit"], "lanes_family": launches["lanes_family"],
+            **lanes_devices(card, [dev, "cpu"], "lanes_devices")}
+
+
+# the laned fit over two physical devices, at a reduced depth: 8 chunks of
+# 8,192 rows of the planted problem 1024 wide (lanes_family's width)
+LANES_DEVICES = dict(d=1024, k=32, rows=8192, chunks=8, rel_limit=1e-5)
+
+
+class PairProjection:
+    """A featurizer step of (rows, labels) chunks: the rows times a
+    projection matrix, which lives on the card; a laned scan's lane on
+    another device runs a copy of the step whose matrix is there."""
+
+    def __init__(self, P):
+        self.P = P
+
+    def __call__(self, pair):
+        A, y = pair
+        return A @ self.P, y
+
+
+def lanes_devices(card, devices, name) -> dict:
+    """``lanes_devices`` (under ``name``): the streamed normal equations
+    over a mesh of one slot on each of ``devices``, lanes = their count.
+    The planted stream's chunks are drawn on the card and pass a
+    ``PairProjection`` step whose matrix is on ``cuda:0``: W within 1e-5
+    relative (max |ΔW| / max |W|) of the one-lane fit on the card, each
+    lane's steps run on its lane's device (the scan span's
+    ``step_devices``), the collectives within ``lanes_timit``'s bound of
+    2·lanes + 2·(lanes − 1), the card's step untouched. Returns its K1
+    launches (none)."""
+    from keystone_tpu_torch.data.chunked import ChunkedDataset
+    from keystone_tpu_torch.linalg import normal_equations
+    from keystone_tpu_torch.obs import SCAN_LANE_SPAN, SCAN_SPAN
+    from keystone_tpu_torch.obs import tracer as trace_mod
+    from keystone_tpu_torch.parallel import make_mesh, use_mesh
+    from keystone_tpu_torch.parallel.mesh import physical
+    from keystone_tpu_torch.workflow.pipeline import clock
+
+    start, finish, launches = phase_group(card)
+    name, t0 = start(name)
+    dev = torch.device("cuda", 0)
+    d, k, rows, n_chunks = (LANES_DEVICES[key] for key in ("d", "k", "rows", "chunks"))
+    w_star, feat, labels_of = planted_stream(dev, rows, d, k, 47)
+    gen = torch.Generator(dev).manual_seed(53)
+    P = torch.eye(d, device=dev) + 0.1 * torch.randn(d, d, device=dev, generator=gen) / d ** 0.5
+    step = PairProjection(P)
+
+    def pair(i):
+        A = feat(i)
+        return A, labels_of(i, A)
+
+    ds = ChunkedDataset.from_chunk_fn(pair, n_chunks, rows * n_chunks,
+                                      label="planted").map_batch(step)
+    t1 = clock()
+    one = normal_equations.solve_least_squares_streaming(ds.raw_chunks(), reg=STREAM_LAMBDA,
+                                                         device=dev, lanes=1)
+    one_seconds = clock() - t1
+    lanes = len(devices)
+    tracer = trace_mod.install(trace_mod.Tracer())
+    try:
+        with use_mesh(make_mesh(devices=devices)):
+            t1 = clock()
+            laned = normal_equations.solve_least_squares_streaming(
+                ds.raw_chunks(), reg=STREAM_LAMBDA, lanes=lanes)
+            laned_seconds = clock() - t1
+    finally:
+        trace_mod.reset()
+    (span,) = [sp.attrs for sp in tracer.spans()
+               if sp.name == SCAN_SPAN and sp.attrs["label"] == "normal_eq"]
+    lane_spans = [sp.attrs for sp in tracer.spans() if sp.name == SCAN_LANE_SPAN]
+    rel = ((laned.to(dev) - one).abs().max() / one.abs().max()).item()
+    want = [str(physical(x)) for x in devices]
+    finish(name, t0, {
+        "devices": want, "d": d, "k": k, "rows": rows * n_chunks, "chunks": n_chunks,
+        "reduced": "8 chunks of 8,192 rows, lanes_family's width d 1024",
+        "rel_to_one_lane": rel, "rel_limit": LANES_DEVICES["rel_limit"],
+        "one_lane_seconds": one_seconds, "laned_seconds": laned_seconds,
+        "lanes": span.get("lanes"), "devices_of_lanes": span.get("devices"),
+        "step_devices": span.get("step_devices"),
+        "lane_step_device": [a.get("step_device") for a in lane_spans],
+        "lane_chunks": span.get("lane_chunks"), "lane_bytes": span.get("lane_bytes"),
+        "collectives": span.get("collectives")})
+    check(rel <= LANES_DEVICES["rel_limit"],
+          f"W over {want} {rel} relative off the one-lane fit on the card")
+    check(span.get("step_devices") == want
+          and [a.get("step_device") for a in lane_spans] == want,
+          f"lanes' steps ran on {span.get('step_devices')}, want {want}")
+    check(0 < span.get("collectives", 0) <= 2 * lanes + 2 * (lanes - 1),
+          f"collectives {span.get('collectives')} over {lanes} lanes")
+    check(step.P is P and P.device == dev, "the card's step was changed")
+    return {name: launches[name]}
 
 
 # the card tests of the out-of-core scan, the weighted fit, the faults, the
@@ -3055,6 +3159,7 @@ CARD_TEST_FILES = ("tests/test_torch_cuda_streaming.py",
                    "tests/test_torch_cuda_check.py",
                    "tests/test_torch_cuda_serving.py",
                    "tests/test_torch_cuda_fleet.py",
+                   "tests/test_torch_cuda_fleet_devices.py",
                    "tests/test_torch_cuda_aot.py",
                    "tests/test_torch_cuda_trainer.py",
                    "tests/test_torch_cuda_cluster.py::test_b_the_stall_survives_on_the_card")
@@ -4001,7 +4106,8 @@ def fleet_phases(card, scores, X_host, eager, engine_ref) -> tuple:
     single-row request from 16 client threads: each answer within 1e-5 of
     ``eager`` and every argmax equal, 4 compiles (one a bucket) and 16
     captures (one a bucket and replica), none under traffic, every replica
-    busy, K1 exactly 10 launches a batch; its rate beside ``serve_cifar``'s.
+    busy, no copy of the model (every replica's chain the published chain
+    over its own tensors), K1 exactly 10 launches a batch; its rate beside ``serve_cifar``'s.
     ``fleet_swap``: under 4 clients, a canaried swap (a quarter of the
     batches mirrored) to the same chain promotes version 2 with no request
     failed, then a candidate whose KRR weights are scaled by 1.01 raises
@@ -4018,6 +4124,7 @@ def fleet_phases(card, scores, X_host, eager, engine_ref) -> tuple:
     from keystone_tpu_torch import faults
     from keystone_tpu_torch.obs import flight
     from keystone_tpu_torch.ops import gaussian_kernel as gk
+    from keystone_tpu_torch.parallel.placement import tensors_of
     from keystone_tpu_torch.serving import CanaryMismatch, ServingFleet
     from keystone_tpu_torch.utils import timing
     from keystone_tpu_torch.workflow.pipeline import FittedPipeline, clock
@@ -4055,6 +4162,13 @@ def fleet_phases(card, scores, X_host, eager, engine_ref) -> tuple:
             snap = fleet.metrics.snapshot()
             captures = fleet.captures
             streams = len({id(r.stream) for r in fleet.replicas if r.stream is not None})
+            # one card: no copy, every replica's chain the published chain
+            # itself, over its own tensors
+            copies = fleet.published.copies
+            own = {id(t) for t in tensors_of(scores)}
+            shared = all(r.compiled.fitted is scores
+                         and {id(t) for t in tensors_of(r.compiled.fitted)} == own
+                         for r in fleet.replicas)
         finally:
             fleet.shutdown(drain=False)
         dev_max, preds_equal = served(rows, slice(None))
@@ -4075,6 +4189,7 @@ def fleet_phases(card, scores, X_host, eager, engine_ref) -> tuple:
               "latency_s": snap["latency"], "queue_age_s": snap["queue_age"],
               "occupancy": snap["batch_occupancy"]["ratio"],
               "serve_batch_phase": snap["phases"].get("serve.batch"),
+              "copies": copies, "replicas_share_the_chain": shared,
               "serve_cifar": engine_ref, "card": card})
         fleet_ref = {"requests_per_second": len(X_host) / wall, "latency_s": snap["latency"],
                      "batches": c.get("batches", 0)}
@@ -4090,6 +4205,8 @@ def fleet_phases(card, scores, X_host, eager, engine_ref) -> tuple:
         check(len(per_replica) == FLEET_REPLICAS
               and all(r["batches"] >= 1 for r in per_replica.values()),
               f"an idle replica: {per_replica}")
+        check(copies == 0 and shared,
+              f"on one card {copies} copies; every replica on the chain's tensors: {shared}")
         check(launches["fleet_cifar"] == SERVE_BLOCKS * c.get("batches", 0),
               f"K1 launched {launches['fleet_cifar']} times in {c.get('batches')} batches")
 
@@ -4258,6 +4375,373 @@ def serve_demo_fleet_phase(cli, card) -> None:
           f"--serve-demo --replicas 2: {out[-2000:]}")
 
 
+# the fleet over the card and the host: one replica each, the host's a copy
+# of the model; the answers of both against the eager apply on the card,
+# relative to its largest score, held as the other fleet phases are
+# (SERVE_LIMIT): a host copy built or run in a lower precision fails it
+DEVICES_REQUESTS = 2000  # single-row requests from DEVICES_CLIENTS threads
+DEVICES_AFTER_KILL = 500  # single-row requests after the host replica's kill
+DEVICES_CLIENTS = 8
+DEVICES_REL_LIMIT = SERVE_LIMIT
+DEVICES_PLAN = "replica.batch#1=kill@0"  # the host replica, at its next batch
+DEVICES_AOT_TRAFFIC = 256  # single-row requests through each AOT boot
+
+
+def _replica_batch_seconds(entries) -> dict:
+    """p50 / p99 of each replica's batch seconds in the flight ring."""
+    by = {}
+    for e in entries:
+        if e["kind"] == "span" and e["name"] == "serve.replica":
+            by.setdefault(str(e.get("attrs", {}).get("replica")), []).append(e["seconds"])
+    return {k: _quantiles(v) for k, v in sorted(by.items())}
+
+
+def _served_against(rows, idx, eager_host) -> dict:
+    """The served rows against the eager apply's: max |Δ| relative to the
+    largest eager score, and whether every argmax is equal."""
+    import numpy as np
+
+    got = torch.from_numpy(np.stack(rows))
+    want = eager_host[idx]
+    return {"max_abs_dev": (got - want).abs().max().item(),
+            "max_rel_dev": ((got - want).abs().max() / want.abs().max()).item(),
+            "predictions_equal": bool(torch.equal(got.argmax(1), want.argmax(1)))}
+
+
+def _per_replica_batches(fleet) -> dict:
+    return {k: v["batches"] for k, v in fleet.metrics.snapshot()["replicas"].items()}
+
+
+def fleet_devices_phases(card, scores, X_host, eager) -> dict:
+    """``fleet_devices``: the fitted full-width scores chain (on the card)
+    served by ``ServingFleet(devices=["cuda:0", "cpu"])``: one replica on
+    the card serving the chain itself, one on the host serving a copy of it
+    (no CUDA tensor at any depth, the card chain's tensors untouched, no
+    card byte allocated by the copy, the same fingerprint).
+    ``DEVICES_REQUESTS`` single-row requests from ``DEVICES_CLIENTS``
+    threads, each answer within ``DEVICES_REL_LIMIT`` of the eager apply
+    relative to its largest score and every argmax equal, both replicas
+    busy, K1 exactly 10 a card batch and none from the host; a canaried
+    swap to the same chain promotes on both devices, a 1.01 × KRR-weights
+    candidate rolls back on both, no request failed; then the host replica
+    is killed, restarts pinned to the host copy of the published version,
+    and ``DEVICES_AFTER_KILL`` rows answer within the same bounds.
+    ``fleet_devices_aot``: the same fleet against a fresh AOT cache, cold
+    (4 exports a backend) then warm from a clone (8 loads, 0 traces), each
+    bucket bit-equal cold against warm on its device, each loaded program's
+    constants on its own device. ``fleet_two_cards``: ``fleet_cifar`` over
+    ``cuda:0`` and ``cuda:1`` when a second card is visible, and the laned
+    fit over the two cards; with one card, one line that says it did not
+    run. Returns the K1 launches of each."""
+    import numpy as np
+
+    from keystone_tpu_torch import compile as compile_mod
+    from keystone_tpu_torch import faults
+    from keystone_tpu_torch.obs import flight
+    from keystone_tpu_torch.ops import gaussian_kernel as gk
+    from keystone_tpu_torch.parallel.placement import copy_to_device, tensors_of
+    from keystone_tpu_torch.serving import CanaryMismatch, ServingFleet
+    from keystone_tpu_torch.utils import serialization
+    from keystone_tpu_torch.workflow.pipeline import FittedPipeline, clock
+
+    cuda0, host = torch.device("cuda", 0), torch.device("cpu")
+    eager_host = eager.cpu()
+    launches = {}
+    flight_dir = tempfile.mkdtemp(prefix="keystone-devices-flight-")
+    prior = {k: os.environ.get(k) for k in ("KEYSTONE_FLIGHT_DIR", "KEYSTONE_FLIGHT_RING")}
+    os.environ["KEYSTONE_FLIGHT_DIR"] = flight_dir
+    os.environ["KEYSTONE_FLIGHT_RING"] = str(FLEET_FLIGHT_RING)
+    try:
+        # -- the copy alone: its seconds and bytes, nothing on the card -----
+        fresh_env()
+        card_ids = {id(t) for t in tensors_of(scores)}
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        host_copy = copy_to_device(scores, host)
+        copy_seconds = time.perf_counter() - t0
+        after = torch.cuda.memory_allocated()
+        copy_tensors = tensors_of(host_copy)
+        copy_bytes = sum(t.numel() * t.element_size() for t in copy_tensors)
+        cuda_in_copy = sum(1 for t in copy_tensors if t.is_cuda)
+        host_copy._fingerprint = None
+        same_digest = host_copy.fingerprint() == scores.fingerprint()
+        del host_copy, copy_tensors
+
+        # -- fleet_devices ------------------------------------------------
+        t0 = time.perf_counter()
+        fleet = ServingFleet(scores, devices=["cuda:0", "cpu"], buckets=SERVE_BUCKETS)
+        construct_seconds = time.perf_counter() - t0
+        allocated_after_fleet = torch.cuda.memory_allocated()
+        published = fleet.published
+        card_chain, host_chain = published.chain_for(cuda0), published.chain_for(host)
+        untouched = (card_chain.fitted is scores
+                     and {id(t) for t in tensors_of(scores)} == card_ids
+                     and all(t.is_cuda for t in tensors_of(scores)))
+        host_cuda = sum(1 for t in tensors_of(host_chain.fitted) if t.is_cuda)
+        stop = threading.Event()
+        answers, errors = [], []
+
+        def hammer(k):
+            i = k
+            while not stop.is_set():
+                try:
+                    answers.append((i % 64, fleet.predict(X_host[i % 64], timeout=600.0)))
+                except Exception as e:  # counted: the phase fails on any
+                    errors.append(repr(e))
+                i += FLEET_SWAP_CLIENTS
+
+        try:
+            t0 = clock()
+            fleet.start()
+            start_seconds = clock() - t0
+            compiles_at_start = fleet.metrics.count("compiles")
+            flight.reset()
+            batches0 = _per_replica_batches(fleet)
+            gk.gaussian_kernel_block.launches = 0
+            t0 = time.perf_counter()
+            with concurrent.futures.ThreadPoolExecutor(max_workers=DEVICES_CLIENTS) as pool:
+                rows = list(pool.map(lambda r: fleet.predict(r, timeout=600.0),
+                                     X_host[:DEVICES_REQUESTS]))
+            wall = time.perf_counter() - t0
+            launches["fleet_devices"] = gk.gaussian_kernel_block.launches
+            snap = fleet.metrics.snapshot()
+            batches = {k: v - batches0.get(k, 0) for k, v in _per_replica_batches(fleet).items()}
+            batch_seconds = _replica_batch_seconds(flight.recorder().entries())
+            served = _served_against(rows, slice(0, DEVICES_REQUESTS), eager_host)
+
+            # the canaried swaps, under FLEET_SWAP_CLIENTS clients
+            same = FittedPipeline(scores.graph, scores._source, scores._sink,
+                                  datum_shape=scores.datum_shape, datum_dtype=scores.datum_dtype)
+            with concurrent.futures.ThreadPoolExecutor(max_workers=FLEET_SWAP_CLIENTS) as pool:
+                workers = [pool.submit(hammer, k) for k in range(FLEET_SWAP_CLIENTS)]
+                try:
+                    t0 = clock()
+                    promoted = fleet.swap(same, canary_fraction=1.0, canary_batches=16,
+                                          canary_timeout_s=120.0)
+                    promote_seconds = clock() - t0
+                    v2 = fleet.published
+                    flipped = [r.compiled for r in fleet.replicas] == [
+                        v2.chain_for(cuda0), v2.chain_for(host)]
+                    t0 = clock()
+                    try:
+                        fleet.swap(_scaled_scores(scores, FLEET_BAD_SCALE), canary_fraction=1.0,
+                                   canary_batches=16, canary_timeout_s=120.0)
+                        rollback = None
+                    except CanaryMismatch as e:
+                        rollback = e.report
+                    rollback_seconds = clock() - t0
+                finally:
+                    stop.set()
+                    for w in workers:
+                        w.result(timeout=600)
+            kept = (fleet.published is v2 and fleet.model_version == 2
+                    and [r.compiled for r in fleet.replicas] == [v2.chain_for(cuda0),
+                                                                 v2.chain_for(host)])
+            during = max(((torch.from_numpy(a) - eager_host[i]).abs().max().item()
+                          for i, a in answers), default=0.0) / eager_host.abs().max().item()
+            swap_counters = fleet.metrics.snapshot()["counters"]
+
+            # the host replica killed at its next batch, then restarted
+            faults.install(faults.parse_plan(DEVICES_PLAN))
+            batches0 = _per_replica_batches(fleet)
+            gk.gaussian_kernel_block.launches = 0
+            lo, hi = DEVICES_REQUESTS, DEVICES_REQUESTS + DEVICES_AFTER_KILL
+            with concurrent.futures.ThreadPoolExecutor(max_workers=DEVICES_CLIENTS) as pool:
+                rows_after = list(pool.map(lambda r: fleet.predict(r, timeout=600.0),
+                                           X_host[lo:hi]))
+            kill_launches = gk.gaussian_kernel_block.launches
+            kill_batches = {k: v - batches0.get(k, 0)
+                            for k, v in _per_replica_batches(fleet).items()}
+            report = fleet.version_report()
+            pinned = fleet.replicas[1].compiled is fleet.published.chain_for(host)
+            after_kill = _served_against(rows_after, slice(lo, hi), eager_host)
+            c = fleet.metrics.snapshot()["counters"]
+        finally:
+            faults.clear()
+            stop.set()
+            fleet.shutdown(drain=False)
+        launches["fleet_devices"] += kill_launches
+        emit({"phase": "fleet_devices", "devices": ["cuda:0", "cpu"], "buckets": list(SERVE_BUCKETS),
+              "requests": DEVICES_REQUESTS, "clients": DEVICES_CLIENTS,
+              "copy_seconds": copy_seconds, "copy_bytes": copy_bytes,
+              "card_allocated_before_copy": before, "card_allocated_after_copy": after,
+              "card_allocated_after_fleet": allocated_after_fleet,
+              "cuda_tensors_in_host_copy": cuda_in_copy, "host_chain_cuda_tensors": host_cuda,
+              "card_chain_untouched": untouched, "same_fingerprint": same_digest,
+              "copies": published.copies, "construct_seconds": construct_seconds,
+              "start_seconds": start_seconds, "compiles": compiles_at_start,
+              "answered": len(rows), "served": served, "rel_limit": DEVICES_REL_LIMIT,
+              "batches_by_replica": batches, "replica_batch_seconds": batch_seconds,
+              "k1_launches": launches["fleet_devices"] - kill_launches,
+              "requests_per_second": len(rows) / wall, "wall_seconds": wall,
+              "latency_s": snap["latency"],
+              "promoted": {k: promoted[k] for k in ("version", "compiles", "canary")},
+              "promote_seconds": promote_seconds, "flipped_to_each_devices_copy": flipped,
+              "rollback": rollback, "rollback_seconds": rollback_seconds,
+              "kept_version_2_on_both": kept, "answers_during_swaps": len(answers),
+              "max_rel_dev_during_swaps": during, "failed_during_swaps": len(errors),
+              "errors": errors[:5], "swap_counters": {k: swap_counters.get(k, 0) for k in (
+                  "swaps", "canary_pass", "canary_fail", "submitted", "completed")},
+              "plan": DEVICES_PLAN, "restarts": report["replicas"], "pinned_to_host_copy": pinned,
+              "after_kill": after_kill, "after_kill_batches": kill_batches,
+              "after_kill_k1_launches": kill_launches, "card": card})
+        check(before == after and cuda_in_copy == 0 and same_digest,
+              f"the host copy: card bytes {before} → {after}, {cuda_in_copy} CUDA tensors, "
+              f"same fingerprint {same_digest}")
+        check(untouched and host_cuda == 0 and published.copies == 1,
+              f"the card chain untouched {untouched}, {host_cuda} CUDA tensors on the host "
+              f"chain, {published.copies} copies")
+        check(compiles_at_start == len(SERVE_BUCKETS), f"compiles {compiles_at_start}")
+        check(len(rows) == DEVICES_REQUESTS and served["max_rel_dev"] <= DEVICES_REL_LIMIT
+              and served["predictions_equal"], f"fleet_devices answers: {served}")
+        check(all(batches.get(k, 0) >= 1 for k in ("0", "1")), f"an idle replica: {batches}")
+        check(launches["fleet_devices"] - kill_launches == SERVE_BLOCKS * batches["0"],
+              f"K1 launched {launches['fleet_devices'] - kill_launches} times for "
+              f"{batches['0']} card batches")
+        check(not errors and swap_counters.get("completed") == swap_counters.get("submitted"),
+              f"requests failed across the swaps: {errors[:3]}")
+        check(promoted["version"] == 2 and promoted["canary"]["mismatches"] == 0
+              and promoted["canary"]["batches_compared"] >= 1 and flipped,
+              f"the same chain's canary: {promoted}, flipped {flipped}")
+        check(rollback is not None and rollback["mismatches"] >= 1 and kept,
+              f"the scaled candidate was not rolled back on both devices: {rollback}")
+        check(during <= DEVICES_REL_LIMIT, f"answers {during} off during the swaps")
+        check(report["replicas"][1]["restarts"] == 1 and pinned
+              and c.get("completed") == c.get("submitted"),
+              f"the host replica's kill: {report['replicas']}, pinned {pinned}")
+        check(len(rows_after) == DEVICES_AFTER_KILL and after_kill["max_rel_dev"] <= DEVICES_REL_LIMIT
+              and after_kill["predictions_equal"], f"answers after the kill: {after_kill}")
+        check(kill_launches == SERVE_BLOCKS * kill_batches.get("0", 0),
+              f"K1 launched {kill_launches} times for {kill_batches} batches after the kill")
+
+        # -- fleet_devices_aot ----------------------------------------------
+        root = tempfile.mkdtemp(prefix="keystone-devices-aot-")
+        compile_mod.configure(root, max_bytes=8 << 30)
+        boots, probes = {}, {}
+        try:
+            for boot, model in (("cold", scores), ("warm", None)):
+                if model is None:
+                    t0 = time.perf_counter()
+                    model = serialization.loads(serialization.dumps(scores))
+                    clone_seconds = time.perf_counter() - t0
+                fresh_env()
+                t0 = time.perf_counter()
+                fleet = ServingFleet(model, devices=["cuda:0", "cpu"], buckets=SERVE_BUCKETS)
+                try:
+                    fleet.start()
+                    boot_seconds = time.perf_counter() - t0
+                    chains = fleet.published.chains
+                    probes[boot] = {(str(d), b): ch(fleet.policy.pad(X_host[:b], b))[:b]
+                                    for d, ch in chains.items() for b in SERVE_BUCKETS}
+                    placed = {}
+                    for d, ch in chains.items():
+                        held = [t for p in ch.dispatcher._by_sig.values()
+                                for t in vars(p).values() if isinstance(t, torch.Tensor)]
+                        placed[str(d)] = sorted({str(t.device) for t in held})
+                    batches0 = _per_replica_batches(fleet)
+                    gk.gaussian_kernel_block.launches = 0
+                    with concurrent.futures.ThreadPoolExecutor(max_workers=DEVICES_CLIENTS) as pool:
+                        rows = list(pool.map(lambda r: fleet.predict(r, timeout=600.0),
+                                             X_host[:DEVICES_AOT_TRAFFIC]))
+                    k1 = gk.gaussian_kernel_block.launches
+                    batches = {k: v - batches0.get(k, 0)
+                               for k, v in _per_replica_batches(fleet).items()}
+                    c = fleet.metrics.snapshot()["counters"]
+                    boots[boot] = {
+                        "boot_seconds": boot_seconds, "compiles": c.get("compiles", 0),
+                        "aot_loads": c.get("aot_loads", 0),
+                        "exported": {str(d): ch.dispatcher.traced_count for d, ch in chains.items()},
+                        "loaded": {str(d): ch.dispatcher.loaded_count for d, ch in chains.items()},
+                        "constants_on": placed, "k1_launches": k1, "batches_by_replica": batches,
+                        "served": _served_against(rows, slice(0, DEVICES_AOT_TRAFFIC),
+                                                  eager_host)}
+                finally:
+                    fleet.shutdown(drain=False)
+            launches["fleet_devices_aot"] = boots["cold"]["k1_launches"] + boots["warm"]["k1_launches"]
+            bit_equal = {f"{d}/{b}": bool(np.array_equal(v, probes["warm"][(d, b)]))
+                         for (d, b), v in probes["cold"].items()}
+            entries = compile_mod.get_cache().entries()
+            emit({"phase": "fleet_devices_aot", "devices": ["cuda:0", "cpu"],
+                  "buckets": list(SERVE_BUCKETS), "cold": boots["cold"], "warm": boots["warm"],
+                  "clone_seconds": clone_seconds, "entries": len(entries),
+                  "entry_bytes": sorted(n for _, n, _ in entries), "probe_bit_equal": bit_equal,
+                  "card": card})
+            n = len(SERVE_BUCKETS)
+            cold, warm = boots["cold"], boots["warm"]
+            check(cold["exported"] == {"cuda:0": n, "cpu": n} and cold["aot_loads"] == 0
+                  and cold["compiles"] == n, f"cold boot: {cold}")
+            check(warm["loaded"] == {"cuda:0": n, "cpu": n} and warm["aot_loads"] == 2 * n
+                  and warm["compiles"] == 0 and warm["exported"] == {"cuda:0": 0, "cpu": 0},
+                  f"warm boot: {warm}")
+            check(warm["constants_on"] == {"cuda:0": ["cuda:0"], "cpu": ["cpu"]},
+                  f"loaded constants on {warm['constants_on']}")
+            check(all(bit_equal.values()), f"warm probes differ from cold: {bit_equal}")
+            for b in (cold, warm):
+                check(b["served"]["max_rel_dev"] <= DEVICES_REL_LIMIT
+                      and b["served"]["predictions_equal"], f"AOT answers: {b['served']}")
+                check(b["k1_launches"] == SERVE_BLOCKS * b["batches_by_replica"].get("0", 0),
+                      f"K1 {b['k1_launches']} for {b['batches_by_replica']} batches")
+        finally:
+            compile_mod.reset()
+            shutil.rmtree(root, ignore_errors=True)
+    finally:
+        for k, v in prior.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        flight.reset()
+        shutil.rmtree(flight_dir, ignore_errors=True)
+    launches.update(fleet_two_cards(card, scores, X_host, eager))
+    return launches
+
+
+def fleet_two_cards(card, scores, X_host, eager) -> dict:
+    """``fleet_two_cards``: with a second card, ``fleet_cifar``'s chain and
+    traffic over replicas on ``cuda:0`` and ``cuda:1`` (the second serving a
+    copy; K1 10 a batch, answers within 1e-5 of the eager apply, argmax
+    equal, both busy) and the laned fit of ``lanes_devices`` over the two
+    cards. With one card it prints that it did not run and checks nothing:
+    that line is no pass."""
+    from keystone_tpu_torch.ops import gaussian_kernel as gk
+    from keystone_tpu_torch.serving import ServingFleet
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        emit({"phase": "fleet_two_cards", "ran": False, "cards": cards})
+        return {}
+    fresh_env()
+    eager_host = eager.cpu()
+    fleet = ServingFleet(scores, devices=["cuda:0", "cuda:1"], buckets=SERVE_BUCKETS)
+    try:
+        fleet.start()
+        gk.gaussian_kernel_block.launches = 0
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(max_workers=SERVE_CLIENTS) as pool:
+            rows = list(pool.map(lambda r: fleet.predict(r, timeout=600.0),
+                                 X_host[:DEVICES_REQUESTS]))
+        wall = time.perf_counter() - t0
+        k1 = gk.gaussian_kernel_block.launches
+        snap = fleet.metrics.snapshot()
+        copies = fleet.published.copies
+    finally:
+        fleet.shutdown(drain=False)
+    served = _served_against(rows, slice(0, DEVICES_REQUESTS), eager_host)
+    batches = {k: v["batches"] for k, v in snap["replicas"].items()}
+    emit({"phase": "fleet_two_cards", "ran": True, "cards": cards, "copies": copies,
+          "served": served, "limit": SERVE_LIMIT, "batches_by_replica": batches,
+          "k1_launches": k1, "requests_per_second": len(rows) / wall,
+          "latency_s": snap["latency"], "card": card})
+    check(copies == 1 and served["max_abs_dev"] <= SERVE_LIMIT and served["predictions_equal"],
+          f"two cards: {served}, {copies} copies")
+    check(all(batches.get(k, 0) >= 1 for k in ("0", "1")), f"an idle card: {batches}")
+    check(k1 == SERVE_BLOCKS * sum(batches.values()), f"K1 {k1} for {batches} batches")
+    out = {"fleet_two_cards": k1}
+    out.update(lanes_devices(card, ["cuda:0", "cuda:1"], "lanes_two_cards"))
+    return out
+
+
 CLUSTER_WORKERS = 2  # worker processes, each one replica, all on the one card
 CLUSTER_WARM_ROWS = 512  # single-row requests through the warm router
 CLUSTER_FAULT_ROWS = 2000  # single-row requests while worker 1 is killed
@@ -4311,8 +4795,14 @@ def cluster_chain(path, report, device=None):
             json.dump(row, f)
         os.replace(tmp, os.path.join(report, f"k1-{os.getpid()}.json"))
 
+    def write_aside(*_):
+        # a handler runs on the main thread between two of its bytecodes,
+        # maybe while that thread holds the fleet's metrics lock (a plain
+        # lock): the counts are read on a thread of their own instead
+        threading.Thread(target=write, name="k1-report", daemon=True).start()
+
     atexit.register(write)
-    signal.signal(signal.SIGUSR2, write)  # the factory runs on the main thread
+    signal.signal(signal.SIGUSR2, write_aside)  # the factory runs on the main thread
     with open(path, "rb") as f:
         fitted = load_model_bytes(f.read(), device)
     marks["loaded_unix"] = time.time()
@@ -5567,6 +6057,8 @@ def main() -> int:
     serve_launches, engine_ref = serve_phases(dev, card, scores, Xt_host, eager)
     # -- the same chain from a fleet of 4 co-resident replicas (slice 18)
     fleet_launches, fleet_ref = fleet_phases(card, scores, Xt_host, eager, engine_ref)
+    # -- the same chain on the card and a copy on the host (slice 22)
+    devices_launches = fleet_devices_phases(card, scores, Xt_host, eager)
     # -- the same chain from worker processes behind a router (slice 19)
     cluster_launches = cluster_phases(card, scores, Xt_host, eager, engine_ref, fleet_ref)
     # -- the same chain booted cold, then warm, from the AOT cache (slice 16)
@@ -5802,7 +6294,8 @@ def main() -> int:
         "plain_ms": fit["plain_ms"], "bound_ms": fit["bound_ms"],
         "bound_by": fit["bound_by"], "library_ms": fit["library_ms"],
         "launches_by_path": {"slice": launches, "compiled_cifar": compiled_launches,
-                             **serve_launches, **fleet_launches, **cluster_launches,
+                             **serve_launches, **fleet_launches, **devices_launches,
+                             **cluster_launches,
                              **aot_launches,
                              **segment_launches,
                              "krr_family": krr_launches, "timit_full_width": timit_k1,

@@ -164,6 +164,10 @@ class _WorkerSlot:
         #: a respawn is scheduled/booting: requests may PARK awaiting it
         #: (set by the down-handler, cleared on ready or failed respawn)
         self.respawning = False
+        #: the process whose death the respawn replaces: until the new one
+        #: is spawned ``proc`` is still it, which the failed-respawn reaper
+        #: must not take for a respawn that died booting
+        self.down_proc = None
         #: autoscale lifecycle: a spawned-but-not-ready scale-up slot
         #: (booting), a slot no longer admitting while its outstanding
         #: work finishes (draining), and a slot given back (retired —
@@ -911,6 +915,7 @@ class ClusterRouter:
             if will_restart:
                 slot.restarts += 1
                 slot.respawning = True
+                slot.down_proc = slot.proc
                 self._metrics.inc("restarts")
             self._cond.notify_all()
         if self._closed:
@@ -962,6 +967,10 @@ class ClusterRouter:
                 logger.exception(
                     "cluster: respawn of worker %d failed", slot.index
                 )
+                # no new process: the dead one is now the failed respawn,
+                # which the reaper retries within the budget or gives up
+                with self._lock:
+                    slot.down_proc = None
             else:
                 _flight.record_instant(
                     "fault.worker_restart", worker=slot.index,
@@ -1385,6 +1394,7 @@ class ClusterRouter:
             for s in self._slots:
                 if not (
                     s.respawning and s.proc is not None
+                    and s.proc is not s.down_proc
                     and s.proc.poll() is not None
                 ):
                     continue

@@ -108,7 +108,9 @@ def _worker_devices(worker_id: int, n_workers: int, replicas: Optional[int],
     data axis of the default mesh: every card, or the provisioned virtual
     devices; or the one device ``device`` names), round robin up to
     ``replicas``. With more workers than cards, workers share a card, each
-    in its own CUDA context, which the card time-slices."""
+    in its own CUDA context, which the card time-slices. A worker that owns
+    several cards resolves its model once, onto the first, and serves on
+    each through the fleet's copy of the model there."""
     from ..parallel.placement import data_axis_devices, worker_device_indices
 
     devs = data_axis_devices(device)

@@ -11,8 +11,10 @@ an executable cache is configured. For each distinct input signature
   its ``.module()``. ZERO calls of the pipeline's trace function in this
   process. The program's graph names every operator it runs, K1 as the
   ``keystone.gaussian_kernel_block`` custom op, and carries the chain's
-  tensors as lifted constants, loaded onto the device they were saved
-  from.
+  tensors as lifted constants. Those load onto the device they were saved
+  from; the dispatcher moves them, and the device the graph names, onto
+  its own device, so one entry (two equal cards have one environment key)
+  serves a replica on either card.
 * **miss** — ``torch.export.export`` the trace function ONCE (the
   trace-count hook fires here), save the program into the cache, and run
   the very same exported program. Cold and warm boots therefore run one
@@ -44,6 +46,7 @@ import torch
 
 from ..obs.ledger import CompileLedger
 from ..obs.tracer import current as _trace_current
+from ..parallel.mesh import physical
 from ..workflow.cuda_graph import dtype_name
 from .cache import ExecutableCache
 from .fingerprint import entry_key, environment_key
@@ -78,6 +81,43 @@ def _load_program(payload: bytes) -> Callable:
     return torch.export.load(io.BytesIO(payload)).module()
 
 
+def _place_program(module: torch.nn.Module, device: Optional[torch.device]) -> torch.nn.Module:
+    """A loaded program's constants (and the tensors its graph makes on
+    their device) on ``device``. A program saved on one card loads its
+    constants onto that card; a replica on another card of the same kind
+    shares the entry and runs it on its own."""
+    if device is None:
+        return module
+    held = [(mod, name, t) for mod in module.modules()
+            for name, t in list(vars(mod).items()) + list(mod._buffers.items())
+            if isinstance(t, torch.Tensor)]
+    saved = {t.device for _, _, t in held} - {device}
+    if not saved:
+        return module
+    moved: Dict[int, torch.Tensor] = {}
+    for mod, name, t in held:
+        if t.device == device:
+            continue
+        if id(t) not in moved:
+            moved[id(t)] = t.to(device)
+        if name in mod._buffers:
+            mod._buffers[name] = moved[id(t)]
+        else:
+            setattr(mod, name, moved[id(t)])
+    for mod in module.modules():
+        graph = getattr(mod, "graph", None)
+        if not isinstance(graph, torch.fx.Graph):
+            continue
+        changed = False
+        for node in graph.nodes:
+            if node.kwargs.get("device") in saved:
+                node.kwargs = {**node.kwargs, "device": device}
+                changed = True
+        if changed:
+            mod.recompile()
+    return module
+
+
 def _without_example_inputs(exported: Any) -> Any:
     """``exported`` with no example inputs to save: a row chunk is a view,
     and saving it would write its whole base tensor into the entry."""
@@ -95,7 +135,8 @@ class AotDispatcher:
     (``FittedPipeline._build_trace_fn()``). ``on_trace(sig)`` fires once per
     export actually paid (the compile-accounting hook); ``on_load(sig)``
     fires once per program loaded instead. ``device`` is where the chain's
-    parameters live, which keys the environment. Thread-safe: the serving
+    parameters live, which keys the environment and is where a loaded
+    program's constants are placed. Thread-safe: the serving
     engine's caller thread warms buckets while the worker thread may
     resolve a late signature.
     """
@@ -122,6 +163,7 @@ class AotDispatcher:
         #: the dynamic path is held against it
         self._expected_exportable = expected_exportable
         self._env = environment_key(device)
+        self._device = None if device is None else physical(device)
         self._by_sig: Dict[Signature, Callable] = {}
         self._lock = threading.Lock()
         self._loaded = 0
@@ -176,7 +218,7 @@ class AotDispatcher:
         if entry is None:
             return None
         try:
-            call = _load_program(entry.payload)
+            call = _place_program(_load_program(entry.payload), self._device)
         except Exception:
             logger.warning(
                 "aot: unloadable entry for %s %s — falling back to a live "

@@ -72,8 +72,9 @@ from ..data.dataset import Dataset, first_leaf, map_leaves
 from ..obs.ledger import CompileLedger
 from ..obs.tracer import current as _trace_current
 from ..ops import is_device_fault
+from ..parallel.mesh import physical
 from ..workflow.cuda_graph import GraphCache, leaves, signature
-from .aot import Signature, _load_program, _without_example_inputs, signature_of
+from .aot import Signature, _load_program, _place_program, _without_example_inputs, signature_of
 from .cache import ExecutableCache
 from .fingerprint import (
     FingerprintError,
@@ -214,6 +215,14 @@ class SegmentDispatcher:
         self._unsigned_logged = False
         self._ledger = CompileLedger.for_cache_root(cache.root) if cache is not None else None
 
+    def device_copy(self, copy: Callable) -> "SegmentDispatcher":
+        """A fresh dispatcher over the copied function, for a scan lane on
+        another device (``parallel.placement.copy_to_device``): its programs
+        loaded or exported there and its chunks captured there, sharing the
+        cache; the programs and CUDA graphs resolved here stay here."""
+        return SegmentDispatcher(copy(self._fn), self._digest, self._cache, label=self._label,
+                                 n_nodes=self._n_nodes)
+
     @property
     def digest(self) -> Optional[str]:
         """The segment's digest; None for a dispatcher without a cache that
@@ -258,7 +267,8 @@ class SegmentDispatcher:
                 prog = self._structural_program()
             else:
                 env = self._env(xs)
-                prog = self._load(sigs, env) or self._trace_and_export(sigs, env, xs)
+                prog = (self._load(sigs, env, leaves(xs)[0].device)
+                        or self._trace_and_export(sigs, env, xs))
             self._by_sig[sigs] = prog
         return prog
 
@@ -274,14 +284,15 @@ class SegmentDispatcher:
             env = self._envs[str(device)] = environment_key(device)
         return env
 
-    def _load(self, sigs: Tuple[Signature, ...], env: Dict[str, str]) -> Optional[_Program]:
+    def _load(self, sigs: Tuple[Signature, ...], env: Dict[str, str],
+              device: torch.device) -> Optional[_Program]:
         key = segment_entry_key(self._digest, sigs, env)
         t0 = time.perf_counter()
         entry = self._cache.load(key, expect_env=env)
         if entry is None:
             return None
         try:
-            call = _load_program(entry.payload)
+            call = _place_program(_load_program(entry.payload), physical(device))
         except Exception as e:
             if is_device_fault(e):
                 raise

@@ -55,7 +55,12 @@ device the lane's slot is on), and the consumer's crossings between slots
 (``record_collectives``) land on the scan's span, also after it was
 recorded. With ``KEYSTONE_SCAN_PIPELINE=0`` the serial scan keeps the lane
 placement. On one card the lanes' slots share
-the card: the chunks are staged to it as in a one-lane scan.
+the card: the chunks are staged to it as in a one-lane scan. Lanes on
+several physical devices run chunk ``i``'s steps from a copy of the steps
+on lane ``i``'s device (``parallel.placement.copy_to_device``, made once a
+scan and device; the steps themselves on their own device), as each JAX
+lane runs on its device, and the scan's stats name the device each lane's
+steps ran on (``lane_step_devices``).
 """
 
 from __future__ import annotations
@@ -200,6 +205,9 @@ class ScanStats:
     #: crossings between slots that the consumer counted on this scan
     #: (partial reductions, per-block model broadcasts)
     collectives: int = 0
+    #: the device each lane's steps ran on (their first output's), on a
+    #: scan whose lanes span several physical devices; empty otherwise
+    lane_step_devices: List[str] = field(default_factory=list)
 
     def as_dict(self) -> dict:
         return asdict(self)
@@ -235,6 +243,39 @@ def _apply(steps: Sequence[Callable[[Any], Any]], chunk: Any) -> Any:
     for step in steps:
         chunk = step(chunk)
     return chunk
+
+
+def lane_steps(steps: Sequence[Callable[[Any], Any]],
+               slots: Optional[Sequence[Any]]) -> Optional[List[Sequence[Callable]]]:
+    """The steps each lane runs, or None when every lane runs ``steps``
+    (one lane, no steps, or lanes whose slots share one physical device):
+    else a copy of the steps a distinct device of the lanes, made here
+    once (``steps`` themselves on their own device)."""
+    if not steps or slots is None or len({s.device for s in slots}) == 1:
+        return None
+    from ..parallel.placement import copy_to_device
+
+    copies: dict = {}
+    for s in slots:
+        if s.device not in copies:
+            copies[s.device] = copy_to_device(tuple(steps), s.device)
+    return [copies[s.device] for s in slots]
+
+
+def _lane_apply(per_lane: Optional[List[Sequence[Callable]]], steps: Sequence[Callable],
+                seq: int, chunk: Any, stats: Optional["ScanStats"] = None) -> Any:
+    """Chunk ``seq``'s steps: its lane's copy on a scan over several
+    devices (noting where the lane's first chunk came out), else
+    ``steps``."""
+    if per_lane is None:
+        return _apply(steps, chunk)
+    lane = seq % len(per_lane)
+    out = _apply(per_lane[lane], chunk)
+    if stats is not None and not stats.lane_step_devices[lane]:
+        lead = next((leaf for leaf in payload_leaves(out) if isinstance(leaf, torch.Tensor)),
+                    None)
+        stats.lane_step_devices[lane] = "" if lead is None else str(lead.device)
+    return out
 
 
 _CHUNK, _ERROR, _DONE = 0, 1, 2
@@ -308,6 +349,7 @@ class ScanPipeline:
         self._device = None if device is None else torch.device(device)
         self._steps = tuple(steps)
         self._lanes, self._devices = _lane_slots(lanes, devices)
+        self._lane_steps = lane_steps(self._steps, self._devices)
         self._q: Queue = Queue(maxsize=self._depth * self._lanes)
         self._stop = threading.Event()
         self._closed = False
@@ -332,6 +374,8 @@ class ScanPipeline:
             stats.lane_chunks = [0] * self._lanes
             stats.lane_bytes = [0] * self._lanes
             stats.lane_devices = [str(s) for s in self._devices]
+            if self._lane_steps is not None:
+                stats.lane_step_devices = [""] * self._lanes
 
         def stage_fn(chunk):
             lane = seq[0] % n_lanes
@@ -393,7 +437,8 @@ class ScanPipeline:
             for leaf in leaves:
                 leaf.record_stream(stream)
         try:
-            chunk = _apply(self._steps, chunk)
+            chunk = _lane_apply(self._lane_steps, self._steps, self.stats.chunks, chunk,
+                                self.stats)
         except BaseException:
             self.close()
             raise
@@ -478,12 +523,14 @@ def serial_staged(chunks: Any, depth: int = DEFAULT_DEPTH, device: Any = None,
     """The scan without a thread (``KEYSTONE_SCAN_PIPELINE=0``): up to
     ``depth`` chunks a lane produced and copied ahead of the consumer (to
     ``device``, or on a laned scan to chunk ``i``'s lane's slot), then
-    ``steps`` applied to each, in order."""
+    ``steps`` applied to each (a lane's copy of them on a scan over several
+    devices), in order."""
     device = None if device is None else torch.device(device)
     lanes, slots = _lane_slots(lanes, devices)
+    per_lane = lane_steps(steps, slots)
     it = iter(chunks)
     q: deque = deque()
-    seq = 0
+    seq, done = 0, 0
     try:
         while True:
             while it is not None and len(q) < depth * lanes:
@@ -497,7 +544,8 @@ def serial_staged(chunks: Any, depth: int = DEFAULT_DEPTH, device: Any = None,
                 q.append(_stage_chunk(chunk, target)[0])
             if not q:
                 return
-            yield _apply(steps, q.popleft())
+            yield _lane_apply(per_lane, steps, done, q.popleft())
+            done += 1
     finally:
         close = getattr(chunks, "close", None)
         if close is not None:

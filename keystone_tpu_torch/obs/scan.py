@@ -18,7 +18,9 @@ the crossings between slots that its consumer counted (stamped onto the
 span after it was recorded when the reduction comes at the end). One
 ``scan.pipeline.lane`` child span a lane nests under it with that lane's
 slot, chunks and bytes, so a straggling lane shows in the trace tree. The
-schema is the JAX package's.
+schema is the JAX package's; a scan whose lanes span several physical
+devices adds the device each lane's steps ran on (``step_devices``, and
+``step_device`` on each lane's span).
 
 A scan's end is an allocation peak (staged chunks and the accumulators
 alive), so the device-memory watermark (``resource.sample_memory()``) is
@@ -70,13 +72,17 @@ def record_scan_span(stats) -> Optional[Span]:
         total = sum(stats.lane_bytes)
         if total > 0:
             attrs["lane_imbalance"] = round(max(stats.lane_bytes) * stats.lanes / total, 3)
+        if stats.lane_step_devices:
+            attrs["step_devices"] = list(stats.lane_step_devices)
     sp = Span(name=SCAN_SPAN, start=stats.start, end=stats.end, op_type="ScanPipeline",
               attrs=attrs)
     tracer.record_complete(sp)
     for lane in range(stats.lanes if stats.lanes > 1 else 0):
+        lane_attrs = {"label": stats.label, "lane": lane, "device": stats.lane_devices[lane],
+                      "chunks": stats.lane_chunks[lane], "staged_bytes": stats.lane_bytes[lane]}
+        if stats.lane_step_devices:
+            lane_attrs["step_device"] = stats.lane_step_devices[lane]
         tracer.record_complete(Span(
             name=SCAN_LANE_SPAN, start=stats.start, end=stats.end, parent_id=sp.span_id,
-            depth=sp.depth + 1, op_type="ScanPipeline",
-            attrs={"label": stats.label, "lane": lane, "device": stats.lane_devices[lane],
-                   "chunks": stats.lane_chunks[lane], "staged_bytes": stats.lane_bytes[lane]}))
+            depth=sp.depth + 1, op_type="ScanPipeline", attrs=lane_attrs))
     return sp

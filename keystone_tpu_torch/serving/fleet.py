@@ -6,20 +6,29 @@ through one worker. :class:`ServingFleet` runs N
 :class:`~.replica.Replica` workers (by default one a device,
 ``parallel/placement.py``) that drain one :class:`~.scheduler.FleetScheduler`:
 continuous batching, deadline-aware admission shedding (typed
-:class:`Shed`), work stealing and weighted-fair QoS. A model version is one
-trace function (or, with an AOT executable cache, one program a bucket),
-so the fleet pays each bucket signature once however many replicas serve
-it (the ``compiles`` counter); on the card each replica captures its own
-CUDA graph of it on its own stream (:attr:`ServedChain.captures`), since a
+:class:`Shed`), work stealing and weighted-fair QoS.
+
+A model version (:class:`~.replica.ServedModel`) is one served chain a
+physical device of the replicas, each over that device's copy of the model
+(``parallel.placement.copy_to_device``), as each JAX device holds its own
+copy; replicas on one device (slots of one card, the provisioned CPU
+slots) share its chain and the model's own tensors, so on one card nothing
+is copied. A chain is one trace function (or, with an AOT executable
+cache, one program a bucket and backend), and the fleet counts each bucket
+signature once however many replicas and devices serve it (the
+``compiles`` counter); on the card each replica captures its own CUDA
+graph of it on its own stream (:attr:`ServedChain.captures`), since a
 graph shared by co-resident replicas would run one batch at a time.
 
-``swap(fitted)`` is fleet-wide with no downtime: the replacement compiles
-and warms every bucket on every replica off the serving path, then the
-replicas flip; admission never pauses, every micro-batch runs whole on one
-chain, and no request is dropped. With ``canary_fraction > 0`` a shadow
-phase first mirrors a fraction of live batches through the candidate
-(after their answers are out), compares outputs and latency, and on a
-mismatch rolls back by raising :class:`CanaryMismatch` with the evidence.
+``swap(fitted)`` is fleet-wide with no downtime: the replacement is copied
+onto every device, compiles and warms every bucket on every replica off the
+serving path, then the replicas flip, each to its device's copy; admission
+never pauses, every micro-batch runs whole on one chain, and no request is
+dropped. With ``canary_fraction > 0`` a shadow phase first mirrors a
+fraction of live batches through the candidate's copy on each batch's
+device (after their answers are out), compares outputs and latency, and on
+a mismatch rolls back by raising :class:`CanaryMismatch` with the evidence;
+the candidate's copies are freed.
 
 ``start()`` warms every bucket and every signature the pipeline ever
 exported by the AOT cache's manifest, and pre-warms the segment programs
@@ -70,9 +79,10 @@ from .metrics import MetricsRegistry
 from .replica import (
     Replica,
     ReplicaQuarantined,
+    ServedModel,
     _Request,
     check_swap_contract,
-    compile_pipeline,
+    compile_model,
     serving_contract,
     settle_future,
 )
@@ -90,10 +100,6 @@ _DRAIN_TIMEOUT_S = 60.0
 _JOIN_TIMEOUT_S = 10.0
 
 
-def _same_device(a: torch.device, b: torch.device) -> bool:
-    return a.type == b.type and (a.type == "cpu" or (a.index or 0) == (b.index or 0))
-
-
 class ServingFleet:
     """Serves a :class:`FittedPipeline` from N replica workers behind one
     deadline-aware admission queue.
@@ -102,16 +108,23 @@ class ServingFleet:
     same; the others:
 
     replicas:
-        The worker count; None is one a device of the chain's device (one
-        on one card). More replicas than devices share them (co-resident
-        replicas overlap their host work and replays).
+        The worker count; None is one a device. More replicas than devices
+        share them (co-resident replicas overlap their host work and
+        replays).
     devices:
-        Explicit placement, one device a replica; default
-        :func:`keystone_tpu_torch.parallel.placement.replica_devices` over
-        the device the chain's parameters live on. A replica serves on the
-        device of the model's tensors. The port makes no copy of the model
-        for a replica on another card of the mesh: that needs two cards to
-        exercise, and stays for later (ROADMAP).
+        Explicit placement, one device a replica, any mix of physical
+        devices (``["cuda:0", "cuda:1"]``, ``["cuda:0", "cpu"]``); each
+        distinct device gets its own copy of the model, and a replica
+        serves on its device's copy. The default is
+        :func:`keystone_tpu_torch.parallel.placement.replica_devices`: over
+        the data axis of the default mesh when one was chosen (set, or
+        virtual devices provisioned: 8 provisioned slots give 8 replicas,
+        as the JAX fleet places over its mesh), else on the chain's home
+        device (``parallel.placement.home_device``: the one holding most
+        of its tensor bytes; one replica on one card). A mesh built
+        only from the visible cards does not spread the fleet over them,
+        as it does not spread a scan's lanes: no run has had two cards
+        yet.
     steal:
         Work stealing between the per-replica queues.
     supervise:
@@ -137,31 +150,27 @@ class ServingFleet:
                  drain_timeout_s: float = _DRAIN_TIMEOUT_S,
                  tenant_weights: Optional[Dict[str, float]] = None,
                  on_device_fault: Optional[Callable[[BaseException], None]] = None):
-        from ..parallel.placement import replica_devices
+        from ..parallel.mesh import mesh_was_chosen, physical
+        from ..parallel.placement import home_device, replica_devices
 
         self._fitted = fitted
         datum_shape, dtype = serving_contract(fitted, datum_shape, dtype)
         self._policy = BucketPolicy(buckets, datum_shape, dtype)
         self._metrics = metrics or MetricsRegistry(name="serving-fleet")
         self._compiled_signatures: list = []
-        # one trace function (or AOT program a bucket) per model version,
-        # shared by every replica; each replica captures its own graphs
-        compiled = compile_pipeline(fitted, metrics=self._metrics,
-                                    signatures=self._compiled_signatures, label="serving")
+        home = home_device(fitted)
         if devices is None:
-            devices = replica_devices(replicas, device=compiled.device)
+            devices = replica_devices(replicas, device=None if mesh_was_chosen() else home)
         elif replicas is not None and len(devices) != replicas:
             raise ValueError(f"devices list ({len(devices)}) does not match replicas={replicas}")
-        self._devices = [torch.device(d) for d in devices]
-        for d in self._devices:
-            if not _same_device(d, compiled.device):
-                raise ValueError(
-                    f"a replica on {d} cannot serve a chain whose tensors live on "
-                    f"{compiled.device}: the port makes no copy of the model for another "
-                    "device of the mesh")
+        self._devices = [physical(d) for d in devices]
+        # one served chain a physical device and model version, shared by
+        # that device's replicas; each replica captures its own graphs
+        published = self._compile(fitted, home=home)
         n = len(self._devices)
         self._replicas = [
-            Replica(compiled, self._policy, self._metrics, index=i, device=self._devices[i],
+            Replica(published.chain_for(self._devices[i]), self._policy, self._metrics,
+                    index=i, device=self._devices[i],
                     span_name="serve.replica", log_interval_s=log_interval_s,
                     # the breaker needs a supervisor to catch it
                     quarantine_after=quarantine_after if supervise else 0,
@@ -174,8 +183,8 @@ class ServingFleet:
         # new thread. Guarded by _supervise_lock: the supervisor pins from
         # the dying replica's thread, which must not take the lifecycle lock.
         self._model_version = 1
-        self._model_digest = getattr(compiled.dispatcher, "digest", None)
-        self._published_exec = compiled
+        self._model_digest = published.digest
+        self._published: ServedModel = published
         for rep in self._replicas:
             rep.version = self._model_version
         self._scheduler = FleetScheduler(n, self._policy, self._metrics, max_queue=max_queue,
@@ -238,9 +247,23 @@ class ServingFleet:
 
     @property
     def captures(self) -> int:
-        """The CUDA graphs the published chain holds, over every replica."""
+        """The CUDA graphs the published model holds, over every replica."""
         with self._supervise_lock:
-            return self._published_exec.captures
+            return self._published.captures
+
+    @property
+    def published(self) -> ServedModel:
+        """The published model version: its chain on each device."""
+        with self._supervise_lock:
+            return self._published
+
+    def _compile(self, fitted: FittedPipeline, home=None) -> ServedModel:
+        """``fitted`` on every device of the replicas, compiled against the
+        fleet's account: the chain itself on its home device, a copy on
+        each other one."""
+        return compile_model(fitted, self._devices, metrics=self._metrics,
+                             signatures=self._compiled_signatures, label="serving",
+                             home=home)
 
     @property
     def fitted(self) -> FittedPipeline:
@@ -299,7 +322,7 @@ class ServingFleet:
                 continue
             seen.add((shape, dtype))
             inputs.append(np.zeros(shape, dtype=dtype))
-        self._warm_inputs(self._replicas[0].compiled, inputs)
+        self._warm_inputs(self.published, inputs)
         self._prewarm_segments()
         logger.info("fleet warm-up: %d signature(s) ready on %d replica(s) (%d traced, %d "
                     "loaded from the AOT cache)", len(inputs), len(self._replicas),
@@ -324,13 +347,15 @@ class ServingFleet:
         if warmed:
             logger.info("fleet warm-up: %d segment program(s) pre-warmed", warmed)
 
-    def _warm_inputs(self, compiled, inputs) -> None:
-        """Run each input through ``compiled`` on every replica's lane and
-        stream: each replica captures its own graphs (the program a
-        signature is shared, so ``compiles`` counts it once)."""
+    def _warm_inputs(self, model: ServedModel, inputs) -> None:
+        """Run each input through ``model``'s chain of each replica's
+        device, on the replica's lane and stream: each replica captures its
+        own graphs (the program a signature is shared by a device's
+        replicas, and ``compiles`` counts a signature once)."""
         for rep in self._replicas:
+            chain = model.chain_for(rep.device)
             for x in inputs:
-                rep.run_chain(compiled, x)  # returns host arrays: the batch has run
+                rep.run_chain(chain, x)  # returns host arrays: the batch has run
 
     def _manifest_signatures(self) -> list:
         """The signatures the pipeline ever exported (the AOT manifest)
@@ -418,9 +443,10 @@ class ServingFleet:
                 self._restart_counts[rep.index] = used + 1
                 self._metrics.inc("restarts")
                 rep.consecutive_failures = 0
-                # pinned to the published model: only a promotion, which
-                # flips every replica under this lock, moves it forward
-                rep.flip(self._published_exec)
+                # pinned to its device's copy of the published model: only
+                # a promotion, which flips every replica under this lock,
+                # moves it forward
+                rep.flip(self._published.chain_for(rep.device))
                 rep.version = self._model_version
             elif not self._scheduler.any_active():
                 failed = self._scheduler.fail_remaining(
@@ -573,16 +599,17 @@ class ServingFleet:
              max_latency_ratio: Optional[float] = None) -> dict:
         """Replace the served model fleet-wide with no downtime.
 
-        The replacement compiles strictly and warms every bucket on every
-        replica off the serving path; then the replicas flip (each batch
-        runs whole on one chain, admission never pauses, nothing is
-        dropped).
+        The replacement is copied onto every device of the replicas,
+        compiles strictly and warms every bucket on every replica off the
+        serving path; then the replicas flip, each to its device's copy
+        (each batch runs whole on one chain, admission never pauses,
+        nothing is dropped).
 
         With ``canary_fraction > 0`` a shadow phase first mirrors that
         fraction of live batches through the candidate, after their answers
         are out, and compares outputs (``atol`` / ``rtol``) and latency. A
         mismatch, or a latency ratio above ``max_latency_ratio``, rolls
-        back: the candidate is dropped, the old model serves on, and
+        back: the candidate's copies are dropped, the old model serves on, and
         :class:`CanaryMismatch` carries the evidence. The phase ends after
         ``canary_batches`` mirrored batches or ``canary_timeout_s`` seconds
         (a quiet fleet promotes on what arrived). A kernel or device fault
@@ -600,24 +627,33 @@ class ServingFleet:
             # a shutdown is never held up; _promote checks closed again
             compiles_before = self._metrics.count("compiles")
             loads_before = self._metrics.count("aot_loads")
-            candidate = compile_pipeline(fitted, metrics=self._metrics,
-                                         signatures=self._compiled_signatures, label="serving")
-            warmed = 0
-            if (warmup or warmup is None) and self._policy.datum_shape is not None:
-                inputs = list(self._policy.warmup_inputs())
-                self._warm_inputs(candidate, inputs)
-                warmed = len(inputs)
-            elif warmup is True:
+            if warmup is True and self._policy.datum_shape is None:
                 raise ValueError("swap(warmup=True) but no datum shape is known — the fleet "
                                  "cannot pre-pay the replacement's compiles")
-            canary_report = None
-            if canary_fraction > 0:
-                canary_report = self._run_canary(
-                    candidate, fraction=canary_fraction, target_batches=canary_batches,
-                    timeout_s=canary_timeout_s, atol=atol, rtol=rtol,
-                    max_latency_ratio=max_latency_ratio)
-            return self._promote(fitted, candidate, warmed, canary_report, compiles_before,
-                                 loads_before)
+            candidate = self._compile(fitted)
+            try:
+                warmed = 0
+                if (warmup or warmup is None) and self._policy.datum_shape is not None:
+                    inputs = list(self._policy.warmup_inputs())
+                    self._warm_inputs(candidate, inputs)
+                    warmed = len(inputs)
+                canary_report = None
+                if canary_fraction > 0:
+                    canary_report = self._run_canary(
+                        candidate, fraction=canary_fraction, target_batches=canary_batches,
+                        timeout_s=canary_timeout_s, atol=atol, rtol=rtol,
+                        max_latency_ratio=max_latency_ratio)
+                return self._promote(fitted, candidate, warmed, canary_report,
+                                     compiles_before, loads_before)
+            except BaseException:
+                # a rollback (or any swap that failed before the flip) frees
+                # the candidate's copies and graphs, whoever holds its
+                # exception; a published candidate serves on whatever raised
+                with self._supervise_lock:
+                    published = self._published is candidate
+                if not published:
+                    candidate.release()
+                raise
 
     def _promote(self, fitted, candidate, warmed, canary_report, compiles_before,
                  loads_before) -> dict:
@@ -631,11 +667,11 @@ class ServingFleet:
             # pins to the candidate too.
             with self._supervise_lock:
                 self._model_version += 1
-                self._model_digest = getattr(candidate.dispatcher, "digest", None)
-                self._published_exec = candidate
+                self._model_digest = candidate.digest
+                self._published = candidate
                 version = self._model_version
                 for rep in self._replicas:
-                    rep.flip(candidate)
+                    rep.flip(candidate.chain_for(rep.device))
                     rep.version = version
             self._fitted = fitted
             self._metrics.inc("swaps")
@@ -661,8 +697,9 @@ class ServingFleet:
                          "batch(es)" if canary_report else ""))
             return report
 
-    def _run_canary(self, candidate, *, fraction: float, target_batches: int, timeout_s: float,
-                    atol: float, rtol: float, max_latency_ratio: Optional[float]) -> dict:
+    def _run_canary(self, candidate: ServedModel, *, fraction: float, target_batches: int,
+                    timeout_s: float, atol: float, rtol: float,
+                    max_latency_ratio: Optional[float]) -> dict:
         """Mirror live traffic through ``candidate``: raise
         :class:`CanaryMismatch` on an output mismatch or a latency blow-up,
         re-raise a device fault of the candidate, else the pass report."""
@@ -710,8 +747,8 @@ def _leaves(out: Any) -> list:
 
 
 class _Shadow:
-    """Mirrors sampled live batches through a candidate chain and gathers
-    the comparison's evidence. Installed as every replica's shadow hook
+    """Mirrors sampled live batches through a candidate model's chain on
+    each batch's device and gathers the comparison's evidence. Installed as every replica's shadow hook
     during a canaried swap; thread-safe (N replicas call ``observe``).
 
     A Python-level failure of the candidate is a mismatch, as in the JAX
@@ -746,9 +783,10 @@ class _Shadow:
                 return
         t0 = time.perf_counter()
         try:
-            # on the replica's lane and stream: the candidate's graphs for
-            # this replica were captured at the swap's warm-up
-            cand = replica.run_chain(self._candidate, padded)
+            # on the replica's lane and stream, through the candidate's
+            # copy on its device: the candidate's graphs for this replica
+            # were captured at the swap's warm-up
+            cand = replica.run_chain(self._candidate.chain_for(replica.device), padded)
         except Exception as e:
             with self._lock:
                 if is_device_fault(e):

@@ -38,7 +38,11 @@ set of model tensors. ``compiles`` counts the distinct bucket signatures a
 version paid; :attr:`ServedChain.captures` counts the graphs. The JAX
 package shares one executable across replicas because XLA specializes it
 per device; one shared graph would serialize the replicas on one lock and
-one stream.
+one stream. :func:`compile_model` builds a fleet's version, a
+:class:`ServedModel`: one served chain a physical device of the replicas,
+each over that device's copy of the model
+(``parallel.placement.copy_to_device``; the chain itself on its own
+device), with one ``compiles`` count a signature over all of them.
 
 Each batch leaves one span summary in the always-on flight recorder
 (``obs/flight.py``), samples the device-memory watermark, and, with
@@ -64,9 +68,10 @@ from ..obs import flight, resource
 from ..obs.span import Span
 from ..obs.tracer import current as _trace_current
 from ..ops import is_device_fault
+from ..parallel.mesh import physical
 from ..utils import timing
 from ..workflow.cuda_graph import dtype_name
-from ..workflow.pipeline import FittedPipeline, NotTraceableError, _Compiled, _param_device
+from ..workflow.pipeline import FittedPipeline, NotTraceableError, _Compiled
 from .batching import BucketPolicy
 from .errors import DeadlineExceeded, EngineStopped, InvalidRequest
 from .metrics import MetricsRegistry
@@ -170,8 +175,12 @@ class ServedChain:
     :func:`compile_pipeline`) runs its forwards on every call, uncaptured."""
 
     def __init__(self, fitted: FittedPipeline, note: Callable[[tuple], None],
-                 dispatcher: Optional[Callable] = None, eager: bool = False):
-        self.device = _param_device(fitted.graph)
+                 dispatcher: Optional[Callable] = None, eager: bool = False, *,
+                 device: Any):
+        #: the chain this serves (on a fleet, its device's copy of the model)
+        self.fitted = fitted
+        #: where batches run: the physical device the chain's tensors are on
+        self.device = physical(device)
         #: the AOT dispatcher, None when the chain serves without a cache
         self.dispatcher = dispatcher
         #: True for a chain with a host step: every batch runs the chain's
@@ -238,14 +247,80 @@ def compile_pipeline(fitted: FittedPipeline, *, metrics: MetricsRegistry,
     graph would run such a step once, at capture, and never on replay; run
     eagerly, every batch runs it. Such a chain exports nothing, so it has no
     AOT programs either."""
-    # one static check gives the blockers and the export verdict; the chain
-    # is built from the fitted graph directly
+    (chain,) = compile_model(fitted, [None], metrics=metrics, signatures=signatures,
+                             label=label).chains.values()
+    return chain
+
+
+class ServedModel:
+    """One model version as a fleet serves it: a :class:`ServedChain` a
+    physical device of the replicas, each over that device's copy of the
+    model (the published chain itself on its own device)."""
+
+    def __init__(self, fitted: FittedPipeline, chains: Dict[torch.device, ServedChain]):
+        self.fitted = fitted
+        self._chains = chains
+
+    @property
+    def chains(self) -> Dict[torch.device, ServedChain]:
+        return dict(self._chains)
+
+    def chain_for(self, device: Any) -> ServedChain:
+        """The chain a replica on ``device`` serves."""
+        return self._chains[physical(device)]
+
+    @property
+    def copies(self) -> int:
+        """The chains that serve a copy of the model (one a device other
+        than the model's own)."""
+        return sum(1 for c in self._chains.values() if c.fitted is not self.fitted)
+
+    @property
+    def captures(self) -> int:
+        return sum(c.captures for c in self._chains.values())
+
+    @property
+    def digest(self) -> Optional[str]:
+        """The content fingerprint (every copy's is the source's), None
+        without an AOT cache."""
+        return next((c.dispatcher.digest for c in self._chains.values()
+                     if c.dispatcher is not None), None)
+
+    def release(self) -> None:
+        """Drop every chain: a rolled-back candidate's copies and their
+        graphs are freed even while its exception is held."""
+        self._chains.clear()
+
+
+def compile_model(fitted: FittedPipeline, devices: Sequence[Any], *, metrics: MetricsRegistry,
+                  signatures: list, label: str = "serving",
+                  home: Optional[torch.device] = None) -> ServedModel:
+    """``fitted`` as :func:`compile_pipeline` compiles it, once a distinct
+    physical device of ``devices`` (None: its home). On ``home`` (found by
+    ``parallel.placement.home_device`` unless given) the chain is
+    ``fitted`` itself; on any other device it is
+    ``copy_to_device(fitted, device)``. So a version on one device walks
+    the chain once and copies nothing. The chains share one account: a
+    signature is one compile however many devices pay it (an AOT cache
+    exports it once a backend, the program's environment, so ``compiles``
+    counts distinct signatures fleet-wide, not exports), and every program
+    loaded is one ``aot_load``."""
+    from ..parallel.placement import copy_to_device, home_device
+
+    # one static check gives the blockers and the export verdict; the
+    # chains are built from the fitted graph (or its copy) directly
     report = fitted.check(span=False)
     blockers = report.untraceable_labels()
     if blockers and not _host_steps_only(fitted, report):
         raise NotTraceableError(blockers)
+    lock = threading.Lock()
+    noted: set = set()
 
     def note(sig):
+        with lock:
+            if sig in noted:
+                return
+            noted.add(sig)
         signatures.append(sig)
         metrics.inc("compiles")
 
@@ -253,12 +328,22 @@ def compile_pipeline(fitted: FittedPipeline, *, metrics: MetricsRegistry,
         # not a compiled signature: no trace was paid for this bucket
         metrics.inc("aot_loads")
 
-    if blockers:
-        return ServedChain(fitted, note, eager=True)
-    dispatcher = fitted._aot_dispatcher(fitted._build_trace_fn(), "auto", note,
-                                        exportable=report.exportable, label=label,
-                                        on_load=note_load)
-    return ServedChain(fitted, note, dispatcher)
+    home = home_device(fitted) if home is None else physical(home)
+    chains: Dict[torch.device, ServedChain] = {}
+    for device in devices:
+        device = home if device is None else physical(device)
+        if device in chains:
+            continue  # slots of one device share its chain
+        chain = fitted if device == home else copy_to_device(fitted, device)
+        if blockers:
+            served = ServedChain(chain, note, eager=True, device=device)
+        else:
+            dispatcher = chain._aot_dispatcher(
+                chain._build_trace_fn(), "auto", note, exportable=report.exportable,
+                label=label, on_load=note_load, device=device)
+            served = ServedChain(chain, note, dispatcher, device=device)
+        chains[served.device] = served
+    return ServedModel(fitted, chains)
 
 
 def _host_steps_only(fitted: FittedPipeline, report) -> bool:
@@ -376,8 +461,12 @@ class Replica:
 
     def run_chain(self, compiled: ServedChain, padded: Any) -> Any:
         """``padded`` through ``compiled`` on this replica's lane and
-        stream: host arrays out, the card's work done."""
-        return compiled(padded, lane=self.index, stream=self.stream)
+        stream, with the replica's card current (its captures, graph pool
+        and kernels on that card): host arrays out, the card's work done."""
+        if self.stream is None:
+            return compiled(padded, lane=self.index)
+        with torch.cuda.device(self.device):
+            return compiled(padded, lane=self.index, stream=self.stream)
 
     # -- the loop -------------------------------------------------------
 

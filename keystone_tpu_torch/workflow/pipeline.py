@@ -782,11 +782,12 @@ class FittedPipeline(Chainable):
 
     def _aot_dispatcher(self, fn: Callable, cache: Any, note_trace: Callable, *,
                         exportable: Optional[bool], label: str,
-                        on_load: Optional[Callable] = None):
+                        on_load: Optional[Callable] = None, device: Any = None):
         """The cache-first per-signature dispatcher over ``fn``, or None
         when there is no cache, the checker proved the chain cannot export,
         or the pipeline cannot be fingerprinted (then the chain compiles
-        as it would without a cache)."""
+        as it would without a cache). ``device`` is where its programs run
+        (default: where the chain's tensors live)."""
         from .. import compile as compile_mod
 
         if cache == "auto":
@@ -808,7 +809,8 @@ class FittedPipeline(Chainable):
             return None
         return compile_mod.AotDispatcher(
             fn, digest, cache, on_trace=note_trace, on_load=on_load, label=label,
-            expected_exportable=bool(exportable), device=_param_device(self._graph))
+            expected_exportable=bool(exportable),
+            device=_param_device(self._graph) if device is None else device)
 
     @property
     def compiled_signatures(self) -> List[tuple]:

@@ -283,3 +283,75 @@ def test_i_serve_demo_through_two_worker_processes():
     assert "SERVE ok=32/32" in proc.stdout and "workers=2" in proc.stdout
     assert "SERVE PASS" in proc.stdout.splitlines()[-1]
     assert "timeline [worker-0]" in proc.stdout
+
+
+class _Proc:
+    def __init__(self, code):
+        self.code = code
+        self.pid = 4242
+
+    def poll(self):
+        return self.code
+
+
+def test_j_the_failed_respawn_reaper_waits_for_the_new_process(tmp_path, monkeypatch):
+    """Between a worker's death and its respawn's spawn the slot still holds
+    the dead process: the health loop's reaper must not take it for a
+    respawn that died booting (that counted a second restart and spawned a
+    second worker over the first one's rings). A respawn that does die
+    booting is still retried."""
+    monkeypatch.setenv("KEYSTONE_FLIGHT_DIR", str(tmp_path))
+    router = ClusterRouter(("factory", "keystone_tpu_torch.cluster.demo:build_stall_model",
+                            {"d": D}), workers=1, device="cpu")
+    slot = router._slots[0]
+    slot.alive, slot.proc = True, _Proc(-9)  # SIGKILLed, not yet replaced
+    spawned = []
+
+    def spawn(s):
+        router._reap_failed_respawns()  # the health loop, inside the window
+        spawned.append(s.index)
+        s.proc = _Proc(None)
+
+    monkeypatch.setattr(router, "_spawn_worker", spawn)
+    router._on_worker_down(slot, ConnectionResetError("killed"))
+    assert spawned == [0] and slot.restarts == 1
+    assert router.metrics.count("restarts") == 1 and slot.respawning
+    slot.proc = _Proc(1)  # the respawn itself dies while booting
+    monkeypatch.setattr(router, "_spawn_worker", lambda s: spawned.append(s.index))
+    router._reap_failed_respawns()
+    assert spawned == [0, 0] and slot.restarts == 2
+    assert router.metrics.count("restarts") == 2
+
+
+def test_j_a_respawn_that_fails_to_spawn_is_retried_by_the_reaper(tmp_path, monkeypatch):
+    """A respawn that raises before it launches a process (here the
+    ``worker.spawn`` fault site) leaves the dead process in the slot: the
+    reaper takes it for a failed respawn, retries within the budget and
+    counts the restart, and once the budget is spent gives the slot up and
+    answers the parked requests typed."""
+    from concurrent.futures import Future
+
+    from keystone_tpu_torch.faults import plan as fault_plan
+
+    monkeypatch.setenv("KEYSTONE_FLIGHT_DIR", str(tmp_path))
+    router = ClusterRouter(("factory", "keystone_tpu_torch.cluster.demo:build_stall_model",
+                            {"d": D}), workers=1, device="cpu", max_restarts=2)
+    slot = router._slots[0]
+    slot.alive, slot.proc = True, _Proc(-9)
+    fault_plan.install(fault_plan.parse_plan("worker.spawn=fatal@0"))
+    try:
+        router._on_worker_down(slot, ConnectionResetError("killed"))
+    finally:
+        fault_plan.clear()
+    assert slot.respawning and slot.restarts == 1 and slot.down_proc is None
+    spawned = []
+    monkeypatch.setattr(router, "_spawn_worker", lambda s: spawned.append(s.index))
+    router._reap_failed_respawns()
+    assert spawned == [0] and slot.restarts == 2
+    assert router.metrics.count("restarts") == 2
+    parked = type("Parked", (), {"future": Future()})()
+    router._parked = [parked]
+    router._reap_failed_respawns()  # budget spent: the slot is given up
+    assert spawned == [0] and not slot.respawning
+    with pytest.raises(EngineStopped):
+        parked.future.result(timeout=0)

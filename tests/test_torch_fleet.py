@@ -32,6 +32,7 @@ from keystone_tpu.workflow.transformer import FunctionNode as JFunctionNode
 from keystone_tpu_torch import faults
 from keystone_tpu_torch.check import ContractMismatchError
 from keystone_tpu_torch.obs import flight
+from keystone_tpu_torch.parallel.mesh import mesh_was_chosen
 from keystone_tpu_torch.serving import (
     CanaryMismatch,
     EngineClosed,
@@ -120,8 +121,8 @@ def test_fleet_default_replica_count_is_one_per_device():
     assert [r.stream for r in fleet.replicas] == [None]  # streams are a card's
     four = ServingFleet(_toy_fitted(), replicas=4, datum_shape=(3,))
     assert [r.device for r in four.replicas] == [torch.device("cpu")] * 4
-    with pytest.raises(ValueError, match="mesh"):
-        ServingFleet(_toy_fitted(), replicas=1, devices=["cuda:0"], datum_shape=(3,))
+    assert not mesh_was_chosen()  # no chosen mesh: one replica on the chain's device
+    assert fleet.published.chain_for("cpu").fitted is fleet.fitted and not fleet.published.copies
 
 
 def test_replica_placement_over_the_visible_cards(monkeypatch):

@@ -259,3 +259,117 @@ def test_fault_points_count_per_chunk_under_lanes_as_in_jax(monkeypatch):
         finally:
             faults.clear()
     assert counts[0] == counts[1] == (2, [2, 2, 2, 2])
+
+
+class _Project:
+    """A scan step holding a parameter tensor, counting its calls."""
+
+    def __init__(self, P):
+        self.P = P
+        self.calls = 0
+
+    def __call__(self, chunk):
+        self.calls += 1
+        return torch.as_tensor(chunk).to(self.P.device) @ self.P
+
+
+@pytest.mark.parametrize("pipelined", ["1", "0"])
+def test_a_laned_scan_over_cpu_slots_runs_its_own_steps_bit_equal(monkeypatch, pipelined):
+    """Lanes whose slots share the CPU make no copy of the steps: every
+    chunk runs the steps themselves, bit-equal to the chunks run one by one,
+    and the span keeps the JAX package's schema."""
+    from keystone_tpu_torch.obs import Tracer, install
+
+    monkeypatch.setenv("KEYSTONE_SCAN_PIPELINE", pipelined)
+    step = _Project(torch.randn(3, 2, generator=torch.Generator().manual_seed(1)))
+    chunks = _chunks(8)
+    assert tscan.lane_steps((step,), lanes.lane_devices(4)) is None
+    tracer = install(Tracer())
+    try:
+        out = list(tscan.scan_pipeline(tscan.Chunks(iter(chunks), (step,)), lanes=4, label="t"))
+    finally:
+        ttrace.reset()
+    assert step.calls == 8
+    for got, chunk in zip(out, chunks):
+        assert torch.equal(got, torch.from_numpy(chunk) @ step.P)
+    for sp in _scan_spans(tracer):
+        assert "step_devices" not in sp.attrs
+    for sp in _scan_spans(tracer, SCAN_LANE_SPAN):
+        assert "step_device" not in sp.attrs
+
+
+@pytest.mark.parametrize("pipelined", ["1", "0"])
+def test_lanes_on_two_devices_run_each_chunks_steps_on_its_lanes_device(monkeypatch, pipelined):
+    """Lanes over the CPU and ``meta``: chunk ``i`` runs from a copy of the
+    steps on lane ``i``'s device, made once a scan (the steps themselves on
+    their own device), and the scan names where each lane's steps ran."""
+    from keystone_tpu_torch.obs import Tracer, install
+    from keystone_tpu_torch.parallel import placement
+
+    monkeypatch.setenv("KEYSTONE_SCAN_PIPELINE", pipelined)
+    copies = []
+    copy = placement.copy_to_device
+    monkeypatch.setattr(placement, "copy_to_device",
+                        lambda obj, d: copies.append(str(d)) or copy(obj, d))
+    step = _Project(torch.randn(3, 2, generator=torch.Generator().manual_seed(1)))
+    slots = [mesh.Slot(0, torch.device("cpu")), mesh.Slot(1, torch.device("meta"))]
+    tracer = install(Tracer())
+    try:
+        scan = tscan.scan_pipeline(tscan.Chunks(iter(_chunks(6)), (step,)), lanes=2,
+                                   devices=slots, label="t")
+        out = list(scan)
+    finally:
+        ttrace.reset()
+    assert sorted(copies) == ["cpu", "meta"]  # once a device, the CPU's the steps themselves
+    assert [str(c.device) for c in out] == ["cpu", "meta"] * 3
+    assert step.calls == 3  # the meta lane ran its copy
+    if pipelined == "1":
+        assert scan.stats.lane_step_devices == ["cpu", "meta"]
+        (span,) = _scan_spans(tracer)
+        assert span.attrs["step_devices"] == ["cpu", "meta"]
+        assert [sp.attrs["step_device"] for sp in _scan_spans(tracer, SCAN_LANE_SPAN)] == [
+            "cpu", "meta"]
+    per_lane = tscan.lane_steps((step,), slots)
+    assert per_lane[0] == (step,) and per_lane[1][0] is not step
+    assert per_lane[1][0].P.device == torch.device("meta") and step.P.device.type == "cpu"
+
+
+def test_a_segment_dispatched_chunk_step_copies_with_a_fresh_dispatcher():
+    """A fitted chain applied to a chunked dataset adds a segment step whose
+    dispatcher resolves its device's programs (and on a card its graphs):
+    a lane's copy gets a fresh dispatcher over the copied members, sharing
+    the cache, and runs on its own device."""
+    from keystone_tpu_torch.compile.segment import SegmentDispatcher
+    from keystone_tpu_torch.data.chunked import ChunkedDataset
+    from keystone_tpu_torch.parallel.placement import _Walk, copy_to_device, tensors_of
+    from keystone_tpu_torch.workflow.transformer import FunctionNode
+
+    W = torch.randn(4, 4, generator=torch.Generator().manual_seed(2))
+    w, twice = (FunctionNode(batch_fn=lambda X: X @ W, label="w"),
+                FunctionNode(batch_fn=lambda X: X * 2.0, label="twice"))
+    w.no_fuse = twice.no_fuse = True  # one segment of two nodes, no fused group
+    fitted = (w.to_pipeline() >> twice).fit()
+    steps = fitted.apply(ChunkedDataset.from_array(torch.randn(64, 4), 16))._steps
+    x = torch.randn(16, 4)
+    want = steps[0](x)  # the dispatcher resolves its program here
+
+    def dispatchers(obj):
+        walk = _Walk()
+        seen = []
+        hook = SegmentDispatcher.device_copy
+        SegmentDispatcher.device_copy = lambda self, copy: seen.append(self) or hook(self, copy)
+        try:
+            walk(obj)
+        finally:
+            SegmentDispatcher.device_copy = hook
+        return seen
+
+    (source,) = dispatchers(steps)
+    assert source._structural is not None or source._by_sig
+    copy = copy_to_device(steps, "meta")
+    (fresh,) = dispatchers(copy)
+    assert fresh is not source and fresh._cache is source._cache
+    assert fresh._structural is None and not fresh._by_sig
+    assert all(t.device.type == "meta" for t in tensors_of(copy))
+    assert copy[0](x.to("meta")).device.type == "meta"
+    assert torch.equal(steps[0](x), want)  # the source still serves its device
