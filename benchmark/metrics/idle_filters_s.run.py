@@ -1,0 +1,9 @@
+"""Layer application (filter learning): the mean a run of the seconds inside
+the port's ``app.filters`` span in which no kernel, copy or fill ran on the
+card, in a traced window (``benchmark/spans.py``)."""
+
+from benchmark import spans
+
+
+def read(ctx):
+    return spans.per_run(ctx, spans.idle_seconds, ("app.filters",))

@@ -315,6 +315,51 @@ def time_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
+#: the CUDA calls (runtime `cuda*`, low-level `cu*`) that launch one kernel, launch a
+#: captured graph, or copy memory, as the profiler names them
+RUNTIME_CALLS = {
+    "host_launches": {"cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                      "cuLaunchKernelEx", "cudaLaunchCooperativeKernel"},
+    "graph_launches": {"cudaGraphLaunch", "cuGraphLaunch"},
+    "copies": {"cudaMemcpyAsync", "cudaMemcpy", "cuMemcpyAsync"},
+}
+
+
+def profiled(fn, top: int = 8) -> dict:
+    """One run of ``fn`` (run before, so nothing compiles) under
+    ``torch.profiler``: its host seconds up to the card's last kernel, the
+    seconds its kernels kept the card busy (the union of their intervals),
+    the idle share of that one window, the kernel count, the CUDA runtime's
+    kernel launches, graph launches and copies, and the kernels that took
+    most device time."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    host = Counter(e.name for e in events if e.device_type == torch.autograd.DeviceType.CPU)
+    by_name: dict = {}
+    busy, end = 0.0, float("-inf")
+    for k in sorted(kernels, key=lambda k: k.time_range.start):
+        s, e = k.time_range.start, k.time_range.end
+        count, us = by_name.get(k.name, (0, 0.0))
+        by_name[k.name] = (count + 1, us + e - s)
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    busy *= 1e-6  # the profiler's clock is in microseconds
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+    return {"host_seconds": wall, "device_seconds": busy,
+            "idle_share": 1.0 - busy / wall if wall > 0 else None, "kernels": len(kernels),
+            **{key: sum(host[n] for n in calls) for key, calls in RUNTIME_CALLS.items()},
+            "top": [{"name": k[:120], "count": c, "seconds": us * 1e-6}
+                    for k, (c, us) in ranked]}
+
+
 def gaussian_bound_ms(n: int, d: int, b: int) -> dict:
     """The least time for one Gaussian block on the card: each input read
     once and the output written once, against the operations at the rate of
@@ -515,7 +560,6 @@ def timit_phases(cli, dev, card) -> int:
     JAX CLI's defaults on 50000 frames, then one traced sweep of five block
     steps at that shape. Returns the K1 launches of the full-width run,
     which has no hand-written kernel on its path."""
-    from keystone_tpu_torch import trace_mnist
     from keystone_tpu_torch.linalg import bcd
     from keystone_tpu_torch.nodes.learning.linear import BlockLeastSquaresEstimator
     from keystone_tpu_torch.nodes.util import MaxClassifier
@@ -618,7 +662,7 @@ def timit_phases(cli, dev, card) -> int:
     sweep()  # cuBLAS and cuSOLVER workspaces
     emit(dict({"phase": "timit_solve_trace", "blocks": 5, "rows": TIMIT_ROWS,
                "block_width": width, "gram_tflop_per_block": 2 * TIMIT_ROWS * width ** 2 / 1e12,
-               "card": card}, **trace_mnist.trace(sweep)))
+               "card": card}, **profiled(sweep)))
     del Xb, yb, means
     return timit_k1
 
@@ -5819,7 +5863,7 @@ def main() -> int:
     from keystone_tpu_torch.nodes.learning.linear import BlockLeastSquaresEstimator
     from keystone_tpu_torch.nodes.stats import StandardScaler
     from keystone_tpu_torch.nodes.util import MaxClassifier
-    from keystone_tpu_torch import cost, trace_mnist
+    from keystone_tpu_torch import cost
     from keystone_tpu_torch.evaluation.multiclass import MulticlassClassifierEvaluator
     from keystone_tpu_torch.nodes.learning.kernel import (
         ExactKernelRidge, KernelBlockLinearMapper, KernelRidgeEstimator,
@@ -6206,8 +6250,8 @@ def main() -> int:
     # the featurizer over the first training rows, traced both ways
     Xtr = mtrain.data.to_array()[:MNIST_TRACE_ROWS].to(dev)
     traces = {
-        "eager": trace_mnist.trace(lambda: forward_in_row_chunks(fused.forward, [Xtr], len(Xtr))),
-        "captured": trace_mnist.trace(
+        "eager": profiled(lambda: forward_in_row_chunks(fused.forward, [Xtr], len(Xtr))),
+        "captured": profiled(
             lambda: fused.batch_transform([DatasetExpression.now(Dataset(Xtr))]).to_array()),
     }
     emit({"phase": "compiled_mnist", "num_ffts": MNIST_FULL_FFTS, "rows": Xm.shape[0],
@@ -6217,8 +6261,7 @@ def main() -> int:
           "compiled_signatures": [[list(s), t] for s, t in fitted.compiled_signatures],
           "featurize_trace": {k: {f: v[f] for f in ("host_seconds", "device_seconds",
                                                     "idle_share", "kernels", "host_launches",
-                                                    "graph_launches", "copies",
-                                                    "event_seconds")}
+                                                    "graph_launches", "copies")}
                               for k, v in traces.items()},
           "card": card})
     check(compiled_err == out["test_error"],

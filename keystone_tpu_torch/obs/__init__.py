@@ -9,7 +9,9 @@ planner's estimates with what each node was observed to cost.
 
 Enable with ``KEYSTONE_TRACE=/path/trace.json`` (or the CLI's ``--trace
 PATH``); off, every instrumentation point is one ``current() is None``
-check.
+check. While ``torch.profiler`` records, spans are mirrored into its trace
+as ``record_function`` ranges, and :func:`~.tracer.layer` marks an
+application's layer boundaries for either.
 
 Always on beside it: the flight recorder (``flight``, a bounded ring of
 span summaries and instants, dumped atomically when asked) and the
@@ -40,6 +42,7 @@ from .tracer import (
     export,
     install,
     install_if_absent,
+    layer,
     reset,
     start,
     stop,
@@ -62,6 +65,7 @@ __all__ = [
     "format_top_spans",
     "install",
     "install_if_absent",
+    "layer",
     "log_cache_audit",
     "new_trace_id",
     "observed_by_node",

@@ -19,6 +19,18 @@ Compiles: the JAX package counts XLA backend compiles through
 Wiring: ``utils/obs.configure`` installs the global tracer from
 ``KEYSTONE_TRACE=path`` (or the CLI's ``--trace PATH``) and registers an
 export at exit; library code only calls :func:`current`.
+
+``torch.profiler``: while the profiler records, every span and instant
+is also a ``record_function`` range of its name on the calling thread,
+so it lands in the profiler's Chrome trace as a ``user_annotation`` on
+the kernels' clock. :func:`layer` marks an application's layer
+boundaries (the checker, a fit's phases, filter learning, scoring) for
+both: a span under a tracer, a profiler range while the profiler
+records, and nothing (two flag reads, no ``record_function``, no
+``Span``) when neither is on; ``benchmark/spans.py`` reads its ranges
+in a traced window. Entering a ``record_function`` costs microseconds
+even with no profiler running, so each site reads the profiler's flag
+first.
 """
 
 from __future__ import annotations
@@ -29,7 +41,9 @@ import itertools
 import logging
 import threading
 import time
-from typing import Dict, Iterator, List, Optional
+from typing import ContextManager, Dict, Iterator, List, Optional
+
+from torch.autograd import profiler as _profiler
 
 from .span import Span, cheap_nbytes, sync_value
 
@@ -50,6 +64,19 @@ def count_compile(n: int = 1) -> None:
 
 def _compile_count() -> int:
     return _compiles_seen
+
+
+# -- torch.profiler mirror ---------------------------------------------------
+
+_OFF = contextlib.nullcontext()
+
+
+def _profiler_range(name: str) -> ContextManager:
+    """A ``record_function`` range named ``name`` while ``torch.profiler``
+    records, else a shared no-op."""
+    if _profiler._is_profiler_enabled:
+        return _profiler.record_function(name)
+    return _OFF
 
 
 # -- the tracer -------------------------------------------------------------
@@ -127,23 +154,24 @@ class Tracer:
             attrs=dict(attrs),
         )
         compiles_at_start = _compile_count()
-        stack.append(sp)
-        try:
-            yield sp
-        finally:
-            stack.pop()
-            target = sp.sync_target
-            if target is not None:
-                sp.sync_target = None
-                t0 = time.perf_counter()
-                if sync_value(target):
-                    sp.sync_seconds = time.perf_counter() - t0
-                if sp.output_bytes is None:
-                    sp.output_bytes = cheap_nbytes(target)
-            sp.end = time.perf_counter()
-            sp.compiles = _compile_count() - compiles_at_start
-            with self._lock:
-                self._spans.append(sp)
+        with _profiler_range(name):
+            stack.append(sp)
+            try:
+                yield sp
+            finally:
+                stack.pop()
+                target = sp.sync_target
+                if target is not None:
+                    sp.sync_target = None
+                    t0 = time.perf_counter()
+                    if sync_value(target):
+                        sp.sync_seconds = time.perf_counter() - t0
+                    if sp.output_bytes is None:
+                        sp.output_bytes = cheap_nbytes(target)
+                sp.end = time.perf_counter()
+                sp.compiles = _compile_count() - compiles_at_start
+                with self._lock:
+                    self._spans.append(sp)
 
     def instant(self, name: str, *, node_id: Optional[str] = None,
                 op_type: Optional[str] = None, cache: Optional[str] = None,
@@ -167,6 +195,8 @@ class Tracer:
             instant=True,
             attrs=dict(attrs),
         )
+        with _profiler_range(name):
+            pass
         with self._lock:
             self._spans.append(sp)
         return sp
@@ -292,6 +322,21 @@ def current() -> Optional[Tracer]:
     if getattr(_suspend, "depth", 0):
         return None
     return _current
+
+
+def layer(name: str, **attrs) -> ContextManager:
+    """A layer boundary around a block, on the calling thread: a span named
+    ``name`` with ``attrs`` under the installed tracer (never waited for at
+    exit: the sites sit on their layer's own synchronization points), a
+    ``torch.profiler`` range while the profiler records, both when both
+    are on, and a shared no-op when neither is. What the block is handed
+    is not part of the contract."""
+    # ``_current`` first: ``current()``'s suspension lookup costs about a
+    # microsecond on a thread that never suspended tracing
+    tracer = current() if _current is not None else None
+    if tracer is not None:
+        return tracer.span(name, **attrs)
+    return _profiler_range(name)
 
 
 def install(tracer: Tracer) -> Tracer:

@@ -14,6 +14,7 @@ from ..evaluation.multiclass import MulticlassClassifierEvaluator
 from ..loaders.csv_loader import LabeledData
 from ..nodes.learning.linear import BlockLeastSquaresEstimator, BlockLinearMapper
 from ..nodes.util import ClassLabelIndicators, MaxClassifier
+from ..obs.tracer import layer
 from ..workflow.pipeline import FittedPipeline, Pipeline, clock
 
 
@@ -28,7 +29,7 @@ def fit_and_score(featurizer: Callable[[], Pipeline], estimator: BlockLeastSquar
     given, receives the seconds of each phase: data (to the device),
     optimize (the rule stack of the fit), featurize (fit data), solve (the
     block fit), executor (the fit's graph bookkeeping) and apply (train and
-    test).
+    test). Scoring each set is an ``app.score`` layer span (``obs.layer``).
 
     A chunked ``train.data`` (a ``ChunkedDataset`` whose chunks are made on
     ``device``) goes to the fit as it is: the estimator streams it, so the
@@ -45,8 +46,10 @@ def fit_and_score(featurizer: Callable[[], Pipeline], estimator: BlockLeastSquar
     fitted = scorer.and_then(MaxClassifier()).fit()
     t_fit = clock()
     ev = MulticlassClassifierEvaluator(num_classes)
-    train_err = ev.evaluate(fitted.apply(X_train).to_array(), train.labels).total_error
-    test_err = ev.evaluate(fitted.apply(X_test).to_array(), test.labels).total_error
+    with layer("app.score", set="train"):
+        train_err = ev.evaluate(fitted.apply(X_train).to_array(), train.labels).total_error
+    with layer("app.score", set="test"):
+        test_err = ev.evaluate(fitted.apply(X_test).to_array(), test.labels).total_error
     t_apply = clock()
     if timings is not None:
         timings.update(

@@ -48,6 +48,7 @@ from ..nodes.learning.linear import BlockLeastSquaresEstimator, LinearMapEstimat
 from ..nodes.learning.zca import ZCAWhitener
 from ..nodes.stats import StandardScaler, StandardScalerModel
 from ..nodes.util import ClassLabelIndicators, MaxClassifier
+from ..obs.tracer import layer
 from ..workflow.pipeline import FittedPipeline, Pipeline, clock
 from .random_patch_cifar import (
     RandomCifarConfig,
@@ -213,7 +214,8 @@ def run_random_patch_cifar_kernel(
     ``scorer.and_then(MaxClassifier())`` reuse its fits). ``timings``, when
     given, receives the seconds of each phase: filters, optimize (the rule
     stack of the fit), featurize (fit data), fit (scaler and KRR, with the
-    fit's graph bookkeeping) and apply (train and test)."""
+    fit's graph bookkeeping) and apply (train and test). Scoring each set
+    is an ``app.score`` layer span (``obs.layer``)."""
     dev = device if device is not None else pick_device()
     start = time.perf_counter()
     X_train = train.data.to_array().to(dev)
@@ -241,12 +243,14 @@ def run_random_patch_cifar_kernel(
     fitted = pipeline.fit()
     t_fit = clock()
     ev = MulticlassClassifierEvaluator(NUM_CLASSES)
-    train_err = ev.evaluate(
-        pipeline(X_train).get().to_array(), train.labels
-    ).total_error
-    test_err = ev.evaluate(
-        pipeline(X_test).get().to_array(), test.labels
-    ).total_error
+    with layer("app.score", set="train"):
+        train_err = ev.evaluate(
+            pipeline(X_train).get().to_array(), train.labels
+        ).total_error
+    with layer("app.score", set="test"):
+        test_err = ev.evaluate(
+            pipeline(X_test).get().to_array(), test.labels
+        ).total_error
     t_apply = clock()
     if timings is not None:
         optimize = fitted.seconds["optimize"]

@@ -37,6 +37,7 @@ from ..nodes.learning.linear import BlockLeastSquaresEstimator
 from ..nodes.learning.zca import ZCAWhitener, ZCAWhitenerEstimator
 from ..nodes.stats import Sampler, StandardScaler
 from ..nodes.util import ClassLabelIndicators, MaxClassifier
+from ..obs.tracer import layer
 from ..utils.stats import normalize_rows
 from ..workflow.pipeline import Pipeline, clock
 
@@ -68,25 +69,27 @@ def learn_filters(train_images, conf: RandomCifarConfig
     The JAX package windows every image and then samples; at CIFAR's size
     that is 36.45M patches (15.7 GB). Here the sampled windows are
     gathered directly: the same numpy draw over the same emission order
-    picks the same rows."""
-    X = Dataset.of(train_images).to_array()
-    windower = Windower(conf.patch_steps, conf.patch_size)
-    nx, ny = windower.grid(X.shape[1], X.shape[2])
-    idx = Sampler(conf.whitener_size, seed=conf.seed).indices(X.shape[0] * nx * ny)
-    base = vectorize_images(windower.gather(X, torch.from_numpy(idx)))
-    base_mat = normalize_rows(base.float(), 10.0)
-    whitener = ZCAWhitenerEstimator(conf.whitening_epsilon).fit_single(base_mat)
+    picks the same rows. The whole function is the ``app.filters`` layer
+    span (``obs.layer``)."""
+    with layer("app.filters"):
+        X = Dataset.of(train_images).to_array()
+        windower = Windower(conf.patch_steps, conf.patch_size)
+        nx, ny = windower.grid(X.shape[1], X.shape[2])
+        idx = Sampler(conf.whitener_size, seed=conf.seed).indices(X.shape[0] * nx * ny)
+        base = vectorize_images(windower.gather(X, torch.from_numpy(idx)))
+        base_mat = normalize_rows(base.float(), 10.0)
+        whitener = ZCAWhitenerEstimator(conf.whitening_epsilon).fit_single(base_mat)
 
-    rng = np.random.default_rng(conf.seed)
-    pick = rng.choice(
-        base_mat.shape[0], size=min(conf.num_filters, base_mat.shape[0]),
-        replace=False,
-    )
-    sample = base_mat[torch.from_numpy(np.sort(pick)).to(base_mat.device)]
-    unnorm = whitener.transform(sample)
-    norms = torch.sqrt(torch.sum(unnorm * unnorm, dim=1))
-    filters = (unnorm / (norms + 1e-10)[:, None]) @ whitener.whitener.T
-    return filters, whitener
+        rng = np.random.default_rng(conf.seed)
+        pick = rng.choice(
+            base_mat.shape[0], size=min(conf.num_filters, base_mat.shape[0]),
+            replace=False,
+        )
+        sample = base_mat[torch.from_numpy(np.sort(pick)).to(base_mat.device)]
+        unnorm = whitener.transform(sample)
+        norms = torch.sqrt(torch.sum(unnorm * unnorm, dim=1))
+        filters = (unnorm / (norms + 1e-10)[:, None]) @ whitener.whitener.T
+        return filters, whitener
 
 
 def conv_featurizer(filters: torch.Tensor, whitener: Optional[ZCAWhitener],

@@ -53,7 +53,7 @@ import numpy as np
 import torch
 
 from ..data.dataset import Dataset, map_leaves
-from ..obs.tracer import current as _trace_current
+from ..obs.tracer import current as _trace_current, layer
 from . import analysis
 from .cuda_graph import GraphCache, dtype_name
 from .env import PipelineEnv
@@ -215,14 +215,15 @@ def _static_check(pipeline: "Pipeline", where: str):
 
     if not check_mod.check_enabled():
         return None
-    try:
-        return pipeline.check(span=False)
-    except check_mod.PipelineCheckError:
-        raise
-    except Exception:
-        logger.warning("static check failed internally at %s; continuing unchecked",
-                       where, exc_info=True)
-        return None
+    with layer("check.static", where=where):
+        try:
+            return pipeline.check(span=False)
+        except check_mod.PipelineCheckError:
+            raise
+        except Exception:
+            logger.warning("static check failed internally at %s; continuing unchecked",
+                           where, exc_info=True)
+            return None
 
 
 def _run_check(graph: Graph, source: SourceId, spec: Optional[tuple], span: bool,
@@ -441,7 +442,9 @@ class Pipeline(Chainable):
         and counted there), of each estimator's fit (by class name), and
         of the rest of this method ("executor": the graph edits and the
         pull bookkeeping). The card is synchronized at those boundaries
-        only.
+        only. The featurize and estimator intervals are also layer spans
+        (``obs.layer``: ``fit.featurize``, ``fit.<estimator class>``), as
+        is the checker at fit entry and at ``and_then`` (``check.static``).
 
         With a profile store configured (``KEYSTONE_PROFILE_DIR``) the fit
         closes the cost-model loop (:func:`fit_instrumentation`): the
@@ -484,21 +487,26 @@ class Pipeline(Chainable):
             est_dep, *data_deps = graph.get_dependencies(node)
             est = graph.get_operator(est_dep) if isinstance(est_dep, NodeId) else None
             est_deps = graph.get_dependencies(est_dep) if est is not None else ()
+            if not isinstance(est, EstimatorOperator):
+                fitted = executor.execute(est_dep).get()
             # the data is forced apart (the "featurize" seconds) only where
             # the executor keeps it for the estimator's pull: under an
             # auto-cache plan an uncached input would be computed twice
-            if isinstance(est, EstimatorOperator) and all(
-                    executor._retain(graph, d) for d in est_deps if isinstance(d, NodeId)):
-                t0 = clock()
-                for d in est_deps:
-                    executor.execute(d).get()
-                t1 = clock()
-                fitted = executor.execute(est_dep).get()
-                t2 = clock()
-                add("featurize", t1 - t0)
-                add(type(est).__name__, t2 - t1)
+            elif all(executor._retain(graph, d) for d in est_deps if isinstance(d, NodeId)):
+                # each interval is read inside its own span, so the span
+                # covers what ``seconds`` counts
+                with layer("fit.featurize"):
+                    t0 = clock()
+                    for d in est_deps:
+                        executor.execute(d).get()
+                    add("featurize", clock() - t0)
+                with layer(f"fit.{type(est).__name__}"):
+                    t0 = clock()
+                    fitted = executor.execute(est_dep).get()
+                    add(type(est).__name__, clock() - t0)
             else:
-                fitted = executor.execute(est_dep).get()
+                with layer(f"fit.{type(est).__name__}"):
+                    fitted = executor.execute(est_dep).get()
             if not isinstance(fitted, TransformerOperator):
                 raise TypeError(
                     f"estimator at {est_dep} produced {type(fitted).__name__}, "

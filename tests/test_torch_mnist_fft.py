@@ -373,25 +373,3 @@ def test_cli_runs_on_the_cpu_when_asked(capsys):
                  "--numFFTs", "2", "--blockSize", "512", "--lambda", "10"]) == 0
     out = capsys.readouterr().out
     assert "TRAIN Error is" in out and "TEST Error is" in out
-
-
-def test_trace_counts_featurizer_bytes_and_device_busy_time():
-    from keystone_tpu_torch.trace_mnist import _busy_seconds, featurize_bytes
-
-    # 784 pads to 1024: 513 complex bins, 512 real features kept per branch
-    per_row = featurize_bytes(1, 1)
-    assert per_row == {"sign": 4 * 1568, "pad": 4 * 1808, "rfft": 4 * 2050,
-                       "real_copy": 4 * 1024, "rectify": 4 * 1024,
-                       "combine": 4 * 1024, "chunk_copy": 4 * 1024}
-    assert featurize_bytes(60000, 200) == {k: v * 60000 * 200 for k, v in per_row.items()}
-    # overlapping intervals (µs) count once; a gap is idle
-    assert _busy_seconds([(5, 12), (0, 10), (20, 30)]) == pytest.approx(22e-6)
-    assert _busy_seconds([]) == 0.0
-
-
-def test_trace_refuses_without_a_card(monkeypatch):
-    from keystone_tpu_torch import trace_mnist
-
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(SystemExit, match="needs a CUDA card"):
-        trace_mnist.main(["--nTrain", "16"])
