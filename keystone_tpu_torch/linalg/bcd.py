@@ -7,13 +7,23 @@ A host loop walks the blocks; each block step is a residual GEMM, the
 block's Gram and cross products, a Cholesky solve and an in-place update
 of the prediction buffer (the JAX package donates that buffer to its
 step program). ``num_iter = 1`` is the one-pass variant that MNIST, CIFAR,
-VOC and ImageNet fit with; TIMIT sweeps five times. Each sweep computes
-every block's Gram anew, as the JAX package's scan does, so that the two
-compute the same thing (keeping the factors across sweeps is later work).
+VOC and ImageNet fit with; TIMIT sweeps five times.
+
+Ã_j and λ do not change between sweeps, so neither does the lower Cholesky
+factor L_j of Ã_jᵀÃ_j + λI. Every body solves through
+:func:`_block_solve`: a block's first step forms its Gram and factors it;
+where a later sweep reads the factor (``num_iter > 1`` and the block no
+wider than the rows, :func:`_keeps_factor`) the solve keeps L_j on the
+block's device and its later steps solve from it, with no Gram, no
+factorization and no host read of the factorization's status. The kept
+factors cost Σ b_j² floats, at most the design matrix's n·d since b_j ≤ n
+(3.4 GB for TIMIT's 50 blocks of 4096), and live only as long as one solve
+call: nothing is kept across fits or λ values. The JAX package's scan forms
+every Gram anew each sweep; the factor is the one it recomputes.
 
 :func:`solve_blockwise_l2_streaming` solves over a design matrix that is
 never whole: each block step is one scan of a chunk source, and only the
-labels, the prediction buffer, one chunk and the per-block Grams stay on
+labels, the prediction buffer, one chunk and the kept factors stay on
 the card. Its laned body (:func:`_solve_blockwise_l2_streaming_lanes`)
 deals the chunks over the data-axis slots of the mesh, one partial Gram
 and cross term a lane, reduced once a block step.
@@ -28,13 +38,57 @@ buys structure, not memory: every block is still on that card.
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Sequence, Tuple
+from contextvars import ContextVar
+from typing import Callable, Dict, Hashable, List, Optional, Sequence, Tuple
 
 import torch
 
 from ..data.pipeline_scan import scan_pipeline
 from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, NamedSharding, _placed, mesh_or_none
-from .row_matrix import cross, gram, solve_spd
+from .row_matrix import cross, gram
+
+
+def _keeps_factor(num_iter: int, rows: int, width: int) -> bool:
+    """Whether a solve keeps a block's Cholesky factor: only where a later
+    sweep reads it, and only for a block no wider than the rows, so that
+    the factors cost at most what the design matrix costs."""
+    return num_iter > 1 and width <= rows
+
+
+def _block_solve(factors: Dict[Hashable, Optional[torch.Tensor]], key: Hashable,
+                 gram_of: Callable[[], torch.Tensor], rhs: torch.Tensor,
+                 reg: float) -> torch.Tensor:
+    """Solve (G + λI) W = rhs for one block, G the block's Gram.
+
+    With no factor kept under ``key`` in ``factors`` the Gram is formed
+    (``gram_of()``) and factored as ``row_matrix.solve_spd`` does, raising
+    ``torch.linalg.LinAlgError`` where it is not positive definite; the
+    lower factor is kept where ``factors`` holds ``key`` (a solve that keeps
+    the block's factor puts the key there, holding None, before its first
+    step). Otherwise the kept factor solves alone. Adds one to
+    ``_block_solve.factors_formed`` or ``_block_solve.factors_reused``."""
+    L = factors.get(key)
+    if L is None:
+        G = gram_of()
+        L = torch.linalg.cholesky(G + reg * torch.eye(G.shape[0], dtype=G.dtype, device=G.device))
+        del G
+        if key in factors:
+            factors[key] = L
+        _block_solve.factors_formed += 1
+    else:
+        _block_solve.factors_reused += 1
+    return torch.cholesky_solve(rhs, L, upper=False)
+
+
+_block_solve.factors_formed = 0
+_block_solve.factors_reused = 0
+
+# The factors kept by the in-memory solve running in this context, by
+# (block, means) identity. The block step reads them here rather than from
+# a seventh argument, so that it keeps the six arguments its callers and
+# the wrappers put in its place rely on.
+_KEPT_FACTORS: ContextVar[Optional[Dict[Hashable, Optional[torch.Tensor]]]] = ContextVar(
+    "bcd_kept_factors", default=None)
 
 
 def _block_update_impl(
@@ -54,10 +108,14 @@ def _block_update_impl(
 
     The centered block Ã_j = A_j − m_j is the step's only copy of block
     data: XLA fuses the subtract into the GEMM reads, eager PyTorch cannot.
-    Every step adds one to ``_block_update_impl.steps``."""
+    Inside :func:`solve_blockwise_l2` the solve's kept factor of this block
+    replaces the Gram and its factorization (:func:`_block_solve`); called
+    alone, the step forms and factors and keeps nothing. Every step adds
+    one to ``_block_update_impl.steps``."""
     Ajc = Aj if mj is None else Aj - mj
     r = y - pred + Ajc @ Wj_old
-    Wj = solve_spd(gram(Ajc), cross(Ajc, r), reg)
+    Wj = _block_solve(_KEPT_FACTORS.get() or {}, (id(Aj), id(mj)), lambda: gram(Ajc),
+                      cross(Ajc, r), reg)
     pred.add_(Ajc @ (Wj - Wj_old))
     _block_update_impl.steps += 1
     return Wj, pred
@@ -98,8 +156,10 @@ def solve_blockwise_l2(
     (the VectorSplitter output; they may differ in width). ``means``, the
     per-block column means, are subtracted inside each step. ``init``, the
     per-block starting weights, warm-starts the descent with the prediction
-    buffer made consistent (pred = Σ Ã_j W_j⁰). Returns the per-block
-    (b_j, k) weights."""
+    buffer made consistent (pred = Σ Ã_j W_j⁰). Each block's Cholesky
+    factor is kept from its first step to the call's end where
+    :func:`_keeps_factor` says so. Returns the per-block (b_j, k)
+    weights."""
     y = y.float()
     k = y.shape[1]
     blocks = [b.float() for b in blocks]
@@ -115,11 +175,16 @@ def solve_blockwise_l2(
         Ws = [w.float() for w in init]
         for Aj, mj, Wj in zip(blocks, means, Ws):
             pred.add_((Aj if mj is None else Aj - mj) @ Wj)
-    for _ in range(num_iter):
-        for j, Aj in enumerate(blocks):
-            # a block on another device (a model slot) takes the buffer there
-            Ws[j], pred = _block_update_impl(Aj, means[j], Ws[j], pred.to(Aj.device),
-                                             y.to(Aj.device), reg)
+    kept = _KEPT_FACTORS.set({(id(Aj), id(mj)): None for Aj, mj in zip(blocks, means)
+                              if _keeps_factor(num_iter, *Aj.shape)})
+    try:
+        for _ in range(num_iter):
+            for j, Aj in enumerate(blocks):
+                # a block on another device (a model slot) takes the buffer there
+                Ws[j], pred = _block_update_impl(Aj, means[j], Ws[j], pred.to(Aj.device),
+                                                 y.to(Aj.device), reg)
+    finally:
+        _KEPT_FACTORS.reset(kept)
     return Ws
 
 
@@ -270,9 +335,13 @@ def solve_blockwise_l2_streaming(
 
     Scans: num_iter × nblocks, one per block step, each also applying the
     previous block's prediction update; every scan's first chunk must be
-    d wide. Each block's Gram is formed in the first sweep and kept (nblocks
-    × block_size², 268 MB at d 16,384 in blocks of 4096). Every block step
-    adds one to ``solve_blockwise_l2_streaming.block_steps``.
+    d wide. Each block's Gram is accumulated over the first sweep's scan and
+    factored (:func:`_block_solve`); with ``num_iter > 1`` the lower factor
+    is kept for the later sweeps, which accumulate the cross term alone and
+    solve from it (nblocks × block_size² floats, 268 MB at d 16,384 in
+    blocks of 4096; a block wider than the rows keeps nothing and forms its
+    Gram each sweep). Every block step adds one to
+    ``solve_blockwise_l2_streaming.block_steps``.
 
     ``lanes`` (default ``parallel.lanes.scan_lanes()``, which is 1 on one
     card without a mesh of several slots): with more than one, the laned
@@ -307,15 +376,15 @@ def solve_blockwise_l2_streaming(
                                                    num_iter, means, lanes)
     nblocks = len(starts)
     Ws = [torch.zeros((sz, k), dtype=torch.float32, device=dev) for sz in sizes]
-    grams: List[Optional[torch.Tensor]] = [None] * nblocks
+    factors = {b: None for b in range(nblocks) if _keeps_factor(num_iter, n, sizes[b])}
     pred = torch.zeros_like(y_zm)
     delta_prev = None
     jprev, prev_size = 0, sizes[0]
     for _ in range(num_iter):
         for b in range(nblocks):
-            do_gram = grams[b] is None
+            do_gram = factors.get(b) is None
             G = (torch.zeros((sizes[b], sizes[b]), dtype=torch.float32, device=dev)
-                 if do_gram else grams[b])
+                 if do_gram else None)
             c = torch.zeros((sizes[b], k), dtype=torch.float32, device=dev)
             row0 = 0
             for chunk in scan_pipeline(chunk_scan(), label="bcd.stream", device=dev):
@@ -331,8 +400,8 @@ def solve_blockwise_l2_streaming(
                 del chunk
             if row0 != n:
                 raise ValueError(f"chunk source produced {row0} rows, labels have {n}")
-            grams[b] = G
-            W_new = solve_spd(G, c, reg)
+            W_new = _block_solve(factors, b, lambda: G, c, reg)
+            del G
             delta_prev = W_new - Ws[b]
             Ws[b] = W_new
             jprev, prev_size = starts[b], sizes[b]
@@ -369,14 +438,14 @@ def _solve_blockwise_l2_streaming_lanes(chunk_scan, y_zm: torch.Tensor, reg: flo
     y_chunks: List[torch.Tensor] = []
     chunk_rows: List[int] = []
     Ws = [torch.zeros((sz, k), dtype=torch.float32, device=dev) for sz in sizes]
-    grams: List[Optional[torch.Tensor]] = [None] * len(starts)
+    factors = {b: None for b in range(len(starts)) if _keeps_factor(num_iter, n, sizes[b])}
     delta_prev = None
     jprev, prev_size = 0, sizes[0]
     first_scan = True
     for _ in range(num_iter):
         for b in range(len(starts)):
             do_prev = delta_prev is not None
-            do_gram = grams[b] is None
+            do_gram = factors.get(b) is None
             G_l: List[Optional[torch.Tensor]] = [None] * lanes
             c_l: List[Optional[torch.Tensor]] = [None] * lanes
             # the block's model read by every lane: counted as broadcasts
@@ -416,12 +485,12 @@ def _solve_blockwise_l2_streaming_lanes(chunk_scan, y_zm: torch.Tensor, reg: flo
             if row0 != n:
                 raise ValueError(f"chunk source produced {row0} rows, labels have {n}")
             first_scan = False
-            if do_gram:
-                grams[b] = reduce_lane_partials(G_l, scan=pipe, devices=devs).to(dev)
+            G = reduce_lane_partials(G_l, scan=pipe, devices=devs).to(dev) if do_gram else None
             c = reduce_lane_partials(c_l, scan=pipe, devices=devs)
             if c is None:
                 raise ValueError("empty chunk source")
-            W_new = solve_spd(grams[b], c.to(dev), reg)
+            W_new = _block_solve(factors, b, lambda: G, c.to(dev), reg)
+            del G
             delta_prev = W_new - Ws[b]
             Ws[b] = W_new
             jprev, prev_size = starts[b], sizes[b]

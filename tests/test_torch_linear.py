@@ -196,6 +196,68 @@ def test_scan_reads_blocks_in_place_and_equals_the_list_form():
         bcd.solve_blockwise_l2_scan(A, _t(Y), 0.7, 7)
 
 
+def _factor_counts():
+    return (bcd._block_update_impl.steps, bcd._block_solve.factors_formed,
+            bcd._block_solve.factors_reused)
+
+
+@pytest.mark.parametrize("rows", [256, 6], ids=["tall", "wider_than_rows"])
+@pytest.mark.parametrize("form", ["list", "scan", "scan_on_a_model_axis"])
+@pytest.mark.parametrize("num_iter", [1, 3])
+def test_block_factors_are_kept_across_sweeps_and_match_jax(num_iter, form, rows):
+    """Three blocks of 8: each block's Cholesky factor is formed on its first
+    step and solves the later sweeps' steps, unless the block is wider than
+    the rows; the weights stay those of the JAX scan, which forms every Gram
+    anew. The model axis places each block (and its factor) on its slot."""
+    from keystone_tpu_torch.parallel import mesh, virtual
+
+    X, Y = _problem(n=rows, d=24, seed=21)
+    means = X.mean(0)
+    before = _factor_counts()
+    if form == "list":
+        got = torch.cat(bcd.solve_blockwise_l2(
+            [_t(X)[:, i:i + 8] for i in range(0, 24, 8)], _t(Y), 1.5, num_iter,
+            means=[_t(means)[i:i + 8] for i in range(0, 24, 8)]))
+    elif form == "scan":
+        got = bcd.solve_blockwise_l2_scan(_t(X), _t(Y), 1.5, 8, num_iter, means=_t(means))
+    else:
+        saved = (mesh._default_mesh, virtual._slots)
+        virtual.provision_virtual_devices(8)
+        try:
+            with mesh.use_mesh(mesh.make_mesh(n_data=2, n_model=3)):
+                assert bcd._bcd_scan_model_sharded(rows, 24, 8) is not None
+                got = bcd.solve_blockwise_l2_scan(_t(X), _t(Y), 1.5, 8, num_iter,
+                                                  means=_t(means))
+        finally:
+            mesh._default_mesh, virtual._slots = saved
+    want = jbcd._bcd_scan(jnp.asarray(X), jnp.asarray(Y), jnp.float32(1.5), jnp.asarray(means),
+                          block_size=8, num_iter=num_iter)
+    np.testing.assert_allclose(got.numpy(), _np(want), **W_TOL)
+    steps, formed, reused = (a - b for a, b in zip(_factor_counts(), before))
+    assert steps == 3 * num_iter
+    if rows >= 8:
+        assert (formed, reused) == (3, 3 * (num_iter - 1))
+    else:  # kept factors would outweigh the design matrix: every step factors
+        assert (formed, reused) == (3 * num_iter, 0)
+    assert bcd._KEPT_FACTORS.get() is None  # nothing outlives the solve
+
+
+def test_a_singular_block_raises_in_the_first_sweep_at_that_block():
+    """At λ = 0 a block with a zero column has no Cholesky factor: the solve
+    raises at that block's first step, and the step count names the block
+    (the count of steps done, modulo the blocks)."""
+    X, Y = _problem(n=64, d=24, seed=22)
+    X[:, 11] = 0.0  # block 1 of three
+    blocks = [_t(X)[:, i:i + 8] for i in range(0, 24, 8)]
+    before = _factor_counts()
+    with pytest.raises(torch.linalg.LinAlgError):
+        bcd.solve_blockwise_l2(blocks, _t(Y), 0.0, 3)
+    steps, formed, reused = (a - b for a, b in zip(_factor_counts(), before))
+    assert (steps, formed, reused) == (1, 1, 0)
+    assert steps % len(blocks) == 1
+    assert bcd._KEPT_FACTORS.get() is None
+
+
 def test_linear_map_estimator_and_mapper_match_jax():
     X, Y = _problem(seed=12)
     model = LinearMapEstimator(lam=0.5).fit(Dataset.of(X), Dataset.of(Y))

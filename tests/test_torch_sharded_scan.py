@@ -105,6 +105,24 @@ def test_streamed_bcd_lanes_equal_jax_centered_ragged(lanes, num_iter):
         assert _maxdiff(a, c) <= TOL
 
 
+def test_laned_streamed_bcd_keeps_each_blocks_factor_across_sweeps():
+    """The laned body: each block's factor is formed from the first sweep's
+    reduced Gram and solves the second sweep, as JAX's laned result."""
+    from keystone_tpu_torch.linalg import bcd
+
+    A, y = _problem(n=204, d=16)
+    means = A.mean(axis=0)
+    kw = dict(reg=0.1, block_size=4, num_iter=2)
+    formed, reused = bcd._block_solve.factors_formed, bcd._block_solve.factors_reused
+    wn = tla.solve_blockwise_l2_streaming(_scan(A, 36), _t(y), lanes=4, means=_t(means), **kw)
+    assert (bcd._block_solve.factors_formed - formed, bcd._block_solve.factors_reused - reused) \
+        == (4, 4)
+    wj = jla.solve_blockwise_l2_streaming(_scan(A, 36), jnp.asarray(y), lanes=4,
+                                          means=jnp.asarray(means), **kw)
+    for a, b in zip(wn, wj):
+        assert _maxdiff(a, b) <= TOL
+
+
 def test_streamed_bcd_takes_a_source_that_hands_over_its_own_scan():
     from keystone_tpu_torch.data.pipeline_scan import scan_pipeline
 

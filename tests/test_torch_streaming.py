@@ -125,6 +125,23 @@ def test_streaming_bcd_counts_block_steps_and_scans():
     assert len(scans) == 6  # one scan a block step
 
 
+@pytest.mark.parametrize("num_iter", [1, 3])
+def test_streaming_bcd_keeps_each_blocks_factor_across_sweeps(num_iter):
+    """Three blocks: each factor is formed in the first sweep's scan and
+    solves the later sweeps, which accumulate the cross term alone."""
+    A, y = _problem()
+    means = A.mean(axis=0)
+    formed, reused = bcd._block_solve.factors_formed, bcd._block_solve.factors_reused
+    ws = bcd.solve_blockwise_l2_streaming(_scan(A, 32), torch.from_numpy(y), 0.1, 4, num_iter,
+                                          means=torch.from_numpy(means))
+    assert bcd._block_solve.factors_formed - formed == 3
+    assert bcd._block_solve.factors_reused - reused == 3 * (num_iter - 1)
+    want = np.concatenate([np.asarray(w) for w in j_stream_bcd(
+        _scan(A, 32), jnp.asarray(y), reg=0.1, block_size=4, num_iter=num_iter,
+        means=jnp.asarray(means), lanes=1)])
+    np.testing.assert_allclose(torch.cat(ws).numpy(), want, **JAX_TOL)
+
+
 def test_streaming_bcd_ragged_last_block_matches_jax():
     A, y = _problem(d=10)  # blocks of 4, 4, 2
     scan = lambda: iter([A[:50], A[50:]])  # noqa: E731
